@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the paged attention kernels.
+
+They are the CPU path of ``kernels.ops`` and the yardstick the CUDA kernels
+are held against on the card.  Semantics follow the reference's oracles
+(``repro.kernels.ref.paged_decode_attention_ref`` /
+``paged_prefill_attention_ref``): f32 math, masked scores at -1e30, softcap
+before the mask, rows with nothing to attend return exact zeros.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1.0e30
+
+
+def _softcap(s, cap: float):
+    return cap * torch.tanh(s / cap) if cap else s
+
+
+def _gather(pool, block_tables):
+    """pool [P, ps, K, d], block_tables [B, nb] -> [B, nb*ps, K, d] f32."""
+    g = pool[block_tables.long()]
+    B, nb, ps = g.shape[:3]
+    return g.reshape(B, nb * ps, *g.shape[3:]).float()
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                               cap: float = 0.0,
+                               scale: Optional[float] = None):
+    """q: [B, H, d]; k_pages/v_pages: [P, ps, K, d]; block_tables: [B, nb];
+    lengths: [B].  Query b attends gathered positions < lengths[b]; rows of
+    length 0 return zeros.  Returns [B, H, d] in q's dtype."""
+    B, H, d = q.shape
+    K = k_pages.shape[2]
+    G = H // K
+    if scale is None:
+        scale = d ** -0.5
+    k = _gather(k_pages, block_tables)                    # [B, T, K, d]
+    v = _gather(v_pages, block_tables)
+    T = k.shape[1]
+    qf = q.float().reshape(B, K, G, d) * scale
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k)
+    s = _softcap(s, cap)
+    lens = lengths.long()
+    mask = torch.arange(T, device=q.device)[None] < lens[:, None]  # [B, T]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v).reshape(B, H, d)
+    out = torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def paged_prefill_attention_ref(q, k, v, k_pages, v_pages, block_tables,
+                                offsets, chunk_lens, *, cap: float = 0.0,
+                                scale: Optional[float] = None):
+    """q: [B, C, H, d]; k/v: [B, C, K, d] the chunk's own K/V; pools
+    [P, ps, K, d]; block_tables [B, nb]; offsets / chunk_lens [B].  Query i
+    of row b attends prefix positions < offsets[b] plus chunk positions
+    j <= i with j < chunk_lens[b]; rows with offset 0 and chunk_len 0
+    return zeros.  Returns [B, C, H, d] in q's dtype."""
+    B, C, H, d = q.shape
+    K = k.shape[2]
+    G = H // K
+    if scale is None:
+        scale = d ** -0.5
+    dev = q.device
+    k_pre = _gather(k_pages, block_tables)
+    v_pre = _gather(v_pages, block_tables)
+    T = k_pre.shape[1]
+    kk = torch.cat([k_pre, k.float()], dim=1)                  # [B,T+C,K,d]
+    vv = torch.cat([v_pre, v.float()], dim=1)
+    qf = q.float().reshape(B, C, K, G, d) * scale
+    s = torch.einsum("bckgd,btkd->bkgct", qf, kk)
+    s = _softcap(s, cap)
+    offs = offsets.long()
+    cls = chunk_lens.long()
+    ar_t = torch.arange(T, device=dev)
+    ar_c = torch.arange(C, device=dev)
+    qpos = offs[:, None] + ar_c[None]                           # [B, C]
+    kvpos = torch.cat([ar_t[None].expand(B, T), qpos], dim=1)   # [B, T+C]
+    valid = torch.cat([ar_t[None] < offs[:, None],
+                       ar_c[None] < cls[:, None]], dim=1)
+    mask = valid[:, None, :] & (kvpos[:, None, :] <= qpos[:, :, None])
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgct,btkd->bckgd", p, vv).reshape(B, C, H, d)
+    empty = (offs == 0) & (cls == 0)
+    out = torch.where(empty[:, None, None, None], torch.zeros_like(out), out)
+    return out.to(q.dtype)

@@ -1,0 +1,545 @@
+"""Continuous-batching inference engine over a paged KV cache (port of
+``repro.serving.engine.InferenceEngine``, serving half).
+
+One engine is one rollout instance.  Global-attention KV lives in shared
+page pools with per-request block tables (``PagedKVAllocator``); decode
+concurrency is bounded by ``max_batch`` slots.  The scheduler keeps the
+reference's contracts:
+
+  * ``step()`` decodes ``horizon`` tokens per active request in one
+    dispatch: a Python loop of H model steps with sampling, EOS /
+    ``max_total`` stopping and token feedback all on the device, and ONE
+    host sync after the loop (the reference's ``lax.scan``);
+  * scheduler state (last tokens, keys, active mask, max totals, block
+    table) is device-resident and re-uploaded only when the host changed it;
+  * before each horizon the host reserves every active slot's write window
+    [ctx_len, ctx_len + H) (``reserve_decode``: capacity, pool growth and
+    COW copies up front), so nothing in the loop touches the allocator;
+  * prefill runs in token-budget chunks right-padded to multiples of
+    ``PREFILL_TILE``, batched across waiting requests and interleaved with
+    decode;
+  * ``add_group`` prefills a GRPO group's prompt once and forks its pages
+    copy-on-write to every sibling;
+  * admission is by capacity (``AdmissionError``), commitment-based when the
+    pool is capped (``max_pool_pages``).
+
+Attention runs through ``kernels.ops``: the hand-written CUDA kernels on the
+card, their plain versions on the CPU.  Sampling keys are (request,
+position)-addressed, so H > 1 emits exactly the tokens of H = 1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.tokenizer import EOS, PAD
+from repro_torch.models import kv_cache as kvc
+from repro_torch.models.kv_cache import (GARBAGE_PAGE, OutOfPages,
+                                         PagedKVAllocator)
+from repro_torch.models.transformer import forward, logits_from_hidden
+from repro_torch.obs.tracer import NULL_TRACER
+from repro_torch.rl.sampler import sample_token, token_logprob
+
+# prefill chunks are right-padded up to a multiple of the kernel query tile
+PREFILL_TILE = 128
+
+# parked in the device token buffer for empty / finished rows — a finished
+# row's stale last token must never leak into a reused batch row
+TOKEN_SENTINEL = PAD
+
+
+class AdmissionError(RuntimeError):
+    """Request rejected at admission (engine full / over capacity)."""
+
+
+def _bucket(n: int, minimum: int = 16) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _tile_bucket(n: int, tile: int = PREFILL_TILE) -> int:
+    """Round ``n`` up to a multiple of ``tile``."""
+    return max(tile, -(-n // tile) * tile)
+
+
+@dataclass
+class SlotState:
+    req_id: int
+    key_data: np.ndarray            # [2] uint32 raw key
+    tokens: List[int]               # prompt + generated (absolute history)
+    n_prompt: int
+    max_total: int
+    last_token: int
+    table: List[int]                # block table (page ids)
+    ctx_len: int                    # tokens whose KV is in the pool
+
+
+@dataclass
+class _WaitRow:
+    """One prefill context: a request's prompt+partial, or a GRPO group's
+    shared prompt.  ``members`` are the requests that will consume it."""
+    token_ids: List[int]
+    table: List[int]
+    members: List[Tuple[int, np.ndarray, int, int, int]]
+    # (req_id, key_data, max_total, n_prompt, slot)
+    done: int = 0                   # tokens already prefilled (chunking)
+
+
+@dataclass
+class StepEvent:
+    req_id: int
+    token: int
+    logprob: float
+    finished: bool
+    weight_version: int = 0     # weights that produced this token
+
+
+class InferenceEngine:
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
+                 slab_len: int = 256, temperature: float = 1.0,
+                 weight_version: int = 0, page_size: int = 16,
+                 prefill_chunk: int = 256, max_context: Optional[int] = None,
+                 horizon: int = 1, max_pool_pages: Optional[int] = None,
+                 tracer=None, device=None):
+        """``slab_len`` sizes the initial pool (2 * max_batch * slab_len
+        tokens); pages are allocated, and the pool grown, on demand, bounded
+        by ``max_context`` and ``max_pool_pages`` when set.  ``horizon`` is
+        the number of tokens one ``step()`` decodes per active request.
+        ``device=None`` means CUDA (raises when absent); tests pass "cpu".
+        ``params`` must already be on that device."""
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.trace_lane = "engine"
+        self.weight_version = weight_version
+        self.max_batch = max_batch
+        self.prefill_chunk = prefill_chunk
+        self.temperature = temperature
+        self.max_context = max_context
+        self.horizon = max(int(horizon), 1)
+        num_pages = max(2 * (max_batch * slab_len) // page_size, 8) + 1
+        if max_pool_pages is not None:
+            num_pages = max(min(num_pages, int(max_pool_pages)), 2)
+        self.max_pool_pages = max_pool_pages
+        self.alloc = PagedKVAllocator(num_pages, page_size,
+                                      max_pages=max_pool_pages)
+        self.cache = kvc.init_paged_cache(cfg, max_batch, num_pages,
+                                          page_size, dtype=torch.float32,
+                                          device=self.device)
+        self.slots: List[Optional[SlotState]] = [None] * max_batch
+        self._reserved: Dict[int, int] = {}     # req_id -> slot (waiting)
+        self.waiting: List[_WaitRow] = []
+        # host mirrors of the device-resident decode state (authoritative
+        # only while ``_state_dirty``; re-uploaded once, then the decode
+        # loop's carried outputs ARE the state)
+        self.tokens_buf = np.full((max_batch,), TOKEN_SENTINEL, np.int32)
+        self.keys_buf = np.zeros((max_batch, 2), np.uint32)
+        self.maxtot_buf = np.zeros((max_batch,), np.int32)
+        self._dev_tokens = None
+        self._dev_keys = None
+        self._dev_active = None
+        self._dev_maxtot = None
+        self._state_dirty = True
+        self._bt_dev = None                     # cached device block table
+        self._bt_width = 0
+        self._bt_dirty = True
+        self.n_prefills = 0                     # context prefills (rows)
+        self.n_prefill_tokens = 0
+        self.n_prefill_dispatches = 0           # batched chunk forwards
+        self.n_shared_prompt_tokens = 0         # tokens NOT re-prefilled
+        self.n_decode_dispatches = 0            # horizon dispatches
+        self.n_state_uploads = 0                # host->device state syncs
+        self.n_bt_uploads = 0                   # host->device block tables
+
+    def _to_dev(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------ #
+    def swap_weights(self, params, version: int):
+        """Install a new weight version between ``step()`` calls (a horizon
+        boundary).  In-flight requests keep their KV pages and continue
+        under the new params; their later tokens carry ``version``."""
+        self.params = params
+        self.weight_version = version
+        self.tracer.event("engine.swap_weights", self.trace_lane,
+                          version=version)
+
+    def load_weights(self, params, version: int):
+        self.swap_weights(params, version)
+
+    @property
+    def n_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    @property
+    def supports_prefix_sharing(self) -> bool:
+        """Always: every layer of the port's family is global attention,
+        whose only per-request state is the paged pool."""
+        return True
+
+    def free_slots(self) -> int:
+        return self.max_batch - self.n_active - len(self._reserved)
+
+    # ------------------------------------------------------------------ #
+    # admission
+    # ------------------------------------------------------------------ #
+    def _check_admission(self, L: int, max_total: int, need_slots: int = 1):
+        if self.free_slots() < need_slots:
+            raise AdmissionError(
+                f"engine full: need {need_slots} slots, "
+                f"{self.free_slots()} free")
+        if self.max_context is not None:
+            if max(L, max_total) > self.max_context:
+                raise AdmissionError(
+                    f"context {max(L, max_total)} exceeds max_context "
+                    f"{self.max_context}")
+        if self.max_pool_pages is not None:
+            # commitment-based admission: every resident request reserves
+            # its worst-case page count, so decode can always reserve its
+            # write window without growing past the cap
+            usable = self.max_pool_pages - 1          # page 0 = garbage
+            need = need_slots * self.alloc.pages_for(max_total)
+            if self._committed_pages() + need > usable:
+                raise AdmissionError(
+                    f"page pool cap: need {need} pages for "
+                    f"{need_slots} slot(s), "
+                    f"{usable - self._committed_pages()} uncommitted of "
+                    f"{usable} (max_pool_pages={self.max_pool_pages})")
+
+    def _committed_pages(self) -> int:
+        pages = 0
+        for slot, s in enumerate(self.slots):
+            if s is not None:
+                pages += self.alloc.pages_for(int(self.maxtot_buf[slot]))
+        for row in self.waiting:
+            for (_rid, _key, max_total, _np, _slot) in row.members:
+                pages += self.alloc.pages_for(max_total)
+        return pages
+
+    def _alloc_table(self, n_tokens: int) -> List[int]:
+        while True:
+            try:
+                return self.alloc.alloc_table(n_tokens)
+            except OutOfPages:
+                self._grow_pool()
+
+    def _reserve_decode(self, table: List[int], start: int, n: int
+                        ) -> List[Tuple[int, int]]:
+        """Pre-reserve the horizon write window [start, start + n); the
+        allocator call is atomic, so growing the pool and retrying never
+        loses copies."""
+        n0 = len(table)
+        while True:
+            try:
+                copies = self.alloc.reserve_decode(table, start, n)
+                break
+            except OutOfPages:
+                self._grow_pool()
+        if copies or len(table) != n0:
+            self._bt_dirty = True
+        return copies
+
+    def _grow_pool(self):
+        """Double the page pool, bounded by ``max_pool_pages``; at the cap
+        surface ``AdmissionError`` backpressure."""
+        try:
+            new_num = self.alloc.grow(2 * self.alloc.num_pages)
+        except OutOfPages as e:
+            raise AdmissionError(str(e)) from e
+        self.cache = kvc.grow_pool(self.cache, new_num)
+
+    def _free_slot(self, slot: int):
+        st = self.slots[slot]
+        if st is not None and st.table:
+            self.alloc.free_table(st.table)
+        self.slots[slot] = None
+        self.tokens_buf[slot] = TOKEN_SENTINEL
+        self.maxtot_buf[slot] = 0
+
+    def _reserve_slot(self, req_id: int) -> int:
+        taken = set(self._reserved.values())
+        slot = next(i for i, s in enumerate(self.slots)
+                    if s is None and i not in taken)
+        self._reserved[req_id] = slot
+        return slot
+
+    # ------------------------------------------------------------------ #
+    # request intake
+    # ------------------------------------------------------------------ #
+    def add_request(self, req_id: int, token_ids: List[int], key,
+                    max_total: int, n_prompt: int) -> int:
+        """Queue prompt(+partial) for batched prefill; returns the reserved
+        slot.  The first token arrives from the ``step()`` that finishes
+        the prefill.  ``key`` is [2] uint32 key data
+        (``rl.sampler.request_key``).  A size-1 :meth:`add_group`."""
+        return self.add_group([(req_id, key, max_total)], token_ids,
+                              n_prompt)[0]
+
+    def add_group(self, members: List[Tuple[int, object, int]],
+                  token_ids: List[int], n_prompt: int) -> List[int]:
+        """Queue a group of requests sharing one prefill of ``token_ids``.
+
+        members: [(req_id, key, max_total)].  The context is prefilled once
+        and its pages are shared copy-on-write across the members' block
+        tables.  Admission is checked, and pages allocated, before any slot
+        is reserved, so a rejection leaks nothing.  Returns the slots."""
+        L = len(token_ids)
+        max_tot = max(m[2] for m in members)
+        self._check_admission(L, max_tot, need_slots=len(members))
+        table = self._alloc_table(L)
+        row = _WaitRow(token_ids=list(token_ids), table=table, members=[])
+        slots = []
+        for req_id, key, max_total in members:
+            slot = self._reserve_slot(req_id)
+            key_data = np.asarray(key, np.uint32).reshape(2)
+            row.members.append((req_id, key_data, max_total, n_prompt, slot))
+            slots.append(slot)
+        self.waiting.append(row)
+        self.n_shared_prompt_tokens += L * (len(members) - 1)
+        return slots
+
+    # ------------------------------------------------------------------ #
+    # scheduler step: decode phase, then prefill phase (token budget)
+    # ------------------------------------------------------------------ #
+    def step(self) -> List[StepEvent]:
+        tr = self.tracer
+        if not tr.enabled:
+            events = self._decode_phase()
+            events.extend(self._prefill_phase())
+            return events
+        with tr.span("engine.decode", self.trace_lane,
+                     n_active=self.n_active, horizon=self.horizon):
+            events = self._decode_phase()
+        with tr.span("engine.prefill", self.trace_lane,
+                     n_waiting=len(self.waiting)):
+            events.extend(self._prefill_phase())
+        return events
+
+    # ---------------- device-resident state ---------------- #
+    def _sync_device_state(self):
+        """Upload the decode-state buffers iff the host changed them."""
+        if self._state_dirty or self._dev_tokens is None:
+            active = np.array([s is not None for s in self.slots])
+            self._dev_tokens = self._to_dev(self.tokens_buf)
+            self._dev_keys = self._to_dev(self.keys_buf.astype(np.int64))
+            self._dev_active = self._to_dev(active)
+            self._dev_maxtot = self._to_dev(self.maxtot_buf)
+            self._state_dirty = False
+            self.n_state_uploads += 1
+
+    def _device_block_tables(self):
+        """Cached device block table, rebuilt only when a table changed;
+        its width is a power of two (>= 8) that covers every table."""
+        needed = max((len(s.table) for s in self.slots if s is not None),
+                     default=1)
+        if self._bt_dirty or self._bt_dev is None or self._bt_width < needed:
+            nb = _bucket(needed, minimum=8)
+            bt = np.full((self.max_batch, nb), GARBAGE_PAGE, np.int32)
+            for i, st in enumerate(self.slots):
+                if st is not None:
+                    bt[i, :len(st.table)] = st.table
+            self._bt_dev = self._to_dev(bt)
+            self._bt_width = nb
+            self._bt_dirty = False
+            self.n_bt_uploads += 1
+        return self._bt_dev
+
+    # ---------------- decode ---------------- #
+    def _decode_horizon(self, bt):
+        """H decode steps on the device: each is the single-step decode
+        (forward, logits, keyed sampling, logprob).  Rows that hit EOS or
+        max_total drop out of the active mask: their ``pos`` freezes, their
+        block-table row is masked to the garbage page, and their carried
+        token parks at the sentinel.  Returns [B, H] tokens, logprobs and
+        emission mask, still on the device."""
+        cache = self.cache
+        tokens, active = self._dev_tokens, self._dev_active
+        garbage = torch.full_like(bt, GARBAGE_PAGE)
+        sentinel = torch.full_like(tokens, TOKEN_SENTINEL)
+        toks, lps, ems = [], [], []
+        for _ in range(self.horizon):
+            old_pos = cache["pos"]
+            bt_step = torch.where(active[:, None], bt, garbage)
+            out = forward(self.params, self.cfg, tokens=tokens, cache=cache,
+                          mode="decode", paged={"block_tables": bt_step})
+            logits = logits_from_hidden(self.params, self.cfg,
+                                        out["hidden"][:, 0])
+            nxt = sample_token(logits, self._dev_keys, old_pos,
+                               self.temperature)
+            lps.append(token_logprob(logits, nxt, self.temperature))
+            toks.append(nxt)
+            ems.append(active)
+            cache["pos"] = torch.where(active, out["pos"], old_pos)
+            # after this token the request holds old_pos + 2 tokens
+            done = (nxt == EOS) | (old_pos + 2 >= self._dev_maxtot)
+            active = active & ~done
+            tokens = torch.where(active, nxt, sentinel)
+        self._dev_tokens, self._dev_active = tokens, active
+        return (torch.stack(toks, 1), torch.stack(lps, 1),
+                torch.stack(ems, 1))
+
+    def _decode_phase(self) -> List[StepEvent]:
+        if self.n_active == 0:
+            return []
+        H = self.horizon
+        # host-side page bookkeeping, ONCE per horizon
+        copies: List[Tuple[int, int]] = []
+        for st in self.slots:
+            if st is None:
+                continue
+            copies.extend(self._reserve_decode(st.table, st.ctx_len, H))
+        if copies:
+            kvc.copy_pool_pages(self.cache,
+                                self._to_dev([c[0] for c in copies]),
+                                self._to_dev([c[1] for c in copies]))
+        bt = self._device_block_tables()
+        self._sync_device_state()
+        toks, lps, em = self._decode_horizon(bt)
+        self.n_decode_dispatches += 1
+        # ONE host sync per horizon: the first copy waits for the loop, the
+        # other two find the device idle
+        toks, lps, em = (t.cpu().numpy() for t in (toks, lps, em))
+        events: List[StepEvent] = []
+        for h in range(H):
+            for i, st in enumerate(self.slots):
+                if st is None or not em[i, h]:
+                    continue
+                t = int(toks[i, h])
+                st.tokens.append(t)
+                st.last_token = t
+                st.ctx_len += 1
+                self.tokens_buf[i] = t
+                done = (t == EOS) or (len(st.tokens) >= st.max_total)
+                events.append(StepEvent(req_id=st.req_id, token=t,
+                                        logprob=float(lps[i, h]),
+                                        finished=done,
+                                        weight_version=self.weight_version))
+                if done:
+                    # mirrors the device transition; freed pages stay masked
+                    # by the active mask until the block table rebuilds
+                    self._free_slot(i)
+        return events
+
+    # ---------------- prefill ---------------- #
+    def _prefill_phase(self) -> List[StepEvent]:
+        if not self.waiting:
+            return []
+        budget = max(self.prefill_chunk, 1)
+        chosen: List[Tuple[_WaitRow, int, int]] = []   # (row, start, take)
+        for row in self.waiting:
+            if budget <= 0:
+                break
+            take = min(len(row.token_ids) - row.done, budget)
+            chosen.append((row, row.done, take))
+            budget -= take
+        n = _bucket(len(chosen), minimum=1)
+        C = _tile_bucket(max(take for _, _, take in chosen))
+        nb = _bucket(max(len(row.table) for row, _, _ in chosen), minimum=8)
+        toks = np.zeros((n, C), np.int32)
+        mask = np.zeros((n, C), np.bool_)
+        offsets = np.zeros((n,), np.int32)
+        slot_idx = np.full((n,), self.max_batch, np.int64)  # padding rows
+        bt = np.full((n, nb), GARBAGE_PAGE, np.int32)
+        for i, (row, start, take) in enumerate(chosen):
+            toks[i, :take] = row.token_ids[start:start + take]
+            mask[i, :take] = True
+            offsets[i] = start
+            slot_idx[i] = row.members[0][4]     # owner slot's pos row
+            bt[i, :len(row.table)] = row.table
+        out = forward(self.params, self.cfg, tokens=self._to_dev(toks),
+                      cache=self.cache, mode="prefill",
+                      seq_mask=self._to_dev(mask),
+                      paged={"block_tables": self._to_dev(bt),
+                             "q_offsets": self._to_dev(offsets)})
+        self.n_prefill_dispatches += 1
+        real = slot_idx < self.max_batch
+        self.cache["pos"][self._to_dev(slot_idx[real])] = \
+            out["pos"][self._to_dev(np.flatnonzero(real))]
+        lens = self._to_dev(mask.sum(-1).astype(np.int64))
+        last = torch.clamp(lens - 1, min=0)
+        hidden_last = out["hidden"][torch.arange(n, device=self.device),
+                                    last]
+        logits = logits_from_hidden(self.params, self.cfg, hidden_last)
+
+        events: List[StepEvent] = []
+        completed: List[Tuple[int, _WaitRow]] = []
+        for i, (row, start, take) in enumerate(chosen):
+            row.done += take
+            self.n_prefill_tokens += take
+            if row.done < len(row.token_ids):
+                continue                         # more chunks to go
+            self.waiting.remove(row)
+            self.n_prefills += 1
+            completed.append((i, row))
+        if not completed:
+            return events
+
+        # ONE batched first-token sampling call over every member of every
+        # completed row
+        sel, keys, pos = [], [], []
+        for i, row in completed:
+            for (_, key_data, _, _, _) in row.members:
+                sel.append(i)
+                keys.append(key_data)
+                pos.append(len(row.token_ids) - 1)
+        lg = logits[self._to_dev(sel, torch.int64)]
+        nxts = sample_token(lg, self._to_dev(np.stack(keys).astype(np.int64)),
+                            self._to_dev(pos, torch.int32), self.temperature)
+        first_lps = token_logprob(lg, nxts, self.temperature)
+        nxts, first_lps = nxts.cpu().numpy(), first_lps.cpu().numpy()
+
+        pos_fix: List[Tuple[int, int]] = []     # sibling slots need pos = L
+        e = 0
+        for i, row in completed:
+            L = len(row.token_ids)
+            # fork every sibling table BEFORE emitting any events: the owner
+            # may finish immediately, and freeing its table must not strip
+            # pages later siblings still need
+            tables = [row.table] + [self.alloc.fork(row.table)
+                                    for _ in row.members[1:]]
+            for j, (req_id, key_data, max_total, n_prompt, slot) in \
+                    enumerate(row.members):
+                nxt = int(nxts[e])
+                lp = float(first_lps[e])
+                e += 1
+                st = SlotState(req_id=req_id, key_data=key_data,
+                               tokens=list(row.token_ids) + [nxt],
+                               n_prompt=n_prompt, max_total=max_total,
+                               last_token=nxt, table=tables[j], ctx_len=L)
+                del self._reserved[req_id]
+                self.slots[slot] = st
+                self.tokens_buf[slot] = nxt
+                self.keys_buf[slot] = key_data
+                self.maxtot_buf[slot] = max_total
+                if j > 0:
+                    pos_fix.append((slot, L))
+                done = (nxt == EOS) or (len(st.tokens) >= st.max_total)
+                events.append(StepEvent(req_id=req_id, token=nxt,
+                                        logprob=lp, finished=done,
+                                        weight_version=self.weight_version))
+                if done:
+                    self._free_slot(slot)
+        # admission changed the decode state + tables: re-upload next decode
+        self._state_dirty = True
+        self._bt_dirty = True
+        if pos_fix:
+            # the prefill set pos only on the owner's slot row; group
+            # siblings share the same context length
+            self.cache["pos"][self._to_dev([s for s, _ in pos_fix],
+                                           torch.int64)] = \
+                self._to_dev([v for _, v in pos_fix], torch.int32)
+        return events
+
+    def active_request_ids(self) -> List[int]:
+        ids = [s.req_id for s in self.slots if s is not None]
+        ids.extend(m[0] for row in self.waiting for m in row.members)
+        return ids

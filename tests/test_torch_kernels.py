@@ -1,0 +1,218 @@
+"""Paged attention in the port: plain versions against the reference.
+
+On the CPU the port's plain versions (``repro_torch.kernels.ref``) are held
+against the reference's oracles and its Pallas kernels in interpret mode, on
+the sweeps of ``tests/test_kernels.py`` (ragged lengths with 0, page
+boundaries and mid-page values; offsets at 0, mid-page, page boundary and
+full table; chunk_len 0, full and ragged).  f32 at atol 2e-5; bf16 inputs at
+the reference's own bf16 tolerance, 1e-2 (one bf16 rounding of the output).
+The tests marked ``cuda`` hold the CUDA kernels against the plain versions
+on the card and skip elsewhere.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.paged_attention import \
+    paged_decode_attention as pallas_decode
+from repro.kernels.paged_prefill import \
+    paged_prefill_attention as pallas_prefill
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.paged_prefill import paged_prefill_attention
+from repro_torch.models.attention import (attention_paged_decode,
+                                          attention_paged_prefill)
+
+TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+
+
+def _decode_inputs(B, H, K, ps, nb, d, seed=5):
+    rs = np.random.RandomState(seed)
+    P = 1 + B * nb                               # page 0 = garbage
+    q = rs.randn(B, H, d).astype(np.float32)
+    kp = rs.randn(P, ps, K, d).astype(np.float32)
+    vp = rs.randn(P, ps, K, d).astype(np.float32)
+    bt = (rs.permutation(P - 1)[:B * nb] + 1).reshape(B, nb).astype(np.int32)
+    edge = [0, ps, ps + 1, nb * ps]
+    lens = np.asarray((edge + list(rs.randint(1, nb * ps + 1, size=B)))[:B],
+                      np.int32)
+    return q, kp, vp, bt, lens
+
+
+def _prefill_inputs(B, C, H, K, ps, nb, d, seed=17):
+    rs = np.random.RandomState(seed)
+    P = 1 + B * nb
+    q = rs.randn(B, C, H, d).astype(np.float32)
+    k = rs.randn(B, C, K, d).astype(np.float32)
+    v = rs.randn(B, C, K, d).astype(np.float32)
+    kp = rs.randn(P, ps, K, d).astype(np.float32)
+    vp = rs.randn(P, ps, K, d).astype(np.float32)
+    bt = (rs.permutation(P - 1)[:B * nb] + 1).reshape(B, nb).astype(np.int32)
+    offs = np.asarray([0, ps // 2 + 1, ps, nb * ps][:B], np.int32)
+    cls = np.asarray([0, C, C - 3, max(C // 2, 1)][:B], np.int32)
+    return q, k, v, kp, vp, bt, offs, cls
+
+
+def _jx(a, dtype):
+    return jnp.asarray(a, getattr(jnp, dtype) if a.dtype == np.float32
+                       else a.dtype)
+
+
+def _th(a, dtype, device="cpu"):
+    t = torch.from_numpy(a)
+    if a.dtype == np.float32:
+        t = t.to(getattr(torch, dtype))
+    return t.to(device)
+
+
+def _err(got, want):
+    return float(np.abs(np.asarray(got.float().cpu(), np.float32)
+                        - np.asarray(want, np.float32)).max())
+
+
+DECODE_CASES = [(4, 4, 2, 16, 8, 64, 0.0), (2, 8, 8, 32, 4, 64, 0.0),
+                (3, 4, 1, 8, 16, 128, 30.0)]
+PREFILL_CASES = [(4, 32, 4, 2, 8, 6, 16, 0.0), (2, 128, 4, 4, 16, 4, 32, 0.0),
+                 (3, 256, 2, 1, 8, 8, 32, 30.0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,ps,nb,d,cap", DECODE_CASES)
+def test_decode_plain_matches_reference(B, H, K, ps, nb, d, cap, dtype):
+    q, kp, vp, bt, lens = _decode_inputs(B, H, K, ps, nb, d)
+    got = ref.paged_decode_attention_ref(
+        _th(q, dtype), _th(kp, dtype), _th(vp, dtype), _th(bt, dtype),
+        _th(lens, dtype), cap=cap)
+    want = jref.paged_decode_attention_ref(
+        _jx(q, dtype), _jx(kp, dtype), _jx(vp, dtype), _jx(bt, dtype),
+        _jx(lens, dtype), cap=cap)
+    assert _err(got, want) <= TOL[dtype]
+    pallas = pallas_decode(_jx(q, dtype), _jx(kp, dtype), _jx(vp, dtype),
+                           _jx(bt, dtype), _jx(lens, dtype), cap=cap,
+                           scale=1.0, interpret=True)
+    got1 = ref.paged_decode_attention_ref(
+        _th(q, dtype), _th(kp, dtype), _th(vp, dtype), _th(bt, dtype),
+        _th(lens, dtype), cap=cap, scale=1.0)
+    assert _err(got1, pallas) <= TOL[dtype]
+    assert float(got[0].abs().max()) == 0.0           # length-0 row
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,H,K,ps,nb,d,cap", PREFILL_CASES)
+def test_prefill_plain_matches_reference(B, C, H, K, ps, nb, d, cap, dtype):
+    args = _prefill_inputs(B, C, H, K, ps, nb, d)
+    got = ref.paged_prefill_attention_ref(*(_th(a, dtype) for a in args),
+                                          cap=cap)
+    want = jref.paged_prefill_attention_ref(*(_jx(a, dtype) for a in args),
+                                            cap=cap)
+    assert _err(got, want) <= TOL[dtype]
+    pallas = pallas_prefill(*(_jx(a, dtype) for a in args), cap=cap,
+                            interpret=True)
+    assert _err(got, pallas) <= TOL[dtype]
+    assert float(got[0].abs().max()) == 0.0    # offset 0 and chunk_len 0
+
+
+def test_plain_versions_match_dense_model_oracles():
+    """The kernels' plain versions == the model's dense paged oracles, on
+    the valid positions, with pre-scaled queries (the serving call)."""
+    q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(3, 64, 4, 2, 8, 5, 16)
+    offs, cls = np.array([0, 7, 24], np.int32), np.array([64, 55, 32],
+                                                         np.int32)
+    t = [torch.from_numpy(a) for a in (q, k, v, kp, vp, bt, offs, cls)]
+    qs = t[0] * 16 ** -0.5
+    got = ref.paged_prefill_attention_ref(qs, *t[1:], scale=1.0)
+    want = attention_paged_prefill(qs, *t[1:], cap=0.0)
+    valid = (torch.arange(64)[None] < t[7][:, None])[:, :, None, None]
+    assert float(((got - want) * valid).abs().max()) <= 2e-5
+
+    q, kp, vp, bt, lens = _decode_inputs(3, 4, 2, 8, 6, 16)
+    lens = np.maximum(lens, 1)
+    qd = torch.from_numpy(q) * 16 ** -0.5
+    t = [torch.from_numpy(a) for a in (kp, vp, bt, lens)]
+    got = ref.paged_decode_attention_ref(qd, *t, scale=1.0)
+    want = attention_paged_decode(qd[:, None], *t[:3], t[3] - 1, cap=0.0)
+    assert float((got - want[:, 0]).abs().max()) <= 2e-5
+
+
+def test_ops_dispatch_cpu_to_plain_and_wrappers_refuse_cpu():
+    q, kp, vp, bt, lens = (torch.from_numpy(a) for a in
+                           _decode_inputs(2, 4, 2, 8, 4, 64))
+    out = ops.paged_decode_attention(q, kp, vp, bt, lens, scale=1.0)
+    assert torch.equal(out, ref.paged_decode_attention_ref(q, kp, vp, bt,
+                                                           lens, scale=1.0))
+    before = (paged_decode_attention.launches,
+              paged_prefill_attention.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_decode_attention(q, kp, vp, bt, lens)
+    pre = [torch.from_numpy(a) for a in _prefill_inputs(2, 32, 4, 2, 8, 4,
+                                                        64)]
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_prefill_attention(*pre)
+    assert (paged_decode_attention.launches,
+            paged_prefill_attention.launches) == before
+
+
+def test_build_needs_nvcc_and_keys_on_sources(monkeypatch, tmp_path):
+    t1 = build.target("paged_attention")
+    assert t1 == build.target("paged_attention")
+    assert t1.name.startswith("paged_attention-") and t1.suffix == ".so"
+    assert t1 != build.target("paged_prefill")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.nvcc_path()
+
+
+# ---------------------------- on the card --------------------------------- #
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+GPU_DECODE_CASES = [(4, 4, 2, 16, 8, 64, 0.0), (3, 32, 8, 16, 24, 128, 0.0),
+                    (3, 4, 1, 8, 16, 128, 30.0), (2, 16, 2, 16, 4, 64, 0.0)]
+GPU_PREFILL_CASES = [(4, 96, 4, 2, 8, 6, 64, 0.0),
+                     (4, 256, 32, 8, 16, 24, 128, 0.0),
+                     (3, 128, 8, 8, 16, 8, 128, 30.0),
+                     (2, 200, 16, 1, 16, 4, 64, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
+                                      ("bfloat16", "float32"),
+                                      ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("B,H,K,ps,nb,d,cap", GPU_DECODE_CASES)
+def test_decode_kernel_matches_plain_on_card(cuda, B, H, K, ps, nb, d, cap,
+                                             qdt, kvdt):
+    q, kp, vp, bt, lens = _decode_inputs(B, H, K, ps, nb, d)
+    args = (_th(q, qdt, cuda), _th(kp, kvdt, cuda), _th(vp, kvdt, cuda),
+            _th(bt, qdt, cuda), _th(lens, qdt, cuda))
+    got = paged_decode_attention(*args, cap=cap)
+    torch.cuda.synchronize()
+    want = ref.paged_decode_attention_ref(*args, cap=cap)
+    assert _err(got, want.float().cpu()) <= TOL[qdt]
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
+                                      ("bfloat16", "float32"),
+                                      ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("B,C,H,K,ps,nb,d,cap", GPU_PREFILL_CASES)
+def test_prefill_kernel_matches_plain_on_card(cuda, B, C, H, K, ps, nb, d,
+                                              cap, qdt, kvdt):
+    q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(B, C, H, K, ps, nb, d)
+    args = (_th(q, qdt, cuda), _th(k, qdt, cuda), _th(v, qdt, cuda),
+            _th(kp, kvdt, cuda), _th(vp, kvdt, cuda), _th(bt, qdt, cuda),
+            _th(offs, qdt, cuda), _th(cls, qdt, cuda))
+    got = paged_prefill_attention(*args, cap=cap)
+    torch.cuda.synchronize()
+    want = ref.paged_prefill_attention_ref(*args, cap=cap)
+    assert not torch.isnan(got.float()).any()
+    assert _err(got, want.float().cpu()) <= TOL[qdt]
+    assert float(got[0].abs().max()) == 0.0
