@@ -37,13 +37,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+KERNELS = []        # the kernel wrappers, each with its ``launches`` count
 
-# H100 SXM published peaks: HBM3 bandwidth, and the dense TF32 tensor-core
-# rate (the card's fastest rate for the f32 pool operands these kernels
-# multiply)
+# H100 SXM published dense peaks: HBM3 bandwidth; the TF32 tensor-core rate
+# (the card's fastest for products with an f32 pool operand) and the bf16
+# one (products of the chunk's own bf16 q and k/v)
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 KERNEL_TOL = 2e-2       # bf16 output: one rounding of values up to ~4
+# model regime (qk-normed q pre-scaled by dh**-0.5, scores of order 1):
+# max error over max |output|, a few bf16 roundings
+KERNEL_REL_TOL = 1e-2
 LOGIT_REL_TOL = 5e-2    # max |delta logit| / max |logit|, 32 bf16 layers
 
 
@@ -77,9 +82,11 @@ def time_ms(fn, torch, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, work):
+    """Least time in ms: the larger of bytes over the memory rate and the
+    sum of each ``(flops, peak rate)`` part's time at its operand type."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / TF32_FLOP_PER_S * 1e3
+    t_ops = sum(flops / rate for flops, rate in work) * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -105,6 +112,25 @@ def check_decode(torch, F, ref, kern):
         fail(f"paged_decode_attention max err {err} > {KERNEL_TOL}")
     if float(out[0].float().abs().max()) != 0.0:
         fail("paged_decode_attention: length-0 row is not zero")
+    # the model's regime: q and k qk-normed (unit RMS per head), q scaled
+    # by dh**-0.5, so scores are of order 1 and the softmax is flat over
+    # hundreds of keys
+    unit = lambda x: x * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True)
+                                     ).to(x.dtype)
+    qm = (unit(torch.randn(B, H, d, generator=g, device="cuda"))
+          * d ** -0.5).bfloat16()
+    kpm = unit(kp)
+    outm = kern(qm, kpm, vp, bt, lens, scale=1.0)
+    torch.cuda.synchronize()
+    wantm = ref.paged_decode_attention_ref(qm, kpm, vp, bt, lens, scale=1.0)
+    errm = float((outm.float() - wantm.float()).abs().max())
+    magm = float(wantm.float().abs().max())
+    if not torch.isfinite(outm.float()).all() or errm > KERNEL_REL_TOL * magm:
+        fail(f"paged_decode_attention (model regime) max err {errm} > "
+             f"{KERNEL_REL_TOL} x max |out| {magm}")
+    log(f"[kernels] paged_decode_attention model regime (normed q, k; q x "
+        f"dh**-0.5): max_abs_err={errm:.3e} of max |out| {magm:.3e} (tol "
+        f"{KERNEL_REL_TOL} x max |out|)")
     # yardstick: one SDPA call on the gathered dense K/V (timed only here)
     T = nb * ps
     kd = kp[bt.long()].reshape(B, T, K, d).transpose(1, 2).contiguous()
@@ -119,14 +145,14 @@ def check_decode(torch, F, ref, kern):
         qd, kd, vd, attn_mask=mask, scale=1.0, enable_gqa=True), torch)
     n_kv = sum(min(x, T) for x in lens_l)
     nbytes = (2 * n_kv * K * d * 4 + 2 * B * H * d * 2 + B * nb * 4 + B * 4)
-    flops = 4 * n_kv * H * d
-    b_ms, b_by = bound(nbytes, flops)
+    flops = 4 * n_kv * H * d                    # bf16 q x f32 pool: TF32
+    b_ms, b_by = bound(nbytes, [(flops, TF32_FLOP_PER_S)])
     log(f"[kernels] paged_decode_attention B={B} H={H} K={K} d={d} ps={ps} "
         f"nb={nb} lens={lens_l}: max_abs_err={err:.3e} (tol {KERNEL_TOL}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+    return dict(max_abs_err=max(err, errm), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def check_prefill(torch, F, ref, kern):
@@ -174,12 +200,17 @@ def check_prefill(torch, F, ref, kern):
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qd, kk, vv, attn_mask=mask, scale=1.0, enable_gqa=True), torch)
         n_pre = [min(o, T) for o in offs_l]
-        n_keys = sum(n_pre[b] + min(i + 1, cls_l[b])
-                     for b in range(B) for i in range(C))
+        # (query, key) pairs: prefix keys come from the f32 pools (TF32
+        # products), in-chunk keys from the bf16 k/v (bf16 products)
+        pre_keys = C * sum(n_pre)
+        chunk_keys = sum(min(i + 1, cls_l[b])
+                         for b in range(B) for i in range(C))
         nbytes = (2 * sum(n_pre) * K * d * 4 + 2 * B * C * K * d * 2
                   + 2 * B * C * H * d * 2 + B * nb * 4 + 2 * B * 4)
-        flops = 4 * n_keys * H * d
-        b_ms, b_by = bound(nbytes, flops)
+        flops = 4 * (pre_keys + chunk_keys) * H * d
+        b_ms, b_by = bound(nbytes, [(4 * pre_keys * H * d, TF32_FLOP_PER_S),
+                                    (4 * chunk_keys * H * d,
+                                     BF16_FLOP_PER_S)])
         log(f"[kernels] paged_prefill_attention B={B} C={C} H={H} K={K} "
             f"d={d} ps={ps} nb={nb} offsets={offs_l} chunk_lens={cls_l}: "
             f"max_abs_err={err:.3e} (tol {KERNEL_TOL}) kernel {ms:.4f} ms, "
@@ -198,9 +229,30 @@ def check_prefill(torch, F, ref, kern):
 # --------------------------------------------------------------------------- #
 # phase 3: the engine at full width
 # --------------------------------------------------------------------------- #
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int):
+    """Each kernel's launches since the last reset against layers x the
+    engine's dispatches in that span; fail unless equal and non-zero."""
+    got = {k.__name__: k.launches for k in KERNELS}
+    want = {"paged_decode_attention": cfg.n_layers * eng.horizon * n_decode,
+            "paged_prefill_attention": cfg.n_layers * n_prefill}
+    log(f"[engine] {what}: launches {got}, expected {want} (layers x "
+        f"dispatches: {n_decode} decode horizons of {eng.horizon}, "
+        f"{n_prefill} prefill chunks)")
+    if got != want or (n_decode and not got["paged_decode_attention"]) or \
+            (n_prefill and not got["paged_prefill_attention"]):
+        fail(f"{what}: kernel launches {got} != expected {want}")
+    return got
+
+
 def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
           temperature, tracer=None):
-    """2 GRPO groups of 4 + 2 single requests, 64 new tokens each."""
+    """2 GRPO groups of 4 + 2 single requests, 64 new tokens each; both
+    kernels' launch counts are zeroed before the run and checked after."""
     from repro_torch.rl.sampler import request_key
     eng = InferenceEngine(cfg, params, max_batch=10, slab_len=512,
                           page_size=16, prefill_chunk=256, horizon=horizon,
@@ -221,6 +273,7 @@ def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
         rid += 1
     out = {r: [] for r in rids}
     done = set()
+    reset_launches()
     t0 = time.perf_counter()
     for _ in range(10000):
         if len(done) == len(rids):
@@ -231,12 +284,15 @@ def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
                 done.add(e.req_id)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = check_launches(
+        cfg, eng, f"{'greedy' if temperature <= 0 else f'T={temperature}'} "
+        f"H={horizon}", eng.n_decode_dispatches, eng.n_prefill_dispatches)
     if len(done) != len(rids):
         fail(f"engine: {len(rids) - len(done)} requests never finished")
     for r, evs in out.items():
         if not all(math.isfinite(lp) for _, lp in evs):
             fail(f"engine: request {r} has a non-finite logprob")
-    return eng, out, wall
+    return eng, out, wall, launches
 
 
 def profile_decode(torch, InferenceEngine, cfg, params, prompts):
@@ -255,12 +311,17 @@ def profile_decode(torch, InferenceEngine, cfg, params, prompts):
         eng.step()
     eng.step()                                  # warm: first full horizon
     torch.cuda.synchronize()
+    n_dec, n_pre = eng.n_decode_dispatches, eng.n_prefill_dispatches
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    check_launches(cfg, eng, "profiled horizon",
+                   eng.n_decode_dispatches - n_dec,
+                   eng.n_prefill_dispatches - n_pre)
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -293,13 +354,15 @@ def plain_attention(ops, ref):
         ops.paged_decode_attention, ops.paged_prefill_attention = saved
 
 
-def prefill_logits(torch, cfg, params, prompt):
+def model_logits(torch, cfg, params, prompt, ops, ref):
     """Last-position logits of ``prompt`` prefilled in two chunks (256,
-    then the rest reading the first from the pool)."""
+    then the rest reading the first from the pool), and of one decode step
+    after it from that pool, with the decode attention kernel and with its
+    plain version on a copy of the same pool."""
     from repro_torch.models import kv_cache as kvc
     from repro_torch.models.transformer import forward, logits_from_hidden
     ps = 16
-    n_pages = -(-len(prompt) // ps)
+    n_pages = -(-(len(prompt) + 1) // ps)
     cache = kvc.init_paged_cache(cfg, 1, n_pages + 1, ps, device="cuda")
     bt = torch.arange(1, n_pages + 1, dtype=torch.int32,
                       device="cuda")[None]
@@ -313,7 +376,35 @@ def prefill_logits(torch, cfg, params, prompt):
                           [start], dtype=torch.int32, device="cuda")})
         hidden = out["hidden"][0, take - 1]
         start += take
-    return logits_from_hidden(params, cfg, hidden)
+    prefill = logits_from_hidden(params, cfg, hidden)
+    cache["pos"] = torch.tensor([len(prompt)], dtype=torch.int32,
+                                device="cuda")
+    nxt = torch.tensor([prompt[1]], dtype=torch.int32, device="cuda")
+
+    def decode(c):
+        out = forward(params, cfg, tokens=nxt, cache=c, mode="decode",
+                      paged={"block_tables": bt})
+        return logits_from_hidden(params, cfg, out["hidden"][0, 0])
+
+    copy = {k: v.clone() for k, v in cache.items()}
+    dec = decode(cache)
+    with plain_attention(ops, ref):
+        dec_plain = decode(copy)
+    return prefill, dec, dec_plain
+
+
+def compare_logits(torch, cfg, what, got, plain):
+    if got.shape != (cfg.vocab_size,) or not torch.isfinite(got).all():
+        fail(f"{what} logits are not finite of shape [vocab]")
+    d_max = float((got - plain).abs().max())
+    scale = float(plain.abs().max())
+    rel_l2 = float((got - plain).norm() / plain.norm())
+    log(f"[engine] {what} logits, kernels vs plain attention: max abs diff "
+        f"{d_max:.4e} of max |logit| {scale:.4e} (rel {d_max / scale:.3e}, "
+        f"tol {LOGIT_REL_TOL}); rel L2 {rel_l2:.3e}; argmax "
+        f"{int(got.argmax())} vs {int(plain.argmax())}")
+    if d_max > LOGIT_REL_TOL * scale:
+        fail(f"{what} logits with the kernels disagree with the plain path")
 
 
 def main():
@@ -334,6 +425,7 @@ def main():
     from repro_torch.obs.tracer import Tracer
     from repro_torch.serving.engine import InferenceEngine
 
+    KERNELS[:] = [paged_decode_attention, paged_prefill_attention]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -378,22 +470,11 @@ def main():
 
     tracer = Tracer(clock)
     torch.cuda.reset_peak_memory_stats()
-    paged_decode_attention.launches = 0
-    paged_prefill_attention.launches = 0
-    eng, greedy8, wall = serve(torch, InferenceEngine, cfg, params, prompts,
-                               horizon=8, temperature=0.0, tracer=tracer)
-    launches = {"paged_decode_attention": paged_decode_attention.launches,
-                "paged_prefill_attention": paged_prefill_attention.launches}
+    # the main path: its launch counts go into the kernel summary
+    eng, greedy8, wall, launches = serve(
+        torch, InferenceEngine, cfg, params, prompts, horizon=8,
+        temperature=0.0, tracer=tracer)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"paged_decode_attention":
-            cfg.n_layers * eng.horizon * eng.n_decode_dispatches,
-            "paged_prefill_attention":
-            cfg.n_layers * eng.n_prefill_dispatches}
-    log(f"[engine] launches {launches}, expected {want} (layers x "
-        f"dispatches; {eng.n_decode_dispatches} decode horizons of "
-        f"{eng.horizon}, {eng.n_prefill_dispatches} prefill chunks)")
-    if launches != want or min(launches.values()) == 0:
-        fail(f"kernel launches {launches} != expected {want}")
     spans = tracer.spans()
     t_pre = sum(s.duration for s in spans if s.name == "engine.prefill")
     t_dec = sum(s.duration for s in spans if s.name == "engine.decode")
@@ -410,8 +491,8 @@ def main():
     del eng
     torch.cuda.empty_cache()
 
-    eng1, greedy1, wall1 = serve(torch, InferenceEngine, cfg, params,
-                                 prompts, horizon=1, temperature=0.0)
+    eng1, greedy1, wall1, _ = serve(torch, InferenceEngine, cfg, params,
+                                    prompts, horizon=1, temperature=0.0)
     if {r: [t for t, _ in v] for r, v in greedy1.items()} != \
             {r: [t for t, _ in v] for r, v in greedy8.items()}:
         fail("greedy tokens with H=8 differ from H=1")
@@ -420,8 +501,8 @@ def main():
     del eng1
     torch.cuda.empty_cache()
 
-    eng_t, sampled, wall_t = serve(torch, InferenceEngine, cfg, params,
-                                   prompts, horizon=8, temperature=1.0)
+    eng_t, sampled, wall_t, _ = serve(torch, InferenceEngine, cfg, params,
+                                      prompts, horizon=8, temperature=1.0)
     log(f"[engine] temperature 1.0 H=8: {sum(map(len, sampled.values()))} "
         f"tokens, logprobs finite ({wall_t:.3f} s)")
     del eng_t
@@ -429,20 +510,12 @@ def main():
     profile_decode(torch, InferenceEngine, cfg, params, prompts)
     torch.cuda.empty_cache()
 
-    got = prefill_logits(torch, cfg, params, prompts[0])
+    got, step, step_plain = model_logits(torch, cfg, params, prompts[0],
+                                         ops, ref)
     with plain_attention(ops, ref):
-        plain = prefill_logits(torch, cfg, params, prompts[0])
-    if got.shape != (cfg.vocab_size,) or not torch.isfinite(got).all():
-        fail("prefill logits are not finite of shape [vocab]")
-    d_max = float((got - plain).abs().max())
-    scale = float(plain.abs().max())
-    rel_l2 = float((got - plain).norm() / plain.norm())
-    log(f"[engine] prefill logits, kernels vs plain attention: max abs "
-        f"diff {d_max:.4e} of max |logit| {scale:.4e} (rel {d_max / scale:.3e}"
-        f", tol {LOGIT_REL_TOL}); rel L2 {rel_l2:.3e}; argmax "
-        f"{int(got.argmax())} vs {int(plain.argmax())}")
-    if d_max > LOGIT_REL_TOL * scale:
-        fail("prefill logits with the kernels disagree with the plain path")
+        plain, _, _ = model_logits(torch, cfg, params, prompts[0], ops, ref)
+    compare_logits(torch, cfg, "prefill", got, plain)
+    compare_logits(torch, cfg, "decode step", step, step_plain)
 
     # ---- 4. summary ----
     rows = []

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -95,8 +96,12 @@ def library(name: str) -> ctypes.CDLL:
 
 def c_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """A C entry point with its argument types declared (every pointer and
-    the stream as ``c_void_p``, so 64-bit addresses are never cut)."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    the stream as ``c_void_p``, so 64-bit addresses are never cut).  Bound
+    once per process; later calls return the same function object."""
+    key = (name, symbol)
+    if key not in _BOUND:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return _BOUND[key]

@@ -6,12 +6,17 @@
 // the chunk's own K/V causally (j <= i, j < chunk_len), under one softmax.
 // The chunk's K/V is not in the pool yet; the model writes it after.
 //
-// What bounds it on this card: operations.  At the serving shapes
-// (C = 128..256, prefixes of a few hundred positions, G = 4) it does about
-// 4 * G * C / 2 flops per K/V element it must read, hundreds of flops per
-// byte; against the TF32 tensor-core peak (495 TFLOP/s, the card's fastest
-// rate for the f32 pool operands) that is above the memory ridge.  This
-// first kernel does its products on the f32 CUDA cores (67 TFLOP/s).
+// What bounds it on this card: bytes at the serving shapes, operations
+// once prefixes grow long.  Every query reads its bf16 q and writes its
+// output once (4 * H * d bytes per query), and the chunk's bf16 k/v are
+// read once.  Products against the f32 pool prefix count at the TF32
+// tensor-core peak (495 TFLOP/s, the fastest rate for an f32 operand),
+// those against the chunk's bf16 k/v at the bf16 peak (989 TFLOP/s).  The
+// prefix alone does C * G / 2 flops per byte it reads, above the TF32
+// ridge; but with C = 256 and prefixes of a few hundred positions
+// (chip_smoke.py's inputs) the bytes take 7.6 us and the products 6.3 us.
+// Prefixes of thousands of positions make the products bind.  This first
+// kernel does its products on the f32 CUDA cores (67 TFLOP/s).
 //
 // Design: one CTA per (row, KV head, tile of 64 (query, head) pairs), that
 // is 64 / G queries with the G heads of the KV head beside each.  The pairs

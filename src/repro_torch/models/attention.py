@@ -17,7 +17,7 @@ from repro_torch.models.layers import softcap
 NEG_INF = -2.0e38
 
 
-def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
     exponent = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
     inv = (1.0 / (theta ** exponent)).astype(np.float32)
     return torch.from_numpy(inv).to(device)

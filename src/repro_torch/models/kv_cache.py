@@ -29,6 +29,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 GARBAGE_PAGE = 0
 
 
@@ -186,7 +188,9 @@ class PagedKVAllocator:
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
                      dtype=torch.float32, device=None) -> Dict:
     """Fresh cache: zeroed pools of ``num_pages`` pages for every layer and
-    a ``pos`` row per decode slot."""
+    a ``pos`` row per decode slot.  ``device=None`` means CUDA (raises
+    when absent)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "k_pages": torch.zeros(shape, dtype=dtype, device=device),

@@ -18,6 +18,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (apply_rope, paged_write,
@@ -52,7 +53,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Random weights with the reference's tree, shapes and distributions
     (its bits differ: the draws come from ``generator``).  Norm scales are
-    zero (weight 1 under the zero-centred RMSNorm)."""
+    zero (weight 1 under the zero-centred RMSNorm).  ``device=None`` means
+    CUDA (raises when absent); ``generator`` must live on that device."""
+    device = resolve_device(device)
     dt = dtype_of(cfg)
     D, H, K, dh, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                             cfg.head_dim, cfg.d_ff, cfg.vocab_size,

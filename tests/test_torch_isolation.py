@@ -65,15 +65,23 @@ def test_package_imports_without_triton_nvcc_or_jax(tmp_path):
 def test_entry_points_default_to_cuda():
     from repro_torch import resolve_device
     from repro_torch.configs import tiny_math_config
+    from repro_torch.models.kv_cache import init_paged_cache
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import InferenceEngine
     cfg = tiny_math_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert resolve_device("cpu").type == "cpu"
+    assert init_paged_cache(cfg, 2, 4, 16, device="cpu")["k_pages"] \
+        .device.type == "cpu"
     if torch.cuda.is_available():
         assert InferenceEngine(cfg, params).device.type == "cuda"
+        assert init_paged_cache(cfg, 2, 4, 16)["k_pages"].is_cuda
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             InferenceEngine(cfg, params)
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device(None)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_paged_cache(cfg, 2, 4, 16)

@@ -142,10 +142,10 @@ def test_rope_and_rms_norm_match_reference(dh, theta):
     x = rs.randn(2, 5, 3, dh).astype(np.float32)
     posn = rs.randint(0, 4000, size=(2, 5)).astype(np.int32)
     scale = rs.randn(dh).astype(np.float32) * 0.1
-    np.testing.assert_array_equal(rope_inv_freq(dh, theta).numpy(),
+    np.testing.assert_array_equal(rope_inv_freq(dh, theta, "cpu").numpy(),
                                   np.asarray(jax_rope_inv_freq(dh, theta)))
     got = apply_rope(torch.from_numpy(x), torch.from_numpy(posn),
-                     rope_inv_freq(dh, theta))
+                     rope_inv_freq(dh, theta, "cpu"))
     want = jax_apply_rope(jnp.asarray(x), jnp.asarray(posn),
                           jax_rope_inv_freq(dh, theta))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
