@@ -8,11 +8,14 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
   1. build    — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
                 (one nvcc per source, all at once) and print the build time
                 and ptxas's register / spill report;
-  2. kernels  — each kernel against its plain PyTorch version at Qwen3-8B
-                shapes (H=32, K=8, d=128, page 16; bf16 q, f32 pools), with
-                ragged lengths / offsets / chunk lengths; max error against
-                the stated tolerance, kernel / plain / library times (CUDA
-                events, L2 flushed before each launch) and the bound;
+  2. kernels  — each kernel against its plain PyTorch version: the attention
+                kernels at Qwen3-8B shapes (H=32, K=8, d=128, page 16; bf16
+                q, f32 pools) with ragged lengths / offsets / chunk lengths;
+                ``fused_dequant`` at the full-width leaf shapes (mlp.wi,
+                embed, wq rows at C=128, a 1-D leaf at C=1) with base none,
+                f32 and bf16; max error against the stated tolerance,
+                kernel / plain / library times (CUDA events, L2 flushed
+                before each launch) and the bound;
   3. engine   — ``qwen3-8b`` at full width (random weights from a seeded
                 generator) served through ``InferenceEngine``: 2 GRPO groups
                 of 4 plus 2 single requests, ~300-token prompts,
@@ -20,7 +23,23 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 read from this run), then H=1 greedy (must emit the same
                 tokens) and H=8 at temperature 1; one prefill's logits with
                 the kernels against the plain attention;
-  4. summary  — one JSON line per the kernels, the card's name and power
+  4. install  — the trainer side publishes v0 (the serving weights) and v1
+                (v0 x 1.01 plus seeded noise) into a ``WeightStore``; while
+                the same mix is in flight, a ``delta-int8`` manifest of v1
+                (base v0, the engine's resident weights) and then an
+                ``int8`` one are assembled onto the card through the
+                dequant kernel and installed with ``swap_weights`` at
+                horizon boundaries; every leaf within the codec's bound of
+                v1, one dequant launch per int8-coded leaf, no request
+                dropped, versions monotone; seconds per step;
+  5. migrate  — engine A serves the mix greedy; at a horizon boundary it
+                exports the whole batch, the state travels as a KV manifest
+                (codec none) through a local blob fetch into an empty engine
+                B, and A drops the requests; B's tokens must continue the
+                unmigrated run's exactly with zero prefill, and shared
+                prompt pages must ship once; then once more with codec int8,
+                which must run to completion;
+  6. summary  — one JSON line per the kernels, the card's name and power
                 limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
@@ -40,16 +59,25 @@ ROOT = Path(__file__).resolve().parent
 KERNELS = []        # the kernel wrappers, each with its ``launches`` count
 
 # H100 SXM published dense peaks: HBM3 bandwidth; the TF32 tensor-core rate
-# (the card's fastest for products with an f32 pool operand) and the bf16
-# one (products of the chunk's own bf16 q and k/v)
+# (the card's fastest for products with an f32 pool operand), the bf16
+# one (products of the chunk's own bf16 q and k/v) and the f32 rate outside
+# the tensor cores (the dequant's multiply-add)
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 KERNEL_TOL = 2e-2       # bf16 output: one rounding of values up to ~4
 # model regime (qk-normed q pre-scaled by dh**-0.5, scores of order 1):
 # max error over max |output|, a few bf16 roundings
 KERNEL_REL_TOL = 1e-2
 LOGIT_REL_TOL = 5e-2    # max |delta logit| / max |logit|, 32 bf16 layers
+# the reference's dequant test tolerance (atol = rtol); the kernel rounds
+# the product and the sum separately, as the plain version does
+DEQUANT_TOL = 1e-6
+# (leaf, R, C): Qwen3-8B leaves in the codec's [rows, last_dim] view
+DEQUANT_SHAPES = (("mlp.wi", 32 * 4096, 12288), ("embed", 151936, 4096),
+                  ("attn.wq", 32 * 4096 * 32, 128), ("final_norm", 4096, 1))
+NEW_TOKENS = 64
 
 
 def fail(msg: str):
@@ -226,6 +254,57 @@ def check_prefill(torch, F, ref, kern):
     return row
 
 
+def check_dequant(torch, ref, kern):
+    """``fused_dequant`` at every full-width leaf shape with base none, f32
+    and bf16: max error against the plain version within DEQUANT_TOL
+    (atol + rtol x |want|), times and bounds.  The summary row is mlp.wi
+    with a bf16 base, the largest call of a delta install."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    worst, row = 0.0, None
+    for leaf, R, C in DEQUANT_SHAPES:
+        q = torch.randint(-127, 128, (R, C), generator=g, device="cuda",
+                          dtype=torch.int8)
+        scale = torch.rand(C, generator=g, device="cuda") * 1e-2 + 1e-4
+        for bdt in (None, torch.float32, torch.bfloat16):
+            base = None if bdt is None else torch.randn(
+                R, C, generator=g, device="cuda").to(bdt)
+            out = kern(q, scale, base)
+            torch.cuda.synchronize()
+            want = ref.dequant_ref(q, scale, base)
+            diff = (out - want).abs_()
+            err = float(diff.max())
+            over = bool((diff > DEQUANT_TOL * (1 + want.abs())).any())
+            del out, want, diff
+            if over:
+                fail(f"fused_dequant {leaf} [{R}, {C}] base {bdt}: max err "
+                     f"{err} over atol = rtol = {DEQUANT_TOL}")
+            worst = max(worst, err)
+            ms = time_ms(lambda: kern(q, scale, base), torch, iters=10)
+            plain_ms = time_ms(lambda: ref.dequant_ref(q, scale, base),
+                               torch, iters=10)
+            lib_ms = time_ms(
+                (lambda: torch.mul(q, scale)) if base is None else
+                (lambda: torch.addcmul(base, q, scale)), torch, iters=10)
+            bb = 0 if base is None else base.element_size()
+            nbytes = R * C * (1 + 4 + bb) + 4 * C
+            flops = R * C * (1 if base is None else 2)
+            b_ms, b_by = bound(nbytes, [(flops, F32_FLOP_PER_S)])
+            log(f"[kernels] fused_dequant {leaf} R={R} C={C} base "
+                f"{str(bdt).removeprefix('torch.')}: max_abs_err={err:.3e} "
+                f"(tol {DEQUANT_TOL} abs + rel) kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, {'mul' if base is None else 'addcmul'} "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+                f"{flops} flop)")
+            if leaf == "mlp.wi" and bdt is torch.bfloat16:
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms)
+            del base
+            torch.cuda.empty_cache()
+        del q, scale
+    row["max_abs_err"] = worst
+    return row
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: the engine at full width
 # --------------------------------------------------------------------------- #
@@ -234,43 +313,58 @@ def reset_launches():
         k.launches = 0
 
 
-def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int):
+def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
+                   n_dequant: int = 0):
     """Each kernel's launches since the last reset against layers x the
-    engine's dispatches in that span; fail unless equal and non-zero."""
+    engine's dispatches in that span (and the int8-coded leaves installed);
+    fail unless equal and non-zero where the span ran the kernel."""
     got = {k.__name__: k.launches for k in KERNELS}
     want = {"paged_decode_attention": cfg.n_layers * eng.horizon * n_decode,
-            "paged_prefill_attention": cfg.n_layers * n_prefill}
+            "paged_prefill_attention": cfg.n_layers * n_prefill,
+            "fused_dequant": n_dequant}
     log(f"[engine] {what}: launches {got}, expected {want} (layers x "
         f"dispatches: {n_decode} decode horizons of {eng.horizon}, "
-        f"{n_prefill} prefill chunks)")
-    if got != want or (n_decode and not got["paged_decode_attention"]) or \
-            (n_prefill and not got["paged_prefill_attention"]):
+        f"{n_prefill} prefill chunks; {n_dequant} int8-coded leaves)")
+    if got != want or any(want[k] and not got[k] for k in want):
         fail(f"{what}: kernel launches {got} != expected {want}")
     return got
 
 
-def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
-          temperature, tracer=None):
-    """2 GRPO groups of 4 + 2 single requests, 64 new tokens each; both
-    kernels' launch counts are zeroed before the run and checked after."""
+def make_engine(InferenceEngine, cfg, params, *, horizon=8, temperature=0.0,
+                tracer=None):
+    return InferenceEngine(cfg, params, max_batch=10, slab_len=512,
+                           page_size=16, prefill_chunk=256, horizon=horizon,
+                           temperature=temperature, tracer=tracer,
+                           device="cuda")
+
+
+def admit(eng, prompts):
+    """The smoke mix: 2 GRPO groups of 4 on prompts 0 and 1, then single
+    requests on the rest, NEW_TOKENS new tokens each.  Returns the ids."""
     from repro_torch.rl.sampler import request_key
-    eng = InferenceEngine(cfg, params, max_batch=10, slab_len=512,
-                          page_size=16, prefill_chunk=256, horizon=horizon,
-                          temperature=temperature, tracer=tracer,
-                          device="cuda")
-    new = 64
     rid = 0
     rids = []
     for gi in range(2):
-        members = [(rid + j, request_key(0, rid + j), len(prompts[gi]) + new)
-                   for j in range(4)]
+        members = [(rid + j, request_key(0, rid + j),
+                    len(prompts[gi]) + NEW_TOKENS) for j in range(4)]
         eng.add_group(members, prompts[gi], len(prompts[gi]))
         rids += [m[0] for m in members]
         rid += 4
     for p in prompts[2:]:
-        eng.add_request(rid, p, request_key(0, rid), len(p) + new, len(p))
+        eng.add_request(rid, p, request_key(0, rid), len(p) + NEW_TOKENS,
+                        len(p))
         rids.append(rid)
         rid += 1
+    return rids
+
+
+def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
+          temperature, tracer=None):
+    """The smoke mix to completion; every kernel's launch count is zeroed
+    before the run and checked after."""
+    eng = make_engine(InferenceEngine, cfg, params, horizon=horizon,
+                      temperature=temperature, tracer=tracer)
+    rids = admit(eng, prompts)
     out = {r: [] for r in rids}
     done = set()
     reset_launches()
@@ -301,9 +395,7 @@ def profile_decode(torch, InferenceEngine, cfg, params, prompts):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.rl.sampler import request_key
-    eng = InferenceEngine(cfg, params, max_batch=10, slab_len=512,
-                          page_size=16, prefill_chunk=256, horizon=8,
-                          temperature=0.0, device="cuda")
+    eng = make_engine(InferenceEngine, cfg, params)
     for i in range(10):
         p = prompts[i % len(prompts)]
         eng.add_request(i, p, request_key(1, i), len(p) + 64, len(p))
@@ -407,6 +499,262 @@ def compare_logits(torch, cfg, what, got, plain):
         fail(f"{what} logits with the kernels disagree with the plain path")
 
 
+# --------------------------------------------------------------------------- #
+# phase 4: pulled weight versions installed mid-generation
+# --------------------------------------------------------------------------- #
+def map_tree(tree, fn):
+    return {k: map_tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def perturbed(torch, params, seed: int):
+    """v1 = v0 x 1.01 + 1e-3 N(0, 1), drawn from a seeded generator one
+    layer at a time (no full-size f32 copy of a stacked leaf)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaf(t):
+        out = torch.empty_like(t)
+        for src, dst in (zip(t, out) if t.dim() >= 3 else [(t, out)]):
+            dst.copy_(src.float() * 1.01 + 1e-3 * torch.randn(
+                src.shape, generator=g, device="cuda"))
+        return out
+    return map_tree(params, leaf)
+
+
+def _row_blocks(t, rows: int):
+    """Contiguous row blocks of ``t`` in the codec's [rows, last_dim]
+    view."""
+    r = t.reshape(-1, t.shape[-1]) if t.dim() > 1 else t.reshape(-1, 1)
+    return [r[i:i + rows] for i in range(0, r.shape[0], rows)]
+
+
+def check_install(torch, got_tree, v1, v0=None):
+    """Every leaf of ``got_tree`` within the codec's bound of ``v1``:
+    |got - v1| <= s/2 + 2**-8 (|v1| + s/2), s the int8 channel scale of v1
+    (int8) or of v1 - v0 (delta-int8), the second term the rounding of the
+    result to a bf16 leaf.  Checked in row blocks of 64M elements.  Returns
+    the largest error over its bound."""
+    from repro_torch.transfer.chunkstore import tree_items
+    flat1 = dict(tree_items(v1))
+    flat0 = dict(tree_items(v0)) if v0 is not None else None
+    worst = 0.0
+    for key, got in tree_items(got_tree):
+        want = flat1[key]
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"install: {key} is {tuple(got.shape)} {got.dtype}, want "
+                 f"{tuple(want.shape)} {want.dtype}")
+        rows = max(1, 2 ** 26 // (want.shape[-1] if want.dim() > 1 else 1))
+        bw = _row_blocks(want, rows)
+        bg = _row_blocks(got, rows)
+        bb = _row_blocks(flat0[key], rows) if flat0 is not None else None
+
+        def basis(i):
+            w = bw[i].float()
+            return w if bb is None else w - bb[i].float()
+        amax = torch.stack([basis(i).abs().amax(0)
+                            for i in range(len(bw))]).amax(0)
+        half = (amax / 127.0 + 1e-12) / 2
+        for i in range(len(bw)):
+            w = bw[i].float()
+            err = (bg[i].float() - w).abs_()
+            tol = half + 2.0 ** -8 * (w.abs() + half)
+            worst = max(worst, float((err / tol).max()))
+    if worst > 1.0:
+        fail(f"install: a leaf is {worst:.3f}x its codec bound from v1")
+    return worst
+
+
+def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
+                  dequant):
+    """v0 serves the smoke mix; a delta-int8 (base v0) and then an int8
+    install of v1 land at horizon boundaries while it is in flight."""
+    from repro_torch.core.weight_transfer import TransferAgent, WeightStore
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.transfer.chunkstore import ChunkStore
+    tracer = Tracer(clock)
+    store = WeightStore([TransferAgent(0, 100.0)],
+                        chunkstore=ChunkStore(history=2, tracer=tracer))
+    v1 = perturbed(torch, params, seed=1)
+    store.publish(0, params)
+    store.publish(1, v1)
+    for sp in tracer.spans():
+        log(f"[install] publish v{sp.attrs['version']} (device -> host copy "
+            f"of every leaf): {sp.duration:.3f} s")
+    eng = make_engine(InferenceEngine, cfg, params)
+    rids = admit(eng, prompts)
+    versions = {r: [] for r in rids}
+    done = set()
+
+    def run(n_horizons=None):
+        """Step until every prompt is prefilled and ``n_horizons`` more
+        decode horizons ran (None: until every request finished)."""
+        def go(until):
+            for _ in range(10000):
+                if len(done) == len(rids) or until():
+                    return
+                for e in eng.step():
+                    versions[e.req_id].append(e.weight_version)
+                    if e.finished:
+                        done.add(e.req_id)
+        go(lambda: not eng.waiting)
+        if n_horizons is None:
+            go(lambda: False)
+        else:
+            stop = eng.n_decode_dispatches + n_horizons
+            go(lambda: eng.n_decode_dispatches >= stop)
+
+    reset_launches()
+    run(2)
+    n_dequant = 0
+    results = {}
+    for codec, base_version in (("delta-int8", 0), ("int8", None)):
+        n_spans = len(tracer.spans())
+        t0 = clock()
+        m = store.manifest(codec, base_version)
+        t_manifest = clock() - t0
+        if m.codec != codec:
+            fail(f"install: asked for a {codec} manifest, got {m.codec}")
+        fetch = store.fetch_fn()
+        chunks = {c.digest: fetch(c.digest) for c in m.chunks}
+        before = dequant.launches
+        t0 = clock()
+        tree = store.chunkstore.assemble(
+            m, chunks, like=params,
+            base_params=eng.params if codec == "delta-int8" else None)
+        t_assemble = clock() - t0
+        launched = dequant.launches - before
+        int8_leaves = sum(sp.codec != "none" for sp in m.leaves)
+        if launched != int8_leaves or not launched:
+            fail(f"install {codec}: {launched} dequant launches for "
+                 f"{int8_leaves} int8-coded leaves")
+        n_dequant += launched
+        worst = check_install(torch, tree, v1,
+                              params if codec == "delta-int8" else None)
+        t0 = clock()
+        eng.swap_weights(tree, 1)
+        t_swap = clock() - t0
+        del tree, chunks
+        spans = tracer.spans()[n_spans:]
+        step = {name: sum(sp.duration for sp in spans if sp.name == name)
+                for name in ("transfer.encode", "transfer.hash",
+                             "transfer.verify", "transfer.h2d",
+                             "transfer.dequant", "transfer.cast")}
+        results[codec] = dict(manifest_s=t_manifest, assemble_s=t_assemble,
+                              swap_s=t_swap, wire_bytes=m.total_bytes,
+                              n_chunks=m.n_chunks, dequant_launches=launched,
+                              worst_over_bound=worst, **step)
+        log(f"[install] {codec} (base v{base_version}) of v1 at decode "
+            f"horizon {eng.n_decode_dispatches}: {m.total_bytes} B in "
+            f"{m.n_chunks} chunks ({len(m.leaves)} leaves); manifest "
+            f"{t_manifest:.3f} s (encode {step['transfer.encode']:.3f} s, "
+            f"sha256 {step['transfer.hash']:.3f} s); assemble "
+            f"{t_assemble:.3f} s (checksum + copy "
+            f"{step['transfer.verify']:.3f} s, host-to-device "
+            f"{step['transfer.h2d']:.3f} s, dequant kernel "
+            f"{step['transfer.dequant']:.3f} s, cast "
+            f"{step['transfer.cast']:.3f} s); swap {t_swap:.6f} s; "
+            f"{launched} dequant launches; every leaf within "
+            f"{worst:.3f} of its codec bound")
+        run(2)
+    run()
+    launches = check_launches(cfg, eng, "install run", eng.n_decode_dispatches,
+                              eng.n_prefill_dispatches, n_dequant)
+    if done != set(rids):
+        fail(f"install: {len(rids) - len(done)} requests dropped")
+    for r, vs in versions.items():
+        if vs != sorted(vs) or vs[0] != 0 or vs[-1] != 1:
+            fail(f"install: request {r} versions {vs} not monotone 0 -> 1")
+    log(f"[install] all {len(rids)} requests finished; versions monotone "
+        f"0 -> 1 on every stream")
+    del eng, store, v1
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: KV migration at full width
+# --------------------------------------------------------------------------- #
+def migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
+                  unmigrated, codec: str):
+    """Engine A serves the mix; two decode horizons after the last prefill
+    the whole batch moves through a KV manifest into an empty engine B
+    (same max_batch, so each row keeps its slot), and A drops it.  With
+    codec none B's tokens must continue ``unmigrated`` exactly, with zero
+    prefill."""
+    from repro_torch.transfer.chunkstore import (assemble_kv_state,
+                                                 build_kv_manifest)
+    src = make_engine(InferenceEngine, cfg, params)
+    rids = admit(src, prompts)
+    out = {r: [] for r in rids}
+    while src.waiting:
+        for e in src.step():
+            out[e.req_id].append(e.token)
+    cut = src.n_decode_dispatches + 2
+    while src.n_decode_dispatches < cut:
+        for e in src.step():
+            out[e.req_id].append(e.token)
+    moving = src.exportable_request_ids()
+    if moving != rids:
+        fail(f"migrate: rows {moving} resident at the cut, want {rids}")
+    t0 = clock()
+    state = src.export_request_state(moving)
+    t_export = clock() - t0
+    table_pages = sum(len(r["page_idx"]) for r in state["requests"])
+    t0 = clock()
+    m, blobs, meta = build_kv_manifest(1, state, codec=codec)
+    t_manifest = clock() - t0
+    fetched = {c.digest: blobs[c.digest] for c in m.chunks}
+    t0 = clock()
+    landed = assemble_kv_state(m, fetched, meta)
+    t_assemble = clock() - t0
+    dst = make_engine(InferenceEngine, cfg, params)
+    reset_launches()
+    t0 = clock()
+    slots = dst.import_request_state(landed)
+    t_import = clock() - t0
+    for rid in moving:
+        src.drop_request(rid)
+    if slots != list(range(len(moving))) or src.n_active:
+        fail(f"migrate: imported into slots {slots}, source keeps "
+             f"{src.n_active} rows")
+    done = set()
+    for _ in range(10000):
+        if len(done) == len(rids):
+            break
+        for e in dst.step():
+            out[e.req_id].append(e.token)
+            if e.finished:
+                done.add(e.req_id)
+    check_launches(cfg, dst, f"migrated ({codec}) destination",
+                   dst.n_decode_dispatches, dst.n_prefill_dispatches)
+    if done != set(rids):
+        fail(f"migrate ({codec}): {len(rids) - len(done)} requests never "
+             f"finished on the destination")
+    if dst.n_prefill_tokens or dst.n_prefill_dispatches:
+        fail(f"migrate ({codec}): destination prefilled "
+             f"{dst.n_prefill_tokens} tokens")
+    if state["n_pages"] >= table_pages:
+        fail(f"migrate: {state['n_pages']} pages shipped for {table_pages} "
+             f"table entries: shared prompt pages were not deduplicated")
+    same = {r: out[r] == [t for t, _ in unmigrated[r]] for r in rids}
+    if codec == "none" and not all(same.values()):
+        fail(f"migrate: tokens after migration differ from the unmigrated "
+             f"run for requests {[r for r in rids if not same[r]]}")
+    raw = sum(v.numel() * v.element_size() for v in state["pages"].values())
+    log(f"[migrate] {codec}: {len(moving)} requests "
+        f"({dst.n_kv_import_tokens} context tokens) at decode horizon "
+        f"{cut}; "
+        f"{state['n_pages']} unique pages shipped for {table_pages} table "
+        f"entries; {raw} B of pages, {m.total_bytes} B on the wire in "
+        f"{m.n_chunks} chunks; export {t_export:.3f} s, manifest "
+        f"{t_manifest:.3f} s, assemble {t_assemble:.3f} s, import "
+        f"{t_import:.3f} s; destination prefill tokens "
+        f"{dst.n_prefill_tokens}; tokens equal to the unmigrated run for "
+        f"{sum(same.values())} of {len(rids)} requests")
+    del src, dst, state, landed, blobs, fetched
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -419,13 +767,15 @@ def main():
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.dequant import fused_dequant
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
     from repro_torch.models.transformer import init_params
     from repro_torch.obs.tracer import Tracer
     from repro_torch.serving.engine import InferenceEngine
 
-    KERNELS[:] = [paged_decode_attention, paged_prefill_attention]
+    KERNELS[:] = [paged_decode_attention, paged_prefill_attention,
+                  fused_dequant]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -446,6 +796,7 @@ def main():
     # ---- 2. kernels against their plain versions ----
     dec = check_decode(torch, F, ref, paged_decode_attention)
     pre = check_prefill(torch, F, ref, paged_prefill_attention)
+    deq = check_dequant(torch, ref, fused_dequant)
 
     # ---- 3. the engine at full width ----
     cfg = get_config("qwen3-8b")
@@ -516,18 +867,31 @@ def main():
         plain, _, _ = model_logits(torch, cfg, params, prompts[0], ops, ref)
     compare_logits(torch, cfg, "prefill", got, plain)
     compare_logits(torch, cfg, "decode step", step, step_plain)
+    del got, step, step_plain, plain
+    torch.cuda.empty_cache()
 
-    # ---- 4. summary ----
+    # ---- 4. pulled weight versions installed mid-generation ----
+    installs, inst_launches = install_phase(
+        torch, InferenceEngine, cfg, params, prompts, clock, fused_dequant)
+
+    # ---- 5. KV migration at full width ----
+    for codec in ("none", "int8"):
+        migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
+                      greedy8, codec)
+
+    # ---- 6. summary ----
     rows = []
-    for name, src, replaces, r in (
+    for name, src, replaces, r, n in (
             ("paged_decode_attention",
              "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention.py:134", dec),
+             "src/repro/kernels/paged_attention.py:134", dec, launches),
             ("paged_prefill_attention",
              "src/repro_torch/kernels/csrc/paged_prefill.cu",
-             "src/repro/kernels/paged_prefill.py:189", pre)):
+             "src/repro/kernels/paged_prefill.py:189", pre, launches),
+            ("fused_dequant", "src/repro_torch/kernels/csrc/dequant.cu",
+             "src/repro/kernels/dequant.py:53", deq, inst_launches)):
         rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=launches[name], **r))
+                         replaces=replaces, launches=n[name], **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -536,7 +900,8 @@ def main():
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"kernels": rows, "nvidia_smi": smi.stdout.strip()}, indent=1))
+        {"kernels": rows, "installs": installs,
+         "nvidia_smi": smi.stdout.strip()}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {

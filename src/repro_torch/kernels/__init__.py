@@ -1,2 +1,2 @@
-"""Paged attention: hand-written CUDA kernels, their plain PyTorch
-versions and the device dispatch between them."""
+"""Hand-written CUDA kernels (paged attention, fused dequant), their plain
+PyTorch versions and the device dispatch between them."""

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the paged attention kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 They are the CPU path of ``kernels.ops`` and the yardstick the CUDA kernels
 are held against on the card.  Semantics follow the reference's oracles
 (``repro.kernels.ref.paged_decode_attention_ref`` /
-``paged_prefill_attention_ref``): f32 math, masked scores at -1e30, softcap
-before the mask, rows with nothing to attend return exact zeros.
+``paged_prefill_attention_ref`` / ``dequant_ref``): f32 math; for
+attention, masked scores at -1e30, softcap before the mask, rows with
+nothing to attend return exact zeros.
 """
 
 from __future__ import annotations
@@ -90,3 +91,13 @@ def paged_prefill_attention_ref(q, k, v, k_pages, v_pages, block_tables,
     empty = (offs == 0) & (cls == 0)
     out = torch.where(empty[:, None, None, None], torch.zeros_like(out), out)
     return out.to(q.dtype)
+
+
+def dequant_ref(q, scale, base=None):
+    """q: [R, C] int8; scale: [C] f32 per last-dim channel; base: [R, C]
+    (any float dtype) or None.  Returns f32 [R, C] = (base or 0) + q *
+    scale, the product and the sum each rounded to f32."""
+    out = q.float() * scale.float()[None, :]
+    if base is not None:
+        out = out + base.float()
+    return out

@@ -19,7 +19,9 @@ reference's host-side allocator (free list, refcounts, copy-on-write).
 
 The port updates pools IN PLACE (``index_put_``, ``index_copy_``) where the
 reference returns new arrays; ``grow_pool`` allocates new pools, so callers
-never keep a pool across it.
+never keep a pool across it.  ``gather_pages`` / ``scatter_pages`` carry
+pages to and from the host for KV migration, keyed as the reference's
+cache tree keys its pools.
 """
 
 from __future__ import annotations
@@ -216,3 +218,35 @@ def grow_pool(cache, new_num_pages: int):
                              + tuple(pool.shape[2:]))
         out[key] = torch.cat([pool, pad], dim=1)
     return out
+
+
+# pool leaf -> its key string in the reference's cache tree, where the dense
+# family's pools sit group-stacked under groups/sub0 with the same
+# [L, P, ps, K, dh] shape; KV exports use these keys so that an export
+# from either package imports into the other
+POOL_KEYS = {"k_pages": "['groups']['sub0']['k_pages']",
+             "v_pages": "['groups']['sub0']['v_pages']"}
+
+
+def gather_pages(cache, page_ids) -> Dict[str, torch.Tensor]:
+    """Host copies of the pool pages at ``page_ids`` from both pools
+    (KV-migration export): ``{POOL_KEYS[k]: [L, n, ps, K, dh]}`` CPU
+    tensors."""
+    k0 = cache["k_pages"]
+    ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
+    return {POOL_KEYS[k]: cache[k].index_select(1, ids).cpu()
+            for k in POOL_KEYS}
+
+
+def scatter_pages(cache, pages: Dict, page_ids):
+    """Write exported page payloads (tensors or numpy arrays keyed as
+    :func:`gather_pages` keys them) into both pools at ``page_ids``, in
+    place (KV-migration import; inverse of :func:`gather_pages` up to page
+    renames)."""
+    k0 = cache["k_pages"]
+    ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
+    for k, key in POOL_KEYS.items():
+        pool = cache[k]
+        pool[:, ids] = torch.as_tensor(pages[key]).to(pool.device,
+                                                       pool.dtype)
+    return cache

@@ -1,5 +1,5 @@
 """Continuous-batching inference engine over a paged KV cache (port of
-``repro.serving.engine.InferenceEngine``, serving half).
+``repro.serving.engine.InferenceEngine``: serving and KV migration).
 
 One engine is one rollout instance.  Global-attention KV lives in shared
 page pools with per-request block tables (``PagedKVAllocator``); decode
@@ -21,7 +21,10 @@ reference's contracts:
   * ``add_group`` prefills a GRPO group's prompt once and forks its pages
     copy-on-write to every sibling;
   * admission is by capacity (``AdmissionError``), commitment-based when the
-    pool is capped (``max_pool_pages``).
+    pool is capped (``max_pool_pages``);
+  * at a horizon boundary a decode-resident request exports its KV pages
+    (shared prompt pages once per group), imports into another engine with
+    zero prefill, and is dropped from the source.
 
 Attention runs through ``kernels.ops``: the hand-written CUDA kernels on the
 card, their plain versions on the CPU.  Sampling keys are (request,
@@ -130,6 +133,7 @@ class InferenceEngine:
         if max_pool_pages is not None:
             num_pages = max(min(num_pages, int(max_pool_pages)), 2)
         self.max_pool_pages = max_pool_pages
+        self.page_size = page_size
         self.alloc = PagedKVAllocator(num_pages, page_size,
                                       max_pages=max_pool_pages)
         self.cache = kvc.init_paged_cache(cfg, max_batch, num_pages,
@@ -159,6 +163,9 @@ class InferenceEngine:
         self.n_decode_dispatches = 0            # horizon dispatches
         self.n_state_uploads = 0                # host->device state syncs
         self.n_bt_uploads = 0                   # host->device block tables
+        self.n_kv_export_pages = 0              # migration: pages shipped out
+        self.n_kv_import_pages = 0              # migration: pages adopted
+        self.n_kv_import_tokens = 0             # context resumed w/o prefill
 
     def _to_dev(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -538,6 +545,160 @@ class InferenceEngine:
                                            torch.int64)] = \
                 self._to_dev([v for _, v in pos_fix], torch.int32)
         return events
+
+    # ------------------------------------------------------------------ #
+    # KV-page migration (zero-recompute, paper §4.2 over the chunk plane)
+    # ------------------------------------------------------------------ #
+    def exportable_request_ids(self) -> List[int]:
+        """Requests whose KV state can be exported: decode-resident slots,
+        in slot order.  Requests still waiting for (chunked) prefill
+        migrate by token history — they have no complete KV to ship."""
+        return [s.req_id for s in self.slots if s is not None]
+
+    def export_request_state(self, req_ids: List[int]) -> Dict:
+        """Export the full generation state of ``req_ids`` as host arrays.
+
+        The export is GRPO-aware: pages shared between exported siblings
+        (COW prompt sharing) appear ONCE in the unique-page payload, and
+        each request's table is a list of indices into it.  Only pages
+        covering ``ctx_len`` ship — horizon-reserved tail pages past the
+        context are re-reserved by the destination.  The dense family has
+        no per-slot rows, so ``slot_state`` is empty.  The source state is
+        untouched; callers drop the requests after a successful export.
+        """
+        by_id = {s.req_id: s for s in self.slots if s is not None}
+        unique: List[int] = []
+        uidx: Dict[int, int] = {}
+        requests: List[Dict] = []
+        for rid in req_ids:
+            if rid not in by_id:
+                raise KeyError(f"request {rid} has no decode-resident state")
+            st = by_id[rid]
+            idxs = []
+            for p in st.table[:self.alloc.pages_for(st.ctx_len)]:
+                if p not in uidx:
+                    uidx[p] = len(unique)
+                    unique.append(p)
+                idxs.append(uidx[p])
+            requests.append(dict(
+                req_id=rid, tokens=list(st.tokens), n_prompt=st.n_prompt,
+                max_total=st.max_total, last_token=st.last_token,
+                ctx_len=st.ctx_len,
+                key_data=np.array(st.key_data, np.uint32),
+                page_idx=idxs))
+        span = self.tracer.begin("engine.kv_export", self.trace_lane,
+                                 n_reqs=len(req_ids), n_pages=len(unique))
+        pages = kvc.gather_pages(self.cache, unique) if unique else {}
+        self.tracer.end(span)
+        self.n_kv_export_pages += len(unique)
+        return dict(page_size=self.page_size, n_pages=len(unique),
+                    pages=pages, requests=requests, slot_state={})
+
+    def import_request_state(self, state: Dict,
+                             only: Optional[List[int]] = None) -> List[int]:
+        """Adopt exported KV state: requests resume decoding at
+        ``pos = len(prompt) + len(partial)`` with ZERO prefill.
+
+        Pages are allocated once per unique page actually referenced by the
+        imported requests and written from the payload; tables referencing
+        the same page (migrated GRPO siblings' shared prompt) adopt it by
+        refcount — the COW semantics of ``add_group``.  ``only`` restricts
+        the import to a subset of the exported requests (partial group
+        landing); unreferenced pages are neither allocated nor written.
+        Raises :class:`AdmissionError` on a page-size mismatch or when
+        slots are short.  Returns the slots, in the order of the export.
+        """
+        if state["page_size"] != self.page_size:
+            raise AdmissionError(
+                f"page_size mismatch: export {state['page_size']} vs "
+                f"engine {self.page_size}")
+        reqs = [r for r in state["requests"]
+                if only is None or r["req_id"] in only]
+        if not reqs:
+            return []
+        self._check_admission(
+            max(r["ctx_len"] for r in reqs),
+            max(r["max_total"] for r in reqs), need_slots=len(reqs))
+        span = self.tracer.begin("engine.kv_import", self.trace_lane,
+                                 n_reqs=len(reqs))
+        # allocate each referenced unique page once
+        used = sorted({i for r in reqs for i in r["page_idx"]})
+        while True:
+            try:
+                fresh = self.alloc.alloc(len(used))
+                break
+            except OutOfPages:
+                try:
+                    self._grow_pool()
+                except AdmissionError:
+                    self.tracer.end(span, outcome="rejected")
+                    raise
+        page_map = dict(zip(used, fresh))
+        if used:
+            # write after any growth: growth replaces the pool tensors
+            sel = {}
+            for k, v in state["pages"].items():
+                v = torch.as_tensor(v)
+                sel[k] = v.index_select(v.ndim - 4,
+                                        torch.as_tensor(used,
+                                                        dtype=torch.long))
+            kvc.scatter_pages(self.cache, sel, fresh)
+        slots = []
+        referenced: Dict[int, int] = {}
+        for r in reqs:
+            rid = r["req_id"]
+            slot = self._reserve_slot(rid)
+            del self._reserved[rid]
+            table = []
+            for i in r["page_idx"]:
+                p = page_map[i]
+                if p in referenced:
+                    self.alloc.incref(p)     # shared-page adoption
+                else:
+                    referenced[p] = rid      # first table keeps alloc's ref
+                table.append(p)
+            st = SlotState(req_id=rid, key_data=np.array(r["key_data"],
+                                                         np.uint32),
+                           tokens=list(r["tokens"]), n_prompt=r["n_prompt"],
+                           max_total=r["max_total"],
+                           last_token=r["last_token"], table=table,
+                           ctx_len=r["ctx_len"])
+            self.slots[slot] = st
+            self.tokens_buf[slot] = r["last_token"]
+            self.keys_buf[slot] = st.key_data
+            self.maxtot_buf[slot] = r["max_total"]
+            slots.append(slot)
+            self.n_kv_import_tokens += r["ctx_len"]
+        self.n_kv_import_pages += len(used)
+        self.cache["pos"][self._to_dev(slots, torch.int64)] = \
+            self._to_dev([r["ctx_len"] for r in reqs], torch.int32)
+        self._state_dirty = True
+        self._bt_dirty = True
+        self.tracer.end(span, n_pages=len(used))
+        return slots
+
+    # ------------------------------------------------------------------ #
+    def drop_request(self, req_id: int) -> Optional[List[int]]:
+        """Remove a request (migration away); returns its token history.
+        Legal only between ``step()`` calls — i.e. at horizon boundaries."""
+        for i, st in enumerate(self.slots):
+            if st is not None and st.req_id == req_id:
+                toks = list(st.tokens)
+                self._free_slot(i)
+                self._state_dirty = True
+                self._bt_dirty = True
+                return toks
+        for row in self.waiting:
+            for m in row.members:
+                if m[0] == req_id:
+                    row.members.remove(m)
+                    self._reserved.pop(req_id, None)
+                    toks = list(row.token_ids)
+                    if not row.members:
+                        self.alloc.free_table(row.table)
+                        self.waiting.remove(row)
+                    return toks
+        return None
 
     def active_request_ids(self) -> List[int]:
         ids = [s.req_id for s in self.slots if s is not None]

@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX and nothing of the reference package in
-``src/repro_torch`` or ``chip_smoke.py``; it imports without ``triton`` or
-``nvcc``; its entry points run on CUDA unless asked for the CPU."""
+"""The port stands alone: no JAX, no ``ml_dtypes`` (absent beside the card)
+and nothing of the reference package in ``src/repro_torch`` or
+``chip_smoke.py``; it imports without ``triton`` or ``nvcc``; its entry
+points run on CUDA unless asked for the CPU."""
 
 import ast
 import subprocess
@@ -13,7 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -40,16 +41,20 @@ def test_no_jax_or_reference_imports(path):
 
 def test_package_imports_without_triton_nvcc_or_jax(tmp_path):
     """Import every module of the port in a fresh interpreter whose import
-    system refuses jax, repro and triton, with no nvcc on PATH."""
+    system refuses jax, ml_dtypes, repro and triton, with no nvcc on
+    PATH."""
     mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
                   .removesuffix(".__init__")
                   for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert {"repro_torch.transfer", "repro_torch.transfer.chunkstore",
+            "repro_torch.core", "repro_torch.core.weight_transfer",
+            "repro_torch.core.kv_migration"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro', "
-        "'triton'):\n"
+        "'ml_dtypes', 'triton'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {mods!r}:\n"
