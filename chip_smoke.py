@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 q, f32 pools) with ragged lengths / offsets / chunk lengths;
                 ``fused_dequant`` at the full-width leaf shapes (mlp.wi,
                 embed, wq rows at C=128, a 1-D leaf at C=1) with base none,
-                f32 and bf16; max error against the stated tolerance,
+                f32 and bf16; ``flash_attention`` in bf16 at the train
+                phase's shape, at S=4096 and on the reference test's
+                feature cases (window, softcap, MQA, bidirectional, a
+                ragged S); max error against the stated tolerance,
                 kernel / plain / library times (CUDA events, L2 flushed
                 before each launch) and the bound;
   3. engine   — ``qwen3-8b`` at full width (random weights from a seeded
@@ -39,7 +42,19 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 unmigrated run's exactly with zero prefill, and shared
                 prompt pages must ship once; then once more with codec int8,
                 which must run to completion;
-  6. summary  — one JSON line per the kernels, the card's name and power
+  6. train    — one step of the RL loop on ``qwen3-8b`` at full width, its
+                depth cut to 8 layers (AdamW holds 16 bytes a parameter:
+                bf16 params and grads, f32 m, v and master): an engine on
+                the trainer's weights rolls the mix out at temperature 1,
+                recording each token's logprob; the batch is built as the
+                reference's harness builds it (rewards: the share of even
+                token ids in each response); the train-mode forward with
+                the flash kernel against plain attention (logits, grad
+                norm); 3 GRPO steps (seconds, tokens/s, loss, ratio_mean,
+                grad_norm, peak memory; step 1 on-policy, so ratio_mean
+                ~ 1); the trained weights swapped into the engine as
+                version 1, which serves the mix again to completion;
+  7. summary  — one JSON line per the kernels, the card's name and power
                 limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
@@ -67,6 +82,11 @@ TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 KERNEL_TOL = 2e-2       # bf16 output: one rounding of values up to ~4
+F32_KERNEL_TOL = 2e-5   # f32 inputs: sums in another order
+# flash attention: the reference's own test (tests/test_kernels.py:16, 41)
+# holds its kernel with atol = rtol = 2e-2 in bf16 and 2e-5 in f32; the
+# tensor-core path rounds P to bf16 before P V, so an output can land one
+# bf16 ulp away (2**-7 of its magnitude, 0.0156 at |out| in [2, 4))
 # model regime (qk-normed q pre-scaled by dh**-0.5, scores of order 1):
 # max error over max |output|, a few bf16 roundings
 KERNEL_REL_TOL = 1e-2
@@ -78,6 +98,37 @@ DEQUANT_TOL = 1e-6
 DEQUANT_SHAPES = (("mlp.wi", 32 * 4096, 12288), ("embed", 151936, 4096),
                   ("attn.wq", 32 * 4096 * 32, 128), ("final_norm", 4096, 1))
 NEW_TOKENS = 64
+PROMPT_LENS = (300, 310, 290, 305)
+# phase 6: the trainer on Qwen3-8B's width, 8 of its 32 layers: 2.17 G
+# parameters x 16 bytes of trainer state = 34.7 GB; all 32 would need
+# ~109 GB on an 80 GB card
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-5
+TRAIN_SEQ = max(PROMPT_LENS) + NEW_TOKENS     # the rollout batch's S
+# step 1 runs on the rollout's own weights, so exp(lp - beh) is 1 up to
+# the two paths' roundings: the engine decodes through f32 KV pools and the
+# paged kernels at M = 10 rows, the trainer runs bf16 k/v through the
+# flash kernel and GEMMs at M = 3740 rows, so per-token logprobs differ by
+# bf16 roundings of the residual stream over 8 layers (the serve phase's
+# logits, kernels vs plain, differ by ~1.5% of max |logit|); their mean
+# over ~640 response tokens stays within 5% of 1, while a slot or
+# temperature off by one would put it orders of magnitude away
+RATIO_TOL = 5e-2
+# grad norm, flash kernel vs plain attention in the same train forward:
+# the kernel's output differs from the plain version's by a bf16 rounding,
+# so the norms agree within the logits' own 5%
+GRAD_NORM_REL_TOL = 5e-2
+# (B, H, K, S, d, causal, window, cap): the train phase's shape, one long
+# sequence, then tests/test_kernels.py:20-26 and a ragged S
+FLASH_CASES = (("train", (10, 32, 8, TRAIN_SEQ, 128, True, 0, 0.0)),
+               ("long", (1, 32, 8, 4096, 128, True, 0, 0.0)),
+               ("gqa", (2, 4, 2, 256, 64, True, 0, 0.0)),
+               ("window", (1, 4, 4, 256, 64, True, 64, 0.0)),
+               ("mqa-softcap", (2, 2, 1, 128, 32, True, 0, 50.0)),
+               ("bidirectional", (1, 8, 2, 256, 128, False, 0, 0.0)),
+               ("window-softcap", (1, 2, 2, 512, 64, True, 128, 30.0)),
+               ("ragged", (2, 4, 2, 200, 64, True, 48, 20.0)))
 
 
 def fail(msg: str):
@@ -305,6 +356,89 @@ def check_dequant(torch, ref, kern):
     return row
 
 
+def within(torch, out, want, tol: float, what: str) -> float:
+    """Fail unless ``out`` is finite and |out - want| <= tol (1 + |want|)
+    everywhere; returns max |out - want|."""
+    diff = (out.float() - want.float()).abs()
+    if not torch.isfinite(out.float()).all() or bool(
+            (diff > tol * (1 + want.float().abs())).any()):
+        fail(f"{what}: max err {float(diff.max())} over atol = rtol = {tol}")
+    return float(diff.max())
+
+
+def flash_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps in one (row, head)."""
+    n = 0
+    for i in range(S):
+        hi = i + 1 if causal else S
+        lo = max(0, i - window + 1) if window else 0
+        n += hi - lo
+    return n
+
+
+def check_flash(torch, F, ref, kern):
+    """``flash_attention`` in bf16 (its tensor-core path) against its plain
+    version on every case of FLASH_CASES, inputs in the model's [B, S,
+    heads, d] layout passed as head-major views; times and bounds.  The
+    feature cases run in f32 too (its CUDA-core path), untimed.  Returns
+    the summary row (the train shape, the worst bf16 error over all cases)
+    and every case's row."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst, rows = 0.0, {}
+    for name, (B, H, K, S, d, causal, window, cap) in FLASH_CASES:
+        q, k, v = (torch.randn(B, S, n, d, generator=g, device="cuda")
+                   .bfloat16().transpose(1, 2) for n in (H, K, K))
+        opts = dict(causal=causal, window=window, cap=cap)
+        out = kern(q, k, v, **opts)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, **opts)
+        err = within(torch, out, want, KERNEL_TOL, f"flash_attention {name}")
+        worst = max(worst, err)
+        del out, want
+        err32 = None
+        if name not in ("train", "long"):
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            out = kern(q32, k32, v32, **opts)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q32, k32, v32, **opts)
+            err32 = within(torch, out, want, F32_KERNEL_TOL,
+                           f"flash_attention {name} f32")
+            del q32, k32, v32, out, want
+        ms = time_ms(lambda: kern(q, k, v, **opts), torch)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **opts),
+                           torch)
+        lib_ms = None                           # SDPA has no softcap
+        if not cap:
+            mask = None
+            if window:
+                pos = torch.arange(S, device="cuda")
+                mask = (pos[:, None] - pos[None]) < window
+                if causal:
+                    mask &= pos[:, None] >= pos[None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                scale=d ** -0.5, enable_gqa=True), torch)
+        pairs = flash_pairs(S, causal, window)
+        nbytes = 2 * B * S * (2 * H + 2 * K) * d
+        flops = 4 * d * pairs * B * H
+        b_ms, b_by = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+        lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        f32_s = "" if err32 is None else (
+            f", f32 max_abs_err={err32:.3e} (tol {F32_KERNEL_TOL} abs + "
+            f"rel)")
+        log(f"[kernels] flash_attention {name} B={B} H={H} K={K} S={S} "
+            f"d={d} causal={causal} window={window} cap={cap}: "
+            f"max_abs_err={err:.3e} (tol {KERNEL_TOL} abs + rel){f32_s} "
+            f"kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_s}, bound {b_ms:.4f} ms "
+            f"({b_by}: {nbytes} B, {flops} flop)")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return dict(rows["train"], max_abs_err=worst), rows
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: the engine at full width
 # --------------------------------------------------------------------------- #
@@ -314,17 +448,20 @@ def reset_launches():
 
 
 def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
-                   n_dequant: int = 0):
+                   n_dequant: int = 0, n_train_fwd: int = 0):
     """Each kernel's launches since the last reset against layers x the
-    engine's dispatches in that span (and the int8-coded leaves installed);
-    fail unless equal and non-zero where the span ran the kernel."""
+    engine's dispatches in that span (and the int8-coded leaves installed,
+    and layers x the train-mode forwards run); fail unless equal and
+    non-zero where the span ran the kernel."""
     got = {k.__name__: k.launches for k in KERNELS}
     want = {"paged_decode_attention": cfg.n_layers * eng.horizon * n_decode,
             "paged_prefill_attention": cfg.n_layers * n_prefill,
-            "fused_dequant": n_dequant}
+            "fused_dequant": n_dequant,
+            "flash_attention": cfg.n_layers * n_train_fwd}
     log(f"[engine] {what}: launches {got}, expected {want} (layers x "
         f"dispatches: {n_decode} decode horizons of {eng.horizon}, "
-        f"{n_prefill} prefill chunks; {n_dequant} int8-coded leaves)")
+        f"{n_prefill} prefill chunks; {n_dequant} int8-coded leaves; "
+        f"{n_train_fwd} train-mode forwards)")
     if got != want or any(want[k] and not got[k] for k in want):
         fail(f"{what}: kernel launches {got} != expected {want}")
     return got
@@ -338,11 +475,12 @@ def make_engine(InferenceEngine, cfg, params, *, horizon=8, temperature=0.0,
                            device="cuda")
 
 
-def admit(eng, prompts):
+def admit(eng, prompts, rid0: int = 0):
     """The smoke mix: 2 GRPO groups of 4 on prompts 0 and 1, then single
-    requests on the rest, NEW_TOKENS new tokens each.  Returns the ids."""
+    requests on the rest, NEW_TOKENS new tokens each, ids from ``rid0``.
+    Returns the ids."""
     from repro_torch.rl.sampler import request_key
-    rid = 0
+    rid = rid0
     rids = []
     for gi in range(2):
         members = [(rid + j, request_key(0, rid + j),
@@ -358,6 +496,26 @@ def admit(eng, prompts):
     return rids
 
 
+def drive(eng, rids):
+    """Step ``eng`` until every request of ``rids`` has finished; fail if
+    one never does.  Returns ({rid: [(token, logprob)]}, {rid: [weight
+    version of each token]})."""
+    out = {r: [] for r in rids}
+    versions = {r: [] for r in rids}
+    done = set()
+    for _ in range(10000):
+        if len(done) == len(rids):
+            break
+        for e in eng.step():
+            out[e.req_id].append((e.token, e.logprob))
+            versions[e.req_id].append(e.weight_version)
+            if e.finished:
+                done.add(e.req_id)
+    if len(done) != len(rids):
+        fail(f"engine: {len(rids) - len(done)} requests never finished")
+    return out, versions
+
+
 def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
           temperature, tracer=None):
     """The smoke mix to completion; every kernel's launch count is zeroed
@@ -365,24 +523,14 @@ def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
     eng = make_engine(InferenceEngine, cfg, params, horizon=horizon,
                       temperature=temperature, tracer=tracer)
     rids = admit(eng, prompts)
-    out = {r: [] for r in rids}
-    done = set()
     reset_launches()
     t0 = time.perf_counter()
-    for _ in range(10000):
-        if len(done) == len(rids):
-            break
-        for e in eng.step():
-            out[e.req_id].append((e.token, e.logprob))
-            if e.finished:
-                done.add(e.req_id)
+    out, _ = drive(eng, rids)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = check_launches(
         cfg, eng, f"{'greedy' if temperature <= 0 else f'T={temperature}'} "
         f"H={horizon}", eng.n_decode_dispatches, eng.n_prefill_dispatches)
-    if len(done) != len(rids):
-        fail(f"engine: {len(rids) - len(done)} requests never finished")
     for r, evs in out.items():
         if not all(math.isfinite(lp) for _, lp in evs):
             fail(f"engine: request {r} has a non-finite logprob")
@@ -437,13 +585,21 @@ def profile_decode(torch, InferenceEngine, cfg, params, prompts):
 def plain_attention(ops, ref):
     """Route the model's attention through the plain versions on the card
     (a yardstick for this script only; the port has no such switch)."""
-    saved = ops.paged_decode_attention, ops.paged_prefill_attention
+    def attention_bshd(q, k, v, **opts):
+        return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), **opts) \
+            .transpose(1, 2)
+
+    saved = (ops.paged_decode_attention, ops.paged_prefill_attention,
+             ops.attention_bshd)
     ops.paged_decode_attention = ref.paged_decode_attention_ref
     ops.paged_prefill_attention = ref.paged_prefill_attention_ref
+    ops.attention_bshd = attention_bshd
     try:
         yield
     finally:
-        ops.paged_decode_attention, ops.paged_prefill_attention = saved
+        (ops.paged_decode_attention, ops.paged_prefill_attention,
+         ops.attention_bshd) = saved
 
 
 def model_logits(torch, cfg, params, prompt, ops, ref):
@@ -755,6 +911,193 @@ def migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: training after serving
+# --------------------------------------------------------------------------- #
+def rollout_batch(torch, grpo, prompts, rids, out):
+    """The GRPO batch of one rollout of the mix, as the reference's
+    ``RealRLHarness._batch_from_requests`` builds it: prompt + response
+    right-padded with 0, ``response_mask`` on the response slots, each
+    token's behaviour logprob at its own slot.  Random weights solve no
+    task, so the reward is a fixed function of the tokens: the share of
+    even token ids in the response.  Group-normalized advantages over the
+    two GRPO groups (the single requests are groups of one: advantage
+    0)."""
+    import numpy as np
+    owner = [0] * 4 + [1] * 4 + list(range(2, len(prompts)))  # admit()
+    seqs, groups = [], {}
+    for i, (r, g) in enumerate(zip(rids, owner)):
+        seqs.append((prompts[g], out[r]))
+        groups.setdefault(g, []).append(i)
+    B, S = len(rids), max(len(p) + len(o) for p, o in seqs)
+    tokens = np.zeros((B, S), np.int32)
+    mask = np.zeros((B, S), np.float32)
+    beh = np.zeros((B, S), np.float32)
+    rewards = np.zeros((B,), np.float32)
+    for i, (p, o) in enumerate(seqs):
+        toks = [t for t, _ in o]
+        tokens[i, :len(p) + len(o)] = p + toks
+        mask[i, len(p):len(p) + len(o)] = 1.0
+        beh[i, len(p):len(p) + len(o)] = [lp for _, lp in o]
+        rewards[i] = np.mean([t % 2 == 0 for t in toks])
+    adv = grpo.group_normalized_advantages(rewards, groups)
+    batch = {"tokens": tokens, "response_mask": mask, "advantages": adv,
+             "behavior_logprobs": beh}
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}, rewards
+
+
+def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
+                flash):
+    """Roll the mix out on the trainer's weights, take TRAIN_STEPS GRPO
+    steps on it with the flash kernel in every train-mode forward, then
+    serve the mix again on the trained weights as version 1."""
+    import dataclasses
+
+    from repro_torch.models.transformer import (forward, init_params,
+                                                logits_from_hidden,
+                                                token_logprobs)
+    from repro_torch.optim import adamw
+    from repro_torch.rl import grpo
+    t_phase = clock()
+    cfg = dataclasses.replace(cfg_full, n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    state = grpo.init_train_state(params, "cuda")
+    n_params = sum(t.numel() for t in adamw.tree_leaves(params))
+    log(f"[train] {cfg.name} at full width (d={cfg.d_model} H={cfg.n_heads} "
+        f"K={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size}, tied), depth cut to {cfg.n_layers} of "
+        f"{cfg_full.n_layers} layers because AdamW holds 16 B a parameter "
+        f"({n_params} params: {n_params * 16 / 1e9:.1f} GB of trainer state "
+        f"here, {cfg_full.n_layers} layers would need ~109 GB); state "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+
+    # 1. the engine rolls out on the trainer's weights
+    eng = make_engine(InferenceEngine, cfg, state["params"], temperature=1.0)
+    rids = admit(eng, prompts)
+    reset_launches()
+    t0 = clock()
+    out, versions = drive(eng, rids)
+    t_roll = clock() - t0
+    check_launches(cfg, eng, "rollout T=1", eng.n_decode_dispatches,
+                   eng.n_prefill_dispatches)
+    if any(v != 0 for vs in versions.values() for v in vs):
+        fail("train: the rollout did not run on weight version 0")
+    batch, rewards = rollout_batch(torch, grpo, prompts, rids, out)
+    B, S = batch["tokens"].shape
+    mask = batch["response_mask"]
+    n_resp = int(mask.sum())
+    log(f"[train] rollout: {len(rids)} requests, {n_resp} response tokens "
+        f"at temperature 1 in {t_roll:.3f} s; batch B={B} S={S}; rewards "
+        f"(share of even token ids) {[round(float(r), 3) for r in rewards]}")
+
+    # 2. the train forward with the kernel against plain attention
+    reset_launches()
+    n_fwd = 0
+    with torch.no_grad():
+        hidden = forward(state["params"], cfg, tokens=batch["tokens"],
+                         mode="train")["hidden"]
+        n_fwd += 1
+        logits = logits_from_hidden(state["params"], cfg, hidden)
+        lp = token_logprobs(state["params"], cfg, hidden[:, :-1],
+                            batch["tokens"][:, 1:])
+        with plain_attention(ops, ref):
+            hidden_p = forward(state["params"], cfg, tokens=batch["tokens"],
+                               mode="train")["hidden"]
+            logits_p = logits_from_hidden(state["params"], cfg, hidden_p)
+    if logits.shape != (B, S, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail("train: train-mode logits are not finite of shape [B, S, V]")
+    d_max = float((logits - logits_p).abs().max())
+    scale = float(logits_p.abs().max())
+    lp_diff = float(((lp - batch["behavior_logprobs"][:, 1:]).abs()
+                     * mask[:, 1:]).max())
+    log(f"[train] train-mode logits [B={B}, S={S}, V], flash kernel vs "
+        f"plain attention: max abs diff {d_max:.4e} of max |logit| "
+        f"{scale:.4e} (rel {d_max / scale:.3e}, tol {LOGIT_REL_TOL}); max "
+        f"|lp - behaviour lp| over response tokens {lp_diff:.4e}")
+    if d_max > LOGIT_REL_TOL * scale:
+        fail("train: logits with the flash kernel disagree with the plain "
+             "attention")
+    del hidden, hidden_p, logits, logits_p, lp
+    with plain_attention(ops, ref):
+        _, _, grads_p = grpo.loss_and_grads(state["params"], cfg, batch,
+                                            remat=True)
+    gn_plain = float(adamw.global_norm(grads_p))
+    del grads_p
+    torch.cuda.empty_cache()
+
+    # 3. GRPO steps
+    step_fn = grpo.make_train_step(cfg, lr=TRAIN_LR, remat=True)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        t0 = clock()
+        state, m = step_fn(state, batch)
+        dt = clock() - t0
+        n_fwd += 2                      # the forward and its recompute
+        m = {k: float(v) for k, v in m.items()}
+        m.update(seconds=dt, tokens_per_s=B * S / dt,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        steps.append(m)
+        log(f"[train] step {i + 1}: {dt:.3f} s, {B * S / dt:.1f} tokens/s "
+            f"(B x S = {B * S}, {n_resp} response tokens), loss "
+            f"{m['loss']:.6f}, pg_loss {m['pg_loss']:.6f}, ratio_mean "
+            f"{m['ratio_mean']:.6f}, grad_norm {m['grad_norm']:.6f}, peak "
+            f"memory {m['peak_gb']:.2f} GB")
+    launches = check_launches(cfg, eng, "train", 0, 0,
+                              n_train_fwd=n_fwd)
+    s1 = steps[0]
+    log(f"[train] step 1 on-policy: |ratio_mean - 1| = "
+        f"{abs(s1['ratio_mean'] - 1):.3e} (tol {RATIO_TOL}); grad_norm "
+        f"{s1['grad_norm']:.6f} with the kernel, {gn_plain:.6f} with plain "
+        f"attention (rel tol {GRAD_NORM_REL_TOL})")
+    if abs(s1["ratio_mean"] - 1.0) > RATIO_TOL:
+        fail(f"train: step 1 ratio_mean {s1['ratio_mean']} is not 1 within "
+             f"{RATIO_TOL}")
+    if abs(s1["grad_norm"] - gn_plain) > GRAD_NORM_REL_TOL * gn_plain:
+        fail("train: grad_norm with the flash kernel disagrees with the "
+             "plain attention's")
+    for i, m in enumerate(steps):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            fail(f"train: step {i + 1} loss {m['loss']} grad_norm "
+                 f"{m['grad_norm']}")
+    if int(state["opt"]["count"]) != TRAIN_STEPS:
+        fail(f"train: AdamW count {int(state['opt']['count'])}")
+    frozen = [k for k, (a, b) in enumerate(zip(
+        adamw.tree_leaves(params), adamw.tree_leaves(state["params"])))
+        if torch.equal(a, b)]
+    if frozen:
+        fail(f"train: {len(frozen)} parameter leaves did not change")
+    del params
+
+    # 4. publish: the trained weights serve as version 1
+    eng.swap_weights(state["params"], 1)
+    rids2 = admit(eng, prompts, rid0=len(rids))
+    reset_launches()
+    n_dec, n_pre = eng.n_decode_dispatches, eng.n_prefill_dispatches
+    t0 = clock()
+    out2, versions2 = drive(eng, rids2)
+    t_serve = clock() - t0
+    check_launches(cfg, eng, "serve v1", eng.n_decode_dispatches
+                   - n_dec, eng.n_prefill_dispatches - n_pre)
+    if any(v != 1 for vs in versions2.values() for v in vs):
+        fail("train: the engine did not serve the trained version 1")
+    t_phase = clock() - t_phase
+    log(f"[train] swapped the trained weights in as version 1: all "
+        f"{len(rids2)} requests served to completion "
+        f"({sum(map(len, out2.values()))} tokens, {t_serve:.3f} s); "
+        f"versions 0 -> 1; phase {t_phase:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng, state, batch
+    torch.cuda.empty_cache()
+    return launches, dict(steps=steps, grad_norm_plain=gn_plain,
+                          logit_rel_diff=d_max / scale, lp_max_diff=lp_diff,
+                          rollout_s=t_roll, serve_v1_s=t_serve,
+                          phase_s=t_phase, n_params=n_params)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -768,6 +1111,7 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.dequant import fused_dequant
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
     from repro_torch.models.transformer import init_params
@@ -775,7 +1119,7 @@ def main():
     from repro_torch.serving.engine import InferenceEngine
 
     KERNELS[:] = [paged_decode_attention, paged_prefill_attention,
-                  fused_dequant]
+                  fused_dequant, flash_attention]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -797,6 +1141,7 @@ def main():
     dec = check_decode(torch, F, ref, paged_decode_attention)
     pre = check_prefill(torch, F, ref, paged_prefill_attention)
     deq = check_dequant(torch, ref, fused_dequant)
+    fla, fla_cases = check_flash(torch, F, ref, flash_attention)
 
     # ---- 3. the engine at full width ----
     cfg = get_config("qwen3-8b")
@@ -813,7 +1158,7 @@ def main():
     rs = torch.Generator().manual_seed(0)
     prompts = [[1] + torch.randint(3, cfg.vocab_size, (n - 1,),
                                    generator=rs).tolist()
-               for n in (300, 310, 290, 305)]
+               for n in PROMPT_LENS]
 
     def clock():
         torch.cuda.synchronize()
@@ -879,7 +1224,13 @@ def main():
         migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
                       greedy8, codec)
 
-    # ---- 6. summary ----
+    # ---- 6. training after serving ----
+    del params
+    torch.cuda.empty_cache()
+    train_launches, train = train_phase(torch, InferenceEngine, cfg, prompts,
+                                        clock, ops, ref, flash_attention)
+
+    # ---- 7. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -889,7 +1240,11 @@ def main():
              "src/repro_torch/kernels/csrc/paged_prefill.cu",
              "src/repro/kernels/paged_prefill.py:189", pre, launches),
             ("fused_dequant", "src/repro_torch/kernels/csrc/dequant.cu",
-             "src/repro/kernels/dequant.py:53", deq, inst_launches)):
+             "src/repro/kernels/dequant.py:53", deq, inst_launches),
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:116", fla,
+             train_launches)):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=n[name], **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -900,7 +1255,8 @@ def main():
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"kernels": rows, "installs": installs,
+        {"kernels": rows, "installs": installs, "flash_cases": fla_cases,
+         "train": train,
          "nvidia_smi": smi.stdout.strip()}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])

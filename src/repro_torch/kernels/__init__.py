@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels (paged attention, fused dequant), their plain
-PyTorch versions and the device dispatch between them."""
+"""Hand-written CUDA kernels (paged and flash attention, fused dequant),
+their plain PyTorch versions and the device dispatch between them."""

@@ -1,0 +1,76 @@
+"""Dense GQA flash attention forward: the CUDA kernel's wrapper.
+
+Port of ``repro.kernels.flash_attention.flash_attention`` (a Pallas TPU
+kernel) to ``csrc/flash_attention.cu``; the source's header says what
+bounds it and how it is laid out.  The plain version is
+``kernels.ref.flash_attention_ref``; ``kernels.ops.attention_bshd`` picks
+between the two by device and carries the gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import DTYPE_CODES
+from repro_torch.kernels.ref import flash_attention_ref  # noqa: F401
+
+HEAD_DIMS = (32, 64, 128)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"flash_attention: {msg}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    cap: float = 0.0):
+    """q: [B, H, S, d] unscaled (scale d**-0.5 inside); k/v: [B, K, S, d];
+    one dtype, float32 (CUDA cores) or bfloat16 (tensor cores), on one
+    CUDA device.  Any strides with a dense last dim (even ones for bf16):
+    the model passes [B, S, H, d] activations as transposed views, and the
+    output takes q's memory order.  H / K must divide 64.  Returns
+    [B, H, S, d] in q's dtype."""
+    _require(all(t.is_cuda and t.device == q.device for t in (q, k, v)),
+             "q, k and v must be on the same CUDA device")
+    _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+             "q must be [B, H, S, d] and k/v [B, K, S, d]")
+    B, H, S, d = q.shape
+    K = k.shape[1]
+    _require(k.shape == (B, K, S, d), f"k/v must be [{B}, K, {S}, {d}], got "
+             f"{tuple(k.shape)}")
+    _require(d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
+    _require(K > 0 and H % K == 0 and 64 % (H // K) == 0,
+             f"H={H}, K={K}: H / K must divide 64")
+    _require(q.dtype in DTYPE_CODES and k.dtype == q.dtype
+             and v.dtype == q.dtype, "q/k/v must share one dtype, float32 "
+             "or bfloat16")
+    _require(all(t.stride(-1) == 1 for t in (q, k, v)),
+             "the head dim must be dense (stride 1)")
+    _require(q.dtype == torch.float32 or all(
+        t.data_ptr() % 4 == 0 and all(st % 2 == 0 for st in t.stride()[:3])
+        for t in (q, k, v)), "bf16 tensors are read in pairs: strides must "
+        "be even and pointers 4-byte aligned")
+    _require(window >= 0 and cap >= 0, "window and cap must be >= 0")
+    out = torch.empty_like(q)            # q's memory order, dense last dim
+    if out.numel() == 0:
+        return out
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    fn = build.c_function("flash_attention", "flash_attention_launch",
+                          _ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            K, S, d, *strides, int(bool(causal)), int(window),
+            float(d ** -0.5), float(cap), DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: launch failed (cudaError {rc})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

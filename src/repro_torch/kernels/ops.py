@@ -5,8 +5,12 @@ raises."""
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.dequant import fused_dequant as _dequant_kernel
+from repro_torch.kernels.flash_attention import flash_attention as \
+    _flash_kernel
 from repro_torch.kernels.paged_attention import paged_decode_attention as \
     _decode_kernel
 from repro_torch.kernels.paged_prefill import paged_prefill_attention as \
@@ -40,3 +44,47 @@ def fused_dequant(q, scale, base=None):
     if q.device.type == "cpu":
         return ref.dequant_ref(q, scale, base)
     return _dequant_kernel(q, scale, base)
+
+
+def _flash_backward(q, k, v, grad_out, causal: bool, window: int,
+                    cap: float):
+    """Gradients of the plain version at (q, k, v): the forward is
+    recomputed in f32 under autograd, the way the reference's trainer
+    differentiates its jnp path (its Pallas kernel has no backward)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = ref.flash_attention_ref(*leaves, causal=causal, window=window,
+                                      cap=cap)
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through the kernel; backward through ``_flash_backward``.
+    Tensors are [B, H, S, d] / [B, K, S, d] views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, cap)
+        return _flash_kernel(q, k, v, causal=causal, window=window, cap=cap)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        return (*_flash_backward(q, k, v, grad_out, *ctx.opts), None, None,
+                None)
+
+
+def attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
+                   cap: float = 0.0):
+    """The model's full-sequence attention: q [B, S, H, d] unscaled,
+    k/v [B, S, K, d] -> [B, S, H, d] in q's dtype.  Differentiable on both
+    devices: on the CPU through the plain version, on CUDA through the
+    kernel's forward and the plain version's recomputed backward."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q.device.type == "cpu":
+        out = ref.flash_attention_ref(qt, kt, vt, causal=causal,
+                                      window=window, cap=cap)
+    else:
+        out = _FlashAttention.apply(qt, kt, vt, causal, window, cap)
+    return out.transpose(1, 2)

@@ -2,10 +2,11 @@
 
 They are the CPU path of ``kernels.ops`` and the yardstick the CUDA kernels
 are held against on the card.  Semantics follow the reference's oracles
-(``repro.kernels.ref.paged_decode_attention_ref`` /
-``paged_prefill_attention_ref`` / ``dequant_ref``): f32 math; for
-attention, masked scores at -1e30, softcap before the mask, rows with
-nothing to attend return exact zeros.
+(``repro.kernels.ref.flash_attention_ref`` /
+``paged_decode_attention_ref`` / ``paged_prefill_attention_ref`` /
+``dequant_ref``): f32 math; for attention, masked scores at -1e30 and
+softcap before the mask; paged rows with nothing to attend return exact
+zeros.
 """
 
 from __future__ import annotations
@@ -19,6 +20,30 @@ NEG_INF = -1.0e30
 
 def _softcap(s, cap: float):
     return cap * torch.tanh(s / cap) if cap else s
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        cap: float = 0.0):
+    """q: [B, H, S, d] unscaled; k/v: [B, K, S, d]; head h reads KV head
+    h // (H / K).  Scores q.k * d**-0.5 in f32, softcapped, then masked:
+    causal keeps key <= query, ``window`` keeps query - key < window,
+    ``causal=False`` with no window is bidirectional.  Returns
+    [B, H, S, d] in q's dtype."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    qf = q.float() * (d ** -0.5)
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = _softcap(torch.einsum("bhqd,bhkd->bhqk", qf, kf), cap)
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask = mask & ((pos[:, None] - pos[None, :]) < window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
 def _gather(pool, block_tables):

@@ -1,13 +1,14 @@
-"""Dense all-global decoder over paged KV pools (port of the paged
-``prefill`` / ``decode`` modes of ``repro.models.transformer.forward``).
+"""Dense all-global decoder (port of ``repro.models.transformer``): the
+full-sequence ``train`` mode and the paged ``prefill`` / ``decode`` modes.
 
 Parameters are the reference's nested dict with the same key strings:
 ``embed`` [V, D], ``lm_head`` [D, V] (untied configs only),
 ``final_norm/scale``, and ``groups/sub0/...`` whose leaves carry a leading
 layer axis (the reference's scan stack).  Order of operations follows the
-reference: qk-norm before RoPE; q pre-scaled by dh**-0.5 so the attention
-kernels get ``scale=1.0``; a prefill chunk attends to its own K/V before
-that K/V is written to the pool.
+reference: qk-norm before RoPE; in the paged modes q is pre-scaled by
+dh**-0.5 so the paged kernels get ``scale=1.0``, and a prefill chunk
+attends to its own K/V before that K/V is written to the pool; in train
+mode the flash attention gets unscaled q and scales inside.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -119,6 +121,11 @@ def _attn_apply(p, h, cfg: ModelConfig, mode: str, k_pool, v_pool,
         k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, inv)
     k = apply_rope(k, positions, inv)
+    if mode == "train":
+        # unscaled q: the flash attention scales by dh**-0.5 itself
+        out = ops.attention_bshd(q, k, v, causal=True,
+                                 cap=cfg.attn_softcap)
+        return out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, D)
     q = q * (dh ** -0.5)
 
     bt = paged["block_tables"]                           # [B, nb] int32
@@ -160,32 +167,41 @@ def _apply_layer(p, x, cfg: ModelConfig, mode: str, k_pool, v_pool,
 # --------------------------------------------------------------------------- #
 # full model
 # --------------------------------------------------------------------------- #
-def forward(params, cfg: ModelConfig, *, tokens, cache, mode: str, paged,
-            seq_mask: Optional[torch.Tensor] = None) -> Dict:
-    """Paged prefill chunk or one decode step.  Writes the new K/V into
-    ``cache``'s pools IN PLACE and returns {"hidden": [B, S, D] after the
-    final norm, "pos": [B] int32 tokens in the pool afterwards}.
+def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
+            paged=None, seq_mask: Optional[torch.Tensor] = None,
+            remat: bool = False) -> Dict:
+    """Returns {"hidden": [B, S, D] after the final norm} and, in the paged
+    modes, "pos": [B] int32 tokens in the pool afterwards.
 
-    decode:  tokens [B]; positions = cache["pos"].
+    train:   tokens [B, S]; the whole sequence at positions 0..S-1, no
+             cache; differentiable.  ``remat`` recomputes each layer in the
+             backward pass (``torch.utils.checkpoint``, the reference's
+             per-group ``jax.checkpoint``) instead of keeping its
+             activations.
+    decode:  tokens [B]; positions = cache["pos"]; writes the new K/V into
+             ``cache``'s pools IN PLACE.
     prefill: tokens [B, C] right-padded (``seq_mask`` [B, C] marks the
              valid tokens); paged["q_offsets"] [B] = tokens of each row
-             already in the pool (the chunk attends that prefix).
+             already in the pool (the chunk attends that prefix); writes
+             the chunk's K/V IN PLACE.
     paged["block_tables"]: [B, nb] int32, padded with the garbage page.
     """
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got "
+                         f"{mode!r}")
+    lens = None
     if mode == "decode":
         x = embed_tokens(params["embed"], tokens[:, None], cfg.embed_scale,
                          cfg.d_model)
         positions = cache["pos"][:, None]
-        lens = None
     else:
         x = embed_tokens(params["embed"], tokens, cfg.embed_scale,
                          cfg.d_model)
         B, S = tokens.shape
-        offs = paged["q_offsets"]
-        positions = offs[:, None] + torch.arange(
-            S, dtype=torch.int32, device=tokens.device)[None]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    if mode == "prefill":
+        positions = paged["q_offsets"][:, None] + positions
         if seq_mask is None:
             lens = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
@@ -194,10 +210,19 @@ def forward(params, cfg: ModelConfig, *, tokens, cache, mode: str, paged,
     inv = _rope_table(cfg.head_dim, cfg.rope_theta, x.device)
     stack = params["groups"]["sub0"]
     for i in range(cfg.n_layers):
-        x = _apply_layer(_layer(stack, i), x, cfg, mode,
-                         cache["k_pages"][i], cache["v_pages"][i], positions,
-                         lens, paged, inv)
+        if mode == "train":
+            def layer(x, i=i):
+                return _apply_layer(_layer(stack, i), x, cfg, mode, None,
+                                    None, positions, None, None, inv)
+            x = checkpoint(layer, x, use_reentrant=False) if remat \
+                else layer(x)
+        else:
+            x = _apply_layer(_layer(stack, i), x, cfg, mode,
+                             cache["k_pages"][i], cache["v_pages"][i],
+                             positions, lens, paged, inv)
     x = rms_norm(x, params["final_norm"]["scale"])
+    if mode == "train":
+        return {"hidden": x}
     pos = cache["pos"] + 1 if mode == "decode" else paged["q_offsets"] + lens
     return {"hidden": x, "pos": pos}
 
@@ -212,3 +237,22 @@ def logits_from_hidden(params, cfg: ModelConfig, hidden):
     """hidden [..., D] -> logits [..., V] (f32, softcapped)."""
     logits = (hidden @ unembed_matrix(params, cfg)).float()
     return softcap(logits, cfg.final_softcap)
+
+
+def token_logprobs(params, cfg: ModelConfig, hidden, targets,
+                   block: int = 512):
+    """log p(target) per position without materialising [B, S, V] logits
+    when S > ``block``: 512-token blocks, each recomputed in the backward
+    pass (``torch.utils.checkpoint``).  hidden [B, S, D], targets [B, S]
+    -> [B, S] f32."""
+    def one(h, t):
+        logits = logits_from_hidden(params, cfg, h)
+        tgt = logits.gather(-1, t.long()[..., None])[..., 0]
+        return tgt - torch.logsumexp(logits, dim=-1)
+
+    S = hidden.shape[1]
+    if S <= block:
+        return one(hidden, targets)
+    return torch.cat([checkpoint(one, hidden[:, i:i + block],
+                                 targets[:, i:i + block], use_reentrant=False)
+                      for i in range(0, S, block)], dim=1)

@@ -1,0 +1,127 @@
+"""GRPO: group-relative policy optimization (port of ``repro.rl.grpo``).
+
+Group-normalized advantages, the clipped-surrogate loss with an optional
+k3 KL to a reference policy, and ``make_train_step`` = loss -> grads ->
+AdamW.  The port's family is dense, so there is no MoE aux loss; the
+supervised (encoder) loss waits for an encoder config.
+
+Batch layout (one microbatch), tensors on the params' device:
+  tokens            [B, S] int32   prompt + response, right-padded
+  response_mask     [B, S] f32     1.0 on *response* token positions
+  advantages        [B]    f32     group-normalized (already)
+  behavior_logprobs [B, S] f32     rollout-time logprobs (token t at slot t)
+  ref_logprobs      [B, S] f32     reference-policy logprobs (optional, KL)
+
+Token t is predicted from hidden t-1, so slots 1..S-1 carry logprobs and
+masks are expected to be 0 at slot 0.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.models.transformer import forward, token_logprobs
+from repro_torch.optim import adamw
+
+
+def group_advantages(rewards: torch.Tensor, group_size: int,
+                     eps: float = 1e-4) -> torch.Tensor:
+    """rewards [N], N = n_prompts * group_size grouped contiguously:
+    (r - mean_group) / (std_group + eps), std with ddof 0."""
+    g = rewards.reshape(-1, group_size)
+    mean = g.mean(dim=1, keepdim=True)
+    std = g.std(dim=1, keepdim=True, correction=0)
+    return ((g - mean) / (std + eps)).reshape(-1)
+
+
+def group_normalized_advantages(rewards: np.ndarray,
+                                groups: Dict[int, List[int]],
+                                eps: float = 1e-4) -> np.ndarray:
+    """Host-side advantages for an explicitly grouped microbatch:
+    ``groups`` maps group id -> row indices into ``rewards`` (rows of one
+    group need not be contiguous)."""
+    adv = np.zeros_like(rewards, dtype=np.float32)
+    for idxs in groups.values():
+        rs = rewards[idxs]
+        adv[idxs] = (rs - rs.mean()) / (rs.std() + eps)
+    return adv
+
+
+def policy_logprobs(params, cfg, tokens, *, remat: bool = False):
+    """[B, S]: slot t = log p(tokens[t] | tokens[<t]) under ``params``;
+    slot 0 is 0."""
+    hidden = forward(params, cfg, tokens=tokens, mode="train",
+                     remat=remat)["hidden"]
+    lp = token_logprobs(params, cfg, hidden[:, :-1], tokens[:, 1:])
+    return F.pad(lp, (1, 0))
+
+
+def grpo_loss(params, cfg, batch: Dict, *, clip_eps: float = 0.2,
+              kl_coef: float = 0.0, remat: bool = False
+              ) -> Tuple[torch.Tensor, Dict]:
+    mask = batch["response_mask"].float()
+    adv = batch["advantages"].float()[:, None]
+    beh = batch["behavior_logprobs"].float()
+
+    lp = policy_logprobs(params, cfg, batch["tokens"], remat=remat)
+    ratio = torch.exp(lp - beh)
+    surr = torch.minimum(ratio * adv,
+                         torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
+                         * adv)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    pg_loss = -(surr * mask).sum() / denom
+
+    metrics = {"pg_loss": pg_loss}
+    loss = pg_loss
+    if kl_coef and "ref_logprobs" in batch:
+        # k3 estimator: exp(ref - lp) - (ref - lp) - 1 (unbiased, >= 0)
+        d = batch["ref_logprobs"].float() - lp
+        kl_loss = ((torch.exp(d) - d - 1.0) * mask).sum() / denom
+        loss = loss + kl_coef * kl_loss
+        metrics["kl"] = kl_loss
+    metrics["loss"] = loss
+    metrics["ratio_mean"] = (ratio * mask).sum() / denom
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+def loss_and_grads(params, cfg, batch: Dict, **loss_kw):
+    """(loss, metrics, grads): grads in each param's dtype, keyed as
+    ``params`` (the reference's ``jax.value_and_grad(grpo_loss)``)."""
+    tree = adamw.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, metrics = grpo_loss(tree, cfg, batch, **loss_kw)
+    flat = iter(torch.autograd.grad(loss, list(adamw.tree_leaves(tree))))
+    return loss.detach(), metrics, adamw.tree_map(lambda _: next(flat), tree)
+
+
+def make_train_step(cfg, *, lr: float = 1e-5, clip_eps: float = 0.2,
+                    kl_coef: float = 0.0, weight_decay: float = 0.0,
+                    remat: bool = False):
+    """(state, batch) -> (state, metrics), state = {"params", "opt"}.
+    The optimizer state is updated in place (``optim.adamw``); the params
+    in the returned state are new tensors."""
+    def train_step(state, batch):
+        _, metrics, grads = loss_and_grads(state["params"], cfg, batch,
+                                           clip_eps=clip_eps,
+                                           kl_coef=kl_coef, remat=remat)
+        new_params, opt, om = adamw.apply(grads, state["opt"],
+                                          state["params"], lr=lr,
+                                          weight_decay=weight_decay)
+        metrics.update(om)
+        return {"params": new_params, "opt": opt}, metrics
+
+    return train_step
+
+
+def init_train_state(params, device=None) -> Dict:
+    """{"params": params, "opt": adamw.init(params)}.  ``device=None``
+    means CUDA (raises when absent); ``params`` must already be there."""
+    dev = resolve_device(device)
+    for leaf in adamw.tree_leaves(params):
+        if leaf.device.type != dev.type:
+            raise ValueError(f"params lie on {leaf.device}, not {dev}")
+    return {"params": params, "opt": adamw.init(params)}

@@ -48,7 +48,10 @@ def test_package_imports_without_triton_nvcc_or_jax(tmp_path):
                   for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     assert {"repro_torch.transfer", "repro_torch.transfer.chunkstore",
             "repro_torch.core", "repro_torch.core.weight_transfer",
-            "repro_torch.core.kv_migration"} <= set(mods)
+            "repro_torch.core.kv_migration", "repro_torch.optim.adamw",
+            "repro_torch.rl.grpo", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.train",
+            "repro_torch.kernels.flash_attention"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "class Block:\n"
@@ -70,17 +73,23 @@ def test_package_imports_without_triton_nvcc_or_jax(tmp_path):
 def test_entry_points_default_to_cuda():
     from repro_torch import resolve_device
     from repro_torch.configs import tiny_math_config
+    from repro_torch.launch import train
     from repro_torch.models.kv_cache import init_paged_cache
     from repro_torch.models.transformer import init_params
+    from repro_torch.rl.grpo import init_train_state
     from repro_torch.serving.engine import InferenceEngine
     cfg = tiny_math_config()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert resolve_device("cpu").type == "cpu"
     assert init_paged_cache(cfg, 2, 4, 16, device="cpu")["k_pages"] \
         .device.type == "cpu"
+    assert init_train_state(params, "cpu")["opt"]["count"].device.type \
+        == "cpu"
     if torch.cuda.is_available():
         assert InferenceEngine(cfg, params).device.type == "cuda"
         assert init_paged_cache(cfg, 2, 4, 16)["k_pages"].is_cuda
+        with pytest.raises(ValueError, match="cuda"):
+            init_train_state(params)            # CPU params, CUDA state
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             InferenceEngine(cfg, params)
@@ -90,3 +99,7 @@ def test_entry_points_default_to_cuda():
             init_params(cfg, torch.Generator().manual_seed(0))
         with pytest.raises(RuntimeError, match="CUDA"):
             init_paged_cache(cfg, 2, 4, 16)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_train_state(params)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--arch", "qwen3-8b", "--reduced", "--steps", "1"])

@@ -1,32 +1,41 @@
-"""Paged attention in the port: plain versions against the reference.
+"""Paged and flash attention in the port: plain versions against the
+reference.
 
 On the CPU the port's plain versions (``repro_torch.kernels.ref``) are held
 against the reference's oracles and its Pallas kernels in interpret mode, on
 the sweeps of ``tests/test_kernels.py`` (ragged lengths with 0, page
 boundaries and mid-page values; offsets at 0, mid-page, page boundary and
-full table; chunk_len 0, full and ragged).  f32 at atol 2e-5; bf16 inputs at
-the reference's own bf16 tolerance, 1e-2 (one bf16 rounding of the output).
+full table; chunk_len 0, full and ragged; the flash cases of
+``test_kernels.py`` plus a sequence length that is no multiple of 128).
+f32 at atol 2e-5; bf16 inputs at the reference's own bf16 tolerance, 1e-2
+for the paged versions and 2e-2 for flash (one bf16 rounding of the
+output).  The flash gradient is held against ``jax.grad`` of the
+reference's oracle in f32.
 The tests marked ``cuda`` hold the CUDA kernels against the plain versions
 on the card and skip elsewhere.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.paged_attention import \
     paged_decode_attention as pallas_decode
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as pallas_prefill
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.models.attention import (attention_paged_decode,
                                           attention_paged_prefill)
 
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # test_kernels.py:16
 
 
 def _decode_inputs(B, H, K, ps, nb, d, seed=5):
@@ -166,6 +175,99 @@ def test_build_needs_nvcc_and_keys_on_sources(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
+# (B, H, K, S, d, causal, window, cap): test_kernels.py:20-26, then a
+# ragged S (the port's kernel takes any S; the Pallas one a multiple of
+# its blocks, so it runs with one block of the whole sequence there)
+FLASH_CASES = [(2, 4, 2, 256, 64, True, 0, 0.0),
+               (1, 4, 4, 256, 64, True, 64, 0.0),
+               (2, 2, 1, 128, 32, True, 0, 50.0),
+               (1, 8, 2, 256, 128, False, 0, 0.0),
+               (1, 2, 2, 512, 64, True, 128, 30.0),
+               (2, 4, 2, 200, 64, True, 48, 20.0)]
+
+
+def _flash_inputs(B, H, K, S, d, seed=11):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(B, H, S, d).astype(np.float32),
+            rs.randn(B, K, S, d).astype(np.float32),
+            rs.randn(B, K, S, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,d,causal,window,cap", FLASH_CASES)
+def test_flash_plain_matches_reference(B, H, K, S, d, causal, window, cap,
+                                       dtype):
+    args = _flash_inputs(B, H, K, S, d)
+    opts = dict(causal=causal, window=window, cap=cap)
+    got = ref.flash_attention_ref(*(_th(a, dtype) for a in args), **opts)
+    assert got.dtype == getattr(torch, dtype)
+    want = jref.flash_attention_ref(*(_jx(a, dtype) for a in args), **opts)
+    assert _err(got, want) <= FLASH_TOL[dtype]
+    blk = 64 if S % 64 == 0 else S
+    pallas = pallas_flash(*(_jx(a, dtype) for a in args), **opts,
+                          block_q=blk, block_k=blk, interpret=True)
+    assert _err(got, pallas) <= FLASH_TOL[dtype]
+
+
+def _jax_flash_grads(args, w, opts):
+    def loss(q, k, v):
+        return jnp.sum(jref.flash_attention_ref(q, k, v, **opts) * w)
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in args))
+
+
+@pytest.mark.parametrize("B,H,K,S,d,causal,window,cap",
+                         [FLASH_CASES[0], FLASH_CASES[5]])
+def test_attention_bshd_grads_match_jax(B, H, K, S, d, causal, window, cap):
+    """On the CPU autograd runs through the plain version; f32 gradients
+    within 2e-5 of jax.grad of the reference's oracle (sums in another
+    order)."""
+    args = _flash_inputs(B, H, K, S, d)
+    opts = dict(causal=causal, window=window, cap=cap)
+    w = np.random.RandomState(3).randn(B, H, S, d).astype(np.float32)
+    want = _jax_flash_grads(args, w, opts)
+    # the model's layout: [B, S, heads, d]
+    leaves = [torch.from_numpy(a).transpose(1, 2).contiguous()
+              .requires_grad_(True) for a in args]
+    out = ops.attention_bshd(*leaves, **opts)
+    (out * torch.from_numpy(w).transpose(1, 2)).sum().backward()
+    for t, g in zip(leaves, want):
+        assert _err(t.grad.transpose(1, 2), g) <= 2e-5
+
+
+def test_flash_autograd_function_backward_rule(monkeypatch):
+    """The CUDA path's autograd.Function, with the plain version standing
+    in for its kernel (which runs only on the card): forward equal to the
+    plain version, gradients within 2e-5 of jax.grad (f32)."""
+    B, H, K, S, d, causal, window, cap = FLASH_CASES[4]
+    args = _flash_inputs(B, H, K, S, d, seed=4)
+    opts = dict(causal=causal, window=window, cap=cap)
+    w = np.random.RandomState(5).randn(B, H, S, d).astype(np.float32)
+    want = _jax_flash_grads(args, w, opts)
+    calls = []
+
+    def plain_kernel(q, k, v, **kw):
+        calls.append(kw)
+        return ref.flash_attention_ref(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "_flash_kernel", plain_kernel)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    out = ops._FlashAttention.apply(*leaves, causal, window, cap)
+    assert torch.equal(out, ref.flash_attention_ref(*leaves, **opts))
+    (out * torch.from_numpy(w)).sum().backward()
+    assert calls == [opts]
+    for t, g in zip(leaves, want):
+        assert _err(t.grad, g) <= 2e-5
+
+
+def test_flash_wrapper_refuses_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(1, 4, 2, 64, 64))
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    assert "flash_attention" in build.SOURCES
+
+
 # ---------------------------- on the card --------------------------------- #
 @pytest.fixture
 def cuda():
@@ -216,3 +318,30 @@ def test_prefill_kernel_matches_plain_on_card(cuda, B, C, H, K, ps, nb, d,
     assert not torch.isnan(got.float()).any()
     assert _err(got, want.float().cpu()) <= TOL[qdt]
     assert float(got[0].abs().max()) == 0.0
+
+
+GPU_FLASH_CASES = FLASH_CASES + [(10, 32, 8, 374, 128, True, 0, 0.0),
+                                 (2, 16, 2, 130, 128, False, 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,d,causal,window,cap", GPU_FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, B, H, K, S, d, causal,
+                                            window, cap, dtype):
+    """Head-major inputs and the model's [B, S, H, d] layout as views;
+    atol = rtol as the reference's test holds its kernel
+    (test_kernels.py:41): the tensor-core path rounds P to bf16, so an
+    output may land one bf16 ulp away."""
+    opts = dict(causal=causal, window=window, cap=cap)
+    args = [_th(a, dtype, cuda) for a in _flash_inputs(B, H, K, S, d)]
+    want = ref.flash_attention_ref(*args, **opts).float().cpu()
+    got = flash_attention(*args, **opts)
+    bshd = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in args]
+    got2 = flash_attention(*bshd, **opts)
+    torch.cuda.synchronize()
+    assert got2.transpose(1, 2).is_contiguous()
+    tol = FLASH_TOL[dtype]
+    for g in (got, got2):
+        assert bool(((g.float().cpu() - want).abs()
+                     <= tol + tol * want.abs()).all())
