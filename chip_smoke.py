@@ -14,11 +14,19 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 ``fused_dequant`` at the full-width leaf shapes (mlp.wi,
                 embed, wq rows at C=128, a 1-D leaf at C=1) with base none,
                 f32 and bf16; ``flash_attention`` in bf16 at the train
-                phase's shape, at S=4096 and on the reference test's
-                feature cases (window, softcap, MQA, bidirectional, a
-                ragged S); max error against the stated tolerance,
-                kernel / plain / library times (CUDA events, L2 flushed
-                before each launch) and the bound;
+                phase's shape, at S=4096, on the reference test's feature
+                cases (window, softcap, MQA, bidirectional, a ragged S) and
+                at Hymba's prefill (G=5, d=64, window 1024);
+                ``decode_attention`` at Hymba's ring (B=8, H=25, K=5, d=64,
+                T=1024, bf16 q over f32 K/V read as views of the [B, T, K,
+                d] ring, ragged lengths 1..T) and on the reference test's
+                cases in f32 and bf16; ``ssd_scan`` at Hymba's prefill
+                (b=8, L=1152, H=50, P=64, N=16, strided slices of one conv
+                output, dt = 0 past each row's length), at Mamba2-130m's
+                geometry in f32 and bf16 and at its served prefill (the
+                same 8 ragged rows, H=24, N=128, f32); max error against
+                the stated tolerance, kernel / plain / library times (CUDA
+                events, L2 flushed before each launch) and the bound;
   3. engine   — ``qwen3-8b`` at full width (random weights from a seeded
                 generator) served through ``InferenceEngine``: 2 GRPO groups
                 of 4 plus 2 single requests, ~300-token prompts,
@@ -54,7 +62,27 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 grad_norm, peak memory; step 1 on-policy, so ratio_mean
                 ~ 1); the trained weights swapped into the engine as
                 version 1, which serves the mix again to completion;
-  7. summary  — one JSON line per the kernels, the card's name and power
+  7. hybrid   — ``hymba-1.5b`` at full width (random weights from a seeded
+                generator; sliding-window attention beside a Mamba-2 mixer
+                in all 32 layers) served through ``InferenceEngine`` with
+                max_batch 8 and slab_len 1024 (the ring is the window): 8
+                single requests with prompts of 210-1150 tokens (two pass
+                1024 in prefill, one crosses it in decode), prefilled whole
+                in one dispatch, 64 new tokens greedy at H=8 (launches:
+                layers x decode steps for ``decode_attention``, layers x
+                prefill dispatches for ``ssd_scan`` and
+                ``flash_attention``), then H=1 (same tokens); one
+                prefill's and one decode step's logits with the kernels
+                against the plain versions, and the prefill's once more
+                with flash on its f32 path (which separates flash's bf16
+                P from the ring and the scan); the batch migrated
+                mid-generation to a fresh engine through a KV manifest of
+                ring, conv and SSM rows (codec none), continuing the same
+                tokens with zero prefill; then ``mamba2-130m`` at full
+                width through the same mix, H=8 equal to H=1, and its
+                prefill's and decode step's logits against the plain
+                versions;
+  8. summary  — one JSON line per the kernels, the card's name and power
                 limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
@@ -83,6 +111,10 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 KERNEL_TOL = 2e-2       # bf16 output: one rounding of values up to ~4
 F32_KERNEL_TOL = 2e-5   # f32 inputs: sums in another order
+# one bf16 ulp relative to the value (8 significand bits): a kernel and
+# its plain version that both round an f32 result to bf16 land at most
+# this far apart once their f32 sums differ in the last bits
+BF16_ULP = 2 ** -7
 # flash attention: the reference's own test (tests/test_kernels.py:16, 41)
 # holds its kernel with atol = rtol = 2e-2 in bf16 and 2e-5 in f32; the
 # tensor-core path rounds P to bf16 before P V, so an output can land one
@@ -128,7 +160,30 @@ FLASH_CASES = (("train", (10, 32, 8, TRAIN_SEQ, 128, True, 0, 0.0)),
                ("mqa-softcap", (2, 2, 1, 128, 32, True, 0, 50.0)),
                ("bidirectional", (1, 8, 2, 256, 128, False, 0, 0.0)),
                ("window-softcap", (1, 2, 2, 512, 64, True, 128, 30.0)),
-               ("ragged", (2, 4, 2, 200, 64, True, 48, 20.0)))
+               ("ragged", (2, 4, 2, 200, 64, True, 48, 20.0)),
+               ("hymba", (8, 25, 5, 1152, 64, True, 1024, 0.0)))
+# slab decode: the reference test's cases, tests/test_kernels.py:42-45,
+# (B, H, K, T, d, window, cap); its tolerance (:16) is atol = rtol = 2e-5
+# in f32 and 2e-2 in bf16
+SLAB_CASES = ((2, 4, 2, 256, 64, 0, 0.0), (1, 8, 8, 256, 64, 64, 0.0),
+              (3, 4, 1, 128, 128, 0, 30.0), (2, 16, 4, 512, 64, 0, 0.0))
+# Hymba's ring decode: 8 rows, G = 5, the window's 1024 slots
+SLAB_RING = (8, 25, 5, 1024, 64)
+SLAB_RING_LENS = (1, 1024, 17, 200, 513, 800, 1000, 1023)
+# ssd_scan, (b, L, H, G, P, N, chunk): Hymba's prefill (8 rows of 1152,
+# ragged true lengths) and tests/test_kernels.py:184 (Mamba2-130m); the
+# reference test's bound (:196) is a relative error of 2e-5 in f32 and
+# 4e-2 in bf16 on y and on the state
+SSD_HYMBA = (8, 1152, 50, 1, 64, 16, 64)
+SSD_HYMBA_LENS = (210, 395, 580, 740, 905, 1000, 1090, 1150)
+SSD_MAMBA2 = (1, 128, 24, 1, 64, 128, 64)
+# Mamba2-130m's prefill as phase 7 serves it: the same 8 ragged rows
+SSD_MAMBA2_SERVE = (8, 1152, 24, 1, 64, 128, 64)
+SSD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+# phase 7: prompts of Hymba's mix (SSD_HYMBA_LENS: 1090 and 1150 pass the
+# 1024-token window in prefill, 1000 + 64 crosses it in decode)
+HYBRID_PROMPT_LENS = SSD_HYMBA_LENS
+HYBRID_SLAB = 1024
 
 
 def fail(msg: str):
@@ -366,6 +421,18 @@ def within(torch, out, want, tol: float, what: str) -> float:
     return float(diff.max())
 
 
+def within_bf16(torch, out, want, what: str) -> float:
+    """Fail unless ``out`` is finite and |out - want| <= BF16_ULP |want| +
+    F32_KERNEL_TOL everywhere (``out`` and ``want`` both bf16 roundings of
+    f32 results); returns max |out - want|."""
+    diff = (out.float() - want.float()).abs()
+    if not torch.isfinite(out.float()).all() or bool(
+            (diff > BF16_ULP * want.float().abs() + F32_KERNEL_TOL).any()):
+        fail(f"{what}: max err {float(diff.max())} over one bf16 ulp "
+             f"({BF16_ULP} x |want|) + {F32_KERNEL_TOL}")
+    return float(diff.max())
+
+
 def flash_pairs(S: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask keeps in one (row, head)."""
     n = 0
@@ -439,6 +506,167 @@ def check_flash(torch, F, ref, kern):
     return dict(rows["train"], max_abs_err=worst), rows
 
 
+def check_slab_decode(torch, F, ref, kern):
+    """``decode_attention`` against its plain version: the reference
+    test's cases in f32 and bf16 (head-major slabs), then Hymba's ring
+    decode (bf16 q over the f32 [B, T, K, d] ring read as views, ragged
+    lengths from 1 to T, q pre-scaled with scale=1.0 as the model calls
+    it; held within one bf16 ulp, and in f32 within F32_KERNEL_TOL),
+    timed there against one SDPA call on the same K/V."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for B, H, K, T, d, window, cap in SLAB_CASES:
+        for dt, tol in ((torch.float32, F32_KERNEL_TOL),
+                        (torch.bfloat16, KERNEL_TOL)):
+            q = torch.randn(B, H, d, generator=g, device="cuda").to(dt)
+            k, v = (torch.randn(B, K, T, d, generator=g, device="cuda")
+                    .to(dt) for _ in range(2))
+            lens = torch.randint(1, T + 1, (B,), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            out = kern(q, k, v, lens, window=window, cap=cap)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_ref(q, k, v, lens, window=window,
+                                            cap=cap)
+            worst = max(worst, within(
+                torch, out, want, tol,
+                f"decode_attention B={B} H={H} K={K} T={T} d={d} "
+                f"window={window} cap={cap} {dt}"))
+    log(f"[kernels] decode_attention tests/test_kernels.py:42-45 cases, "
+        f"f32 and bf16: max_abs_err={worst:.3e} (tol {F32_KERNEL_TOL} / "
+        f"{KERNEL_TOL} abs + rel)")
+    B, H, K, T, d = SLAB_RING
+    q = (torch.randn(B, H, d, generator=g, device="cuda")
+         * d ** -0.5).bfloat16()
+    ring_k, ring_v = (torch.randn(B, T, K, d, generator=g, device="cuda")
+                      for _ in range(2))
+    k, v = ring_k.transpose(1, 2), ring_v.transpose(1, 2)
+    lens = torch.tensor(SLAB_RING_LENS, dtype=torch.int32, device="cuda")
+    out = kern(q, k, v, lens, scale=1.0)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, k, v, lens, scale=1.0)
+    err = within_bf16(torch, out, want, "decode_attention ring")
+    worst = max(worst, err)
+    q32 = q.float()
+    out32 = kern(q32, k, v, lens, scale=1.0)
+    torch.cuda.synchronize()
+    err32 = within(torch, out32, ref.decode_attention_ref(
+        q32, k, v, lens, scale=1.0), F32_KERNEL_TOL,
+        "decode_attention ring f32")
+    del q32, out32
+    mask = (torch.arange(T, device="cuda")[None] < lens[:, None])[:, None,
+                                                                  None]
+    qd = q.float()[:, :, None]
+    ms = time_ms(lambda: kern(q, k, v, lens, scale=1.0), torch)
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lens,
+                                                        scale=1.0), torch)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), torch)
+    n_kv = sum(min(x, T) for x in SLAB_RING_LENS)
+    nbytes = 2 * n_kv * K * d * 4 + 2 * B * H * d * 2 + B * 4
+    flops = 4 * n_kv * H * d                   # bf16 q x f32 K/V: TF32
+    b_ms, b_by = bound(nbytes, [(flops, TF32_FLOP_PER_S)])
+    log(f"[kernels] decode_attention ring B={B} H={H} K={K} T={T} d={d} "
+        f"lens={list(SLAB_RING_LENS)} (bf16 q, f32 ring views): "
+        f"max_abs_err={err:.3e} (tol one bf16 ulp {BF16_ULP} x |want| + "
+        f"{F32_KERNEL_TOL}), f32 q max_abs_err={err32:.3e} (tol "
+        f"{F32_KERNEL_TOL} abs + rel); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def ssd_inputs(torch, g, b, L, H, G, P, N, dt, lens=None):
+    """x, dt, A, B, C as the model passes them: x, B and C strided slices
+    of one [b, L, H*P + 2*G*N] conv output; dt = softplus(noise), zero
+    past each row's true length when ``lens`` is given."""
+    xbc = torch.randn(b, L, H * P + 2 * G * N, generator=g,
+                      device="cuda").to(dt)
+    x = xbc[..., :H * P].reshape(b, L, H, P)
+    B = xbc[..., H * P:H * P + G * N].reshape(b, L, G, N)
+    C = xbc[..., H * P + G * N:].reshape(b, L, G, N)
+    dtv = torch.nn.functional.softplus(
+        torch.randn(b, L, H, generator=g, device="cuda"))
+    if lens is not None:
+        live = torch.arange(L, device="cuda")[None] < torch.tensor(
+            lens, device="cuda")[:, None]
+        dtv = dtv * live[..., None]
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.3)
+    return x, dtv.to(dt), A, B, C
+
+
+def ssd_rel(torch, got, want, tol: float, what: str) -> float:
+    """max |got - want| / max |want|; fail past ``tol`` or if not
+    finite."""
+    rel = float((got - want).abs().max()) / (float(want.abs().max()) + 1e-6)
+    if not torch.isfinite(got).all() or rel >= tol:
+        fail(f"{what}: relative error {rel} >= {tol}")
+    return rel
+
+
+def check_ssd(torch, ref, kern):
+    """``ssd_scan`` against the sequential recurrence at Mamba2-130m's
+    geometry (f32 and bf16), at its served prefill (f32) and at Hymba's
+    prefill (f32, timed)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b, L, H, G, P, N, chunk = SSD_MAMBA2
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        args = ssd_inputs(torch, g, b, L, H, G, P, N, dt)
+        y, st = kern(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        yr, sr = ref.ssd_scan_ref(*args)
+        for got, want, what in ((y, yr, "y"), (st, sr, "state")):
+            ssd_rel(torch, got, want, SSD_TOL[name],
+                    f"ssd_scan mamba2-130m {name} {what}")
+    b, L, H, G, P, N, chunk = SSD_MAMBA2_SERVE
+    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32,
+                      SSD_HYMBA_LENS)
+    y, st = kern(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    yr, sr = ref.ssd_scan_ref(*args)
+    rel_m = max(ssd_rel(torch, y, yr, SSD_TOL["float32"],
+                        "ssd_scan mamba2-130m served y"),
+                ssd_rel(torch, st, sr, SSD_TOL["float32"],
+                        "ssd_scan mamba2-130m served state"))
+    ms_m = time_ms(lambda: kern(*args, chunk=chunk), torch)
+    log(f"[kernels] ssd_scan mamba2-130m served b={b} L={L} H={H} G={G} "
+        f"P={P} N={N} chunk={chunk} (f32 strided slices, "
+        f"lens={list(SSD_HYMBA_LENS)}): max rel err {rel_m:.3e} (y and "
+        f"state; tol {SSD_TOL['float32']}); kernel {ms_m:.4f} ms")
+    del args, y, st, yr, sr
+    b, L, H, G, P, N, chunk = SSD_HYMBA
+    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32,
+                      SSD_HYMBA_LENS)
+    y, st = kern(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    yr, sr = ref.ssd_scan_ref(*args)
+    rel = max(ssd_rel(torch, y, yr, SSD_TOL["float32"], "ssd_scan hymba y"),
+              ssd_rel(torch, st, sr, SSD_TOL["float32"],
+                      "ssd_scan hymba state"))
+    err = max(float((y - yr).abs().max()), float((st - sr).abs().max()))
+    ms = time_ms(lambda: kern(*args, chunk=chunk), torch)
+    plain_ms = time_ms(lambda: ref.ssd_scan_ref(*args), torch, iters=3,
+                       warmup=1)
+    nbytes = 4 * (2 * b * L * H * P + b * L * H + 2 * b * L * G * N + H
+                  + b * H * P * N)
+    # the chunked form's products per (row, head, chunk of c): C B^T on
+    # and below the diagonal, its weighted sum over x, the carried state's
+    # C state^T, and the state update: f32 CUDA cores
+    c, n_chunks = chunk, -(-L // chunk)
+    tri = c * (c + 1) // 2
+    flops = b * H * n_chunks * (2 * tri * N + 2 * tri * P + 4 * c * P * N)
+    b_ms, b_by = bound(nbytes, [(flops, F32_FLOP_PER_S)])
+    log(f"[kernels] ssd_scan b={b} L={L} H={H} G={G} P={P} N={N} "
+        f"chunk={chunk} (f32 strided slices, lens={list(SSD_HYMBA_LENS)}): "
+        f"max rel err {rel:.3e} (y and state; tol {SSD_TOL['float32']}), "
+        f"max_abs_err={err:.3e}; mamba2-130m geometry f32 and bf16 within "
+        f"{SSD_TOL['float32']} / {SSD_TOL['bfloat16']}; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, library n/a, bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes} B, {flops} flop)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: the engine at full width
 # --------------------------------------------------------------------------- #
@@ -452,12 +680,22 @@ def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
     """Each kernel's launches since the last reset against layers x the
     engine's dispatches in that span (and the int8-coded leaves installed,
     and layers x the train-mode forwards run); fail unless equal and
-    non-zero where the span ran the kernel."""
+    non-zero where the span ran the kernel.  The dense family decodes and
+    prefills through the paged kernels; the hybrid one through
+    ``decode_attention`` (every decode step) and ``flash_attention`` plus
+    ``ssd_scan`` (every prefill dispatch); the SSM one through
+    ``ssd_scan`` only."""
+    L = cfg.n_layers
+    dec, pre = L * eng.horizon * n_decode, L * n_prefill
+    dense = cfg.pattern == ("global",)
+    ring = cfg.pattern == ("hybrid",)
     got = {k.__name__: k.launches for k in KERNELS}
-    want = {"paged_decode_attention": cfg.n_layers * eng.horizon * n_decode,
-            "paged_prefill_attention": cfg.n_layers * n_prefill,
+    want = {"paged_decode_attention": dec if dense else 0,
+            "paged_prefill_attention": pre if dense else 0,
             "fused_dequant": n_dequant,
-            "flash_attention": cfg.n_layers * n_train_fwd}
+            "flash_attention": L * n_train_fwd + (pre if ring else 0),
+            "decode_attention": dec if ring else 0,
+            "ssd_scan": pre if cfg.has_ssm else 0}
     log(f"[engine] {what}: launches {got}, expected {want} (layers x "
         f"dispatches: {n_decode} decode horizons of {eng.horizon}, "
         f"{n_prefill} prefill chunks; {n_dequant} int8-coded leaves; "
@@ -537,14 +775,15 @@ def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
     return eng, out, wall, launches
 
 
-def profile_decode(torch, InferenceEngine, cfg, params, prompts):
+def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
+                   tag: str = "[profile]"):
     """Where one steady decode horizon's time goes: torch.profiler over one
-    ``step()`` after every prefill is done (H=8, 10 rows)."""
+    ``step()`` of ``eng`` after every prefill is done (``n_rows`` single
+    requests cycling over ``prompts``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.rl.sampler import request_key
-    eng = make_engine(InferenceEngine, cfg, params)
-    for i in range(10):
+    for i in range(n_rows):
         p = prompts[i % len(prompts)]
         eng.add_request(i, p, request_key(1, i), len(p) + 64, len(p))
     while eng.waiting:
@@ -559,7 +798,7 @@ def profile_decode(torch, InferenceEngine, cfg, params, prompts):
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    check_launches(cfg, eng, "profiled horizon",
+    check_launches(cfg, eng, f"{cfg.name} profiled horizon",
                    eng.n_decode_dispatches - n_dec,
                    eng.n_prefill_dispatches - n_pre)
     rows = []
@@ -571,35 +810,58 @@ def profile_decode(torch, InferenceEngine, cfg, params, prompts):
             rows.append((dev_us / 1e3, e.count, e.key))
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
-        log(f"[profile] wall {wall_ms:.2f} ms; device time not measured "
+        log(f"{tag} wall {wall_ms:.2f} ms; device time not measured "
             f"(the profiler reported no CUDA kernels)")
-        return
-    log(f"[profile] one decode horizon (H=8, 10 rows, contexts ~300-370): "
-        f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
+        return None
+    log(f"{tag} one decode horizon ({what}): wall {wall_ms:.2f} ms, device "
+        f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for ms, count, name in sorted(rows, reverse=True)[:8]:
-        log(f"[profile]   {ms:9.3f} ms {count:6d}x  {name[:90]}")
+        log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1 - busy_ms / wall_ms)
+
+
+@contextlib.contextmanager
+def flash_f32(ops):
+    """Run the model's prefill attention through the flash kernel's f32
+    path (q, k, v cast up, the output cast back); a yardstick for this
+    script only."""
+    kernel = ops.attention_bshd
+    ops.attention_bshd = lambda q, k, v, **opts: kernel(
+        q.float(), k.float(), v.float(), **opts).to(q.dtype)
+    try:
+        yield
+    finally:
+        ops.attention_bshd = kernel
 
 
 @contextlib.contextmanager
 def plain_attention(ops, ref):
-    """Route the model's attention through the plain versions on the card
-    (a yardstick for this script only; the port has no such switch)."""
+    """Route the model's attention and SSD scan through the plain versions
+    on the card (a yardstick for this script only; the port has no such
+    switch)."""
     def attention_bshd(q, k, v, **opts):
         return ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), **opts) \
             .transpose(1, 2)
 
-    saved = (ops.paged_decode_attention, ops.paged_prefill_attention,
-             ops.attention_bshd)
-    ops.paged_decode_attention = ref.paged_decode_attention_ref
-    ops.paged_prefill_attention = ref.paged_prefill_attention_ref
-    ops.attention_bshd = attention_bshd
+    def decode_bshd(q, k, v, lengths, **opts):
+        return ref.decode_attention_ref(q[:, 0], k.transpose(1, 2),
+                                        v.transpose(1, 2), lengths,
+                                        **opts)[:, None]
+
+    names = ("paged_decode_attention", "paged_prefill_attention",
+             "attention_bshd", "decode_bshd", "ssd")
+    saved = [getattr(ops, n) for n in names]
+    for n, fn in zip(names, (ref.paged_decode_attention_ref,
+                             ref.paged_prefill_attention_ref, attention_bshd,
+                             decode_bshd, ref.ssd_scan_ref)):
+        setattr(ops, n, fn)
     try:
         yield
     finally:
-        (ops.paged_decode_attention, ops.paged_prefill_attention,
-         ops.attention_bshd) = saved
+        for n, fn in zip(names, saved):
+            setattr(ops, n, fn)
 
 
 def model_logits(torch, cfg, params, prompt, ops, ref):
@@ -1098,6 +1360,253 @@ def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
                           phase_s=t_phase, n_params=n_params)
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: the hybrid and SSM families at full width
+# --------------------------------------------------------------------------- #
+def make_hybrid_engine(InferenceEngine, cfg, params, *, horizon=8,
+                       tracer=None):
+    """8 slots; slab_len 1024 makes Hymba's ring its whole window; the
+    prefill budget takes every prompt of the mix in one dispatch."""
+    return InferenceEngine(cfg, params, max_batch=8, slab_len=HYBRID_SLAB,
+                           page_size=16,
+                           prefill_chunk=sum(HYBRID_PROMPT_LENS),
+                           horizon=horizon, temperature=0.0, tracer=tracer,
+                           device="cuda")
+
+
+def admit_singles(eng, prompts):
+    """One request per prompt (the families without prompt sharing),
+    NEW_TOKENS new tokens each.  Returns the ids."""
+    from repro_torch.rl.sampler import request_key
+    for rid, p in enumerate(prompts):
+        eng.add_request(rid, p, request_key(0, rid), len(p) + NEW_TOKENS,
+                        len(p))
+    return list(range(len(prompts)))
+
+
+def serve_hybrid(torch, InferenceEngine, cfg, params, prompts, *, horizon,
+                 tracer=None):
+    """The phase-7 mix to completion, greedy; launch counts zeroed before
+    the run and checked after; the whole mix prefills in one dispatch."""
+    eng = make_hybrid_engine(InferenceEngine, cfg, params, horizon=horizon,
+                             tracer=tracer)
+    rids = admit_singles(eng, prompts)
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _ = drive(eng, rids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches(cfg, eng, f"{cfg.name} greedy H={horizon}",
+                              eng.n_decode_dispatches,
+                              eng.n_prefill_dispatches)
+    if eng.n_prefill_dispatches != 1 or eng.supports_prefix_sharing:
+        fail(f"{cfg.name}: {eng.n_prefill_dispatches} prefill dispatches "
+             f"(want the whole mix in one), prefix sharing "
+             f"{eng.supports_prefix_sharing}")
+    for r, evs in out.items():
+        if not all(math.isfinite(lp) for _, lp in evs):
+            fail(f"{cfg.name}: request {r} has a non-finite logprob")
+    return eng, out, wall, launches
+
+
+def hybrid_logits(torch, cfg, params, prompt, ops, ref):
+    """Last-position logits of ``prompt`` prefilled whole into a fresh
+    one-slot cache, and of one decode step after it with the kernels and
+    with the plain versions on a copy of the same cache."""
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models.transformer import forward, logits_from_hidden
+    cache = kvc.init_paged_cache(cfg, 1, 2, 16, ring_len=HYBRID_SLAB,
+                                 device="cuda")
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    out = forward(params, cfg, tokens=toks, cache=cache, mode="prefill")
+    prefill = logits_from_hidden(params, cfg, out["hidden"][0, -1])
+    cache["pos"] = out["pos"]
+    nxt = torch.tensor([prompt[1]], dtype=torch.int32, device="cuda")
+
+    def decode(c):
+        out = forward(params, cfg, tokens=nxt, cache=c, mode="decode")
+        return logits_from_hidden(params, cfg, out["hidden"][0, 0])
+
+    copy = {k: v.clone() for k, v in cache.items()}
+    dec = decode(cache)
+    with plain_attention(ops, ref):
+        dec_plain = decode(copy)
+    return prefill, dec, dec_plain
+
+
+def migrate_hybrid(torch, InferenceEngine, cfg, params, prompts, clock,
+                   unmigrated):
+    """Engine A serves the mix; two decode horizons after the prefill the
+    whole batch (ring K/V, conv and SSM rows) moves through a KV manifest
+    (codec none) into an empty engine B; B's tokens must continue the
+    unmigrated run's exactly with zero prefill."""
+    from repro_torch.models.kv_cache import SLOT_KEYS
+    from repro_torch.transfer.chunkstore import (assemble_kv_state,
+                                                 build_kv_manifest)
+    src = make_hybrid_engine(InferenceEngine, cfg, params)
+    rids = admit_singles(src, prompts)
+    out = {r: [] for r in rids}
+    while src.waiting:
+        for e in src.step():
+            out[e.req_id].append(e.token)
+    cut = src.n_decode_dispatches + 2
+    while src.n_decode_dispatches < cut:
+        for e in src.step():
+            out[e.req_id].append(e.token)
+    moving = src.exportable_request_ids()       # all but any at EOS
+    if not moving:
+        fail("hybrid migrate: no request resident at the cut")
+    t0 = clock()
+    state = src.export_request_state(moving)
+    t_export = clock() - t0
+    want_keys = sorted(SLOT_KEYS.values())
+    if any(sorted(state["slot_state"].get(r, {})) != want_keys
+           for r in moving) or state["pages"]:
+        fail("hybrid migrate: the export lacks ring / conv / SSM rows")
+    t0 = clock()
+    m, blobs, meta = build_kv_manifest(1, state, codec="none")
+    t_manifest = clock() - t0
+    t0 = clock()
+    landed = assemble_kv_state(m, blobs, meta)
+    t_assemble = clock() - t0
+    dst = make_hybrid_engine(InferenceEngine, cfg, params)
+    reset_launches()
+    t0 = clock()
+    slots = dst.import_request_state(landed)
+    t_import = clock() - t0
+    for rid in moving:
+        src.drop_request(rid)
+    if slots != list(range(len(moving))) or src.n_active:
+        fail(f"hybrid migrate: imported into slots {slots}, source keeps "
+             f"{src.n_active} rows")
+    done = set()
+    for _ in range(10000):
+        if len(done) == len(moving):
+            break
+        for e in dst.step():
+            out[e.req_id].append(e.token)
+            if e.finished:
+                done.add(e.req_id)
+    check_launches(cfg, dst, "hybrid migrated destination",
+                   dst.n_decode_dispatches, dst.n_prefill_dispatches)
+    if done != set(moving) or dst.n_prefill_tokens:
+        fail(f"hybrid migrate: {len(moving) - len(done)} requests "
+             f"unfinished, {dst.n_prefill_tokens} tokens prefilled on the "
+             f"destination")
+    same = [r for r in rids if out[r] == [t for t, _ in unmigrated[r]]]
+    if len(same) != len(rids):
+        fail(f"hybrid migrate: tokens after migration differ from the "
+             f"unmigrated run for {sorted(set(rids) - set(same))}")
+    raw = sum(v.numel() * v.element_size() for rows in
+              state["slot_state"].values() for v in rows.values())
+    log(f"[hybrid] migrate none: {len(moving)} requests "
+        f"({dst.n_kv_import_tokens} context tokens) at decode horizon "
+        f"{cut}; {raw} B of ring / conv / SSM rows, {m.total_bytes} B on "
+        f"the wire in {m.n_chunks} chunks; export {t_export:.3f} s, "
+        f"manifest {t_manifest:.3f} s, assemble {t_assemble:.3f} s, import "
+        f"{t_import:.3f} s; destination prefill tokens 0; tokens equal to "
+        f"the unmigrated run for {len(same)} of {len(rids)} requests")
+    return dict(requests=len(moving), slot_bytes=raw,
+                wire_bytes=m.total_bytes, export_s=t_export,
+                manifest_s=t_manifest, assemble_s=t_assemble,
+                import_s=t_import)
+
+
+def hybrid_phase(torch, InferenceEngine, clock, ops, ref):
+    """Hymba-1.5B at full width: serve, H=1 vs H=8, logits against the
+    plain versions, migration; then Mamba2-130M at full width.  Returns
+    Hymba's H=8 launch counts and a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs.tracer import Tracer
+    summary = {}
+    for arch in ("hymba-1.5b", "mamba2-130m"):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(cfg, gen, "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers "
+            f"{cfg.layer_mixers()[0]} d={cfg.d_model} H={cfg.n_heads} "
+            f"K={cfg.n_kv_heads} window={cfg.window} ssm heads "
+            f"{cfg.ssm_nheads}x{cfg.ssm_headdim} state {cfg.ssm_state} "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}; {n_params} params "
+            f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rs = torch.Generator().manual_seed(1)
+        prompts = [[1] + torch.randint(3, cfg.vocab_size, (n - 1,),
+                                       generator=rs).tolist()
+                   for n in HYBRID_PROMPT_LENS]
+        tracer = Tracer(clock)
+        torch.cuda.reset_peak_memory_stats()
+        eng, greedy8, wall, launches = serve_hybrid(
+            torch, InferenceEngine, cfg, params, prompts, horizon=8,
+            tracer=tracer)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        spans = tracer.spans()
+        t_pre = sum(sp.duration for sp in spans
+                    if sp.name == "engine.prefill")
+        t_dec = sum(sp.duration for sp in spans
+                    if sp.name == "engine.decode")
+        n_dec = sum(len(v) for v in greedy8.values()) - len(greedy8)
+        row = dict(params=n_params, prefill_tok_s=eng.n_prefill_tokens / t_pre,
+                   decode_tok_s=n_dec / t_dec, peak_gb=peak_gb, wall_s=wall,
+                   launches=launches)
+        log(f"[hybrid] {cfg.name} greedy H=8: {len(greedy8)} requests, "
+            f"{eng.n_prefill_tokens} prefill tokens in "
+            f"{eng.n_prefill_dispatches} dispatch, {n_dec} decoded in "
+            f"{eng.n_decode_dispatches} horizons; prefill "
+            f"{row['prefill_tok_s']:.1f} tok/s ({t_pre:.3f} s), decode "
+            f"{row['decode_tok_s']:.1f} tok/s ({t_dec:.3f} s); wall "
+            f"{wall:.3f} s; peak memory {peak_gb:.2f} GB")
+        if arch == "hymba-1.5b":
+            hymba_launches = launches
+        del eng
+        torch.cuda.empty_cache()
+        eng1, greedy1, wall1, _ = serve_hybrid(
+            torch, InferenceEngine, cfg, params, prompts, horizon=1)
+        if {r: [t for t, _ in v] for r, v in greedy1.items()} != \
+                {r: [t for t, _ in v] for r, v in greedy8.items()}:
+            fail(f"{cfg.name}: greedy tokens with H=8 differ from H=1")
+        log(f"[hybrid] {cfg.name} greedy H=1: same tokens as H=8 "
+            f"({wall1:.3f} s, {eng1.n_decode_dispatches} decode "
+            f"dispatches)")
+        del eng1
+        torch.cuda.empty_cache()
+        row["profile"] = profile_decode(
+            torch, cfg, make_hybrid_engine(InferenceEngine, cfg, params),
+            prompts, len(prompts), f"{cfg.name}, H=8, {len(prompts)} rows, "
+            f"contexts {min(HYBRID_PROMPT_LENS)}-{max(HYBRID_PROMPT_LENS)}",
+            "[hybrid]")
+        torch.cuda.empty_cache()
+        got, step, step_plain = hybrid_logits(torch, cfg, params,
+                                              prompts[-1], ops, ref)
+        with plain_attention(ops, ref):
+            plain, _, _ = hybrid_logits(torch, cfg, params, prompts[-1],
+                                        ops, ref)
+        compare_logits(torch, cfg, f"{cfg.name} prefill "
+                       f"({len(prompts[-1])} tokens)", got, plain)
+        compare_logits(torch, cfg, f"{cfg.name} decode step", step,
+                       step_plain)
+        if arch == "hymba-1.5b":
+            with flash_f32(ops):
+                got32, _, _ = hybrid_logits(torch, cfg, params, prompts[-1],
+                                            ops, ref)
+            compare_logits(torch, cfg, f"{cfg.name} prefill, flash on its "
+                           f"f32 path", got32, plain)
+            del got32
+        del got, step, step_plain, plain
+        torch.cuda.empty_cache()
+        if arch == "hymba-1.5b":
+            row["migrate"] = migrate_hybrid(torch, InferenceEngine, cfg,
+                                            params, prompts, clock, greedy8)
+        summary[arch] = row
+        del params
+        torch.cuda.empty_cache()
+    return hymba_launches, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1110,16 +1619,18 @@ def main():
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dequant import fused_dequant
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.transformer import init_params
     from repro_torch.obs.tracer import Tracer
     from repro_torch.serving.engine import InferenceEngine
 
     KERNELS[:] = [paged_decode_attention, paged_prefill_attention,
-                  fused_dequant, flash_attention]
+                  fused_dequant, flash_attention, decode_attention, ssd_scan]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1142,6 +1653,8 @@ def main():
     pre = check_prefill(torch, F, ref, paged_prefill_attention)
     deq = check_dequant(torch, ref, fused_dequant)
     fla, fla_cases = check_flash(torch, F, ref, flash_attention)
+    slab = check_slab_decode(torch, F, ref, decode_attention)
+    ssd = check_ssd(torch, ref, ssd_scan)
 
     # ---- 3. the engine at full width ----
     cfg = get_config("qwen3-8b")
@@ -1203,7 +1716,8 @@ def main():
         f"tokens, logprobs finite ({wall_t:.3f} s)")
     del eng_t
     torch.cuda.empty_cache()
-    profile_decode(torch, InferenceEngine, cfg, params, prompts)
+    profile_decode(torch, cfg, make_engine(InferenceEngine, cfg, params),
+                   prompts, 10, "H=8, 10 rows, contexts ~300-370")
     torch.cuda.empty_cache()
 
     got, step, step_plain = model_logits(torch, cfg, params, prompts[0],
@@ -1229,8 +1743,13 @@ def main():
     torch.cuda.empty_cache()
     train_launches, train = train_phase(torch, InferenceEngine, cfg, prompts,
                                         clock, ops, ref, flash_attention)
+    torch.cuda.empty_cache()
 
-    # ---- 7. summary ----
+    # ---- 7. the hybrid and SSM families at full width ----
+    hyb_launches, hybrid = hybrid_phase(torch, InferenceEngine, clock, ops,
+                                        ref)
+
+    # ---- 8. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -1244,7 +1763,12 @@ def main():
             ("flash_attention",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:116", fla,
-             train_launches)):
+             train_launches),
+            ("decode_attention",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
+            ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=n[name], **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1256,7 +1780,7 @@ def main():
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"kernels": rows, "installs": installs, "flash_cases": fla_cases,
-         "train": train,
+         "train": train, "hybrid": hybrid,
          "nvidia_smi": smi.stdout.strip()}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])

@@ -25,8 +25,9 @@
 //     below).  No TMA, no wgmma, no pipelining of the tile loads yet:
 //     those are later work.
 //   - f32: the f32 CUDA cores (the tensor cores' bf16 would lose the f32
-//     inputs' precision), one CTA per (row, KV head, 64 (query, head)
-//     pairs) whose G = H / K heads share each K/V tile staged as f32.
+//     inputs' precision), one CTA per (row, KV head, floor(64 / G)
+//     queries) whose G = H / K heads share each K/V tile staged as f32;
+//     any G up to 64 (Hymba's G = 5 uses 60 of the 64 pair slots).
 // Block skipping, in both: a CTA's loop runs over keys [kv_lo, kv_hi)
 // only, kv_hi = its last query + 1 when causal (tiles above the diagonal
 // are never loaded) and kv_lo = its first query - window + 1 with a
@@ -57,8 +58,9 @@ struct FlashArgs {
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores.  A (query, head) pair is spread over kTPP neighbouring
-// threads (paged_common.cuh); 64 pairs, 16 queries x the G = 4 heads of
-// one KV head at Qwen3's shapes, share each K/V tile.
+// threads (paged_common.cuh); up to 64 pairs, floor(64 / G) queries x the
+// G heads of one KV head (16 x 4 at Qwen3's shapes, 12 x 5 at Hymba's),
+// share each K/V tile; the 64 mod G pair slots left over keep nothing.
 // ---------------------------------------------------------------------------
 constexpr int kTPP = 4;      // threads per (query, head) pair
 constexpr int kPairs = 64;   // pairs per CTA
@@ -131,7 +133,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const int i0 = blockIdx.z * QT;
   const int i = i0 + pair / G;                      // this pair's query
   const int h = kh * G + pair % G;                  // and its head
-  const bool live = i < a.S;
+  const bool live = pair < QT * G && i < a.S;
 
   PairState<D, kTPP> st;
   st.init();
@@ -437,7 +439,7 @@ int by_head_dim_bf16(int d, const void* q, const void* k, const void* v,
 // dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // Strides are in elements, (batch, head, position) for each of q, k, v,
 // out; for bf16 they are even and the pointers 4-byte aligned.  G = H / K
-// must divide 64.  Returns cudaGetLastError() after the
+// is at most 64.  Returns cudaGetLastError() after the
 // launch, or -1 for a configuration this file was not built for.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int H,
@@ -446,7 +448,7 @@ extern "C" int flash_attention_launch(
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, int causal, int window, float scale, float cap,
     int dtype, void* stream) {
-  if (K <= 0 || H % K != 0 || kPairs % (H / K) != 0) return -1;
+  if (K <= 0 || H % K != 0 || H / K > kPairs) return -1;
   const FlashArgs a{B, H, K, S,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                     v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,

@@ -1,6 +1,7 @@
-// Device helpers shared by the paged decode and paged prefill kernels.
+// Device helpers shared by the paged decode, paged prefill and slab decode
+// kernels.
 //
-// Both kernels stream a row's KV through shared memory in tiles of TT
+// The kernels stream a row's KV through shared memory in tiles of TT
 // positions (K and V as f32, 32 KB per tile pair whatever the head width)
 // and keep one flash-style online softmax per (query, head) pair.  A pair
 // is spread over TPP neighbouring threads of one warp: thread `sub` of the
@@ -127,6 +128,22 @@ __device__ __forceinline__ void load_page_tile(float* ks, float* vs,
     const int64_t off = ((page * ps + p % ps) * K + h) * D + j;
     ks[e] = to_f(kp[off]);
     vs[e] = to_f(vp[off]);
+  }
+}
+
+// Load positions [p0, p0 + nt) of one KV head of a slab row into the tile.
+// kb / vb point at position 0 of that (row, head); ks_t / vs_t are the
+// position strides in elements (the head dim is dense), so a [B, T, K, d]
+// ring buffer is read in place as a [B, K, T, d] view.
+template <typename TKV, int D, int TT>
+__device__ __forceinline__ void load_slab_tile(float* ks, float* vs,
+                                               const TKV* kb, const TKV* vb,
+                                               long long ks_t, long long vs_t,
+                                               int p0, int nt) {
+  for (int e = threadIdx.x; e < nt * D; e += blockDim.x) {
+    const int t = e / D, j = e % D;
+    ks[e] = to_f(kb[(p0 + t) * ks_t + j]);
+    vs[e] = to_f(vb[(p0 + t) * vs_t + j]);
   }
 }
 

@@ -34,7 +34,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     one dtype, float32 (CUDA cores) or bfloat16 (tensor cores), on one
     CUDA device.  Any strides with a dense last dim (even ones for bf16):
     the model passes [B, S, H, d] activations as transposed views, and the
-    output takes q's memory order.  H / K must divide 64.  Returns
+    output takes q's memory order.  H / K is at most 64.  Returns
     [B, H, S, d] in q's dtype."""
     _require(all(t.is_cuda and t.device == q.device for t in (q, k, v)),
              "q, k and v must be on the same CUDA device")
@@ -45,8 +45,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _require(k.shape == (B, K, S, d), f"k/v must be [{B}, K, {S}, {d}], got "
              f"{tuple(k.shape)}")
     _require(d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
-    _require(K > 0 and H % K == 0 and 64 % (H // K) == 0,
-             f"H={H}, K={K}: H / K must divide 64")
+    _require(K > 0 and H % K == 0 and H // K <= 64,
+             f"H={H}, K={K}: H must be a multiple of K, H / K at most 64")
     _require(q.dtype in DTYPE_CODES and k.dtype == q.dtype
              and v.dtype == q.dtype, "q/k/v must share one dtype, float32 "
              "or bfloat16")

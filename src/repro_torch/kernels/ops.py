@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention as \
+    _slab_decode_kernel
 from repro_torch.kernels.dequant import fused_dequant as _dequant_kernel
 from repro_torch.kernels.flash_attention import flash_attention as \
     _flash_kernel
@@ -15,6 +17,7 @@ from repro_torch.kernels.paged_attention import paged_decode_attention as \
     _decode_kernel
 from repro_torch.kernels.paged_prefill import paged_prefill_attention as \
     _prefill_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -88,3 +91,34 @@ def attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     else:
         out = _FlashAttention.apply(qt, kt, vt, causal, window, cap)
     return out.transpose(1, 2)
+
+
+def decode_bshd(q, k_cache, v_cache, lengths, *, window: int = 0,
+                cap: float = 0.0, scale=None):
+    """One query token against a slab (or ring) cache: q [B, 1, H, d];
+    k_cache/v_cache [B, T, K, d], read in place as [B, K, T, d] views;
+    lengths [B] int32.  Returns [B, 1, H, d] in q's dtype."""
+    qt = q[:, 0].contiguous()
+    kt, vt = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    if q.device.type == "cpu":
+        out = ref.decode_attention_ref(qt, kt, vt, lengths, window=window,
+                                       cap=cap, scale=scale)
+    else:
+        out = _slab_decode_kernel(qt, kt, vt, lengths, window=window,
+                                  cap=cap, scale=scale)
+    return out[:, None]
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 64):
+    """The Mamba-2 SSD scan from a zero state: (y [b, L, H, P], final
+    state [b, H, P, N]), both f32.  On CUDA the kernel has no backward, so
+    an input that requires grad is refused rather than silently cut off
+    from the gradient."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "ops.ssd: the CUDA ssd_scan has no backward; training the SSM "
+            "families is not ported")
+    return _ssd_kernel(x, dt, A, B, C, chunk=chunk)

@@ -2,11 +2,11 @@
 
 They are the CPU path of ``kernels.ops`` and the yardstick the CUDA kernels
 are held against on the card.  Semantics follow the reference's oracles
-(``repro.kernels.ref.flash_attention_ref`` /
+(``repro.kernels.ref.flash_attention_ref`` / ``decode_attention_ref`` /
 ``paged_decode_attention_ref`` / ``paged_prefill_attention_ref`` /
-``dequant_ref``): f32 math; for attention, masked scores at -1e30 and
-softcap before the mask; paged rows with nothing to attend return exact
-zeros.
+``dequant_ref`` / ``ssd_scan_ref``): f32 math; for attention, masked
+scores at -1e30 and softcap before the mask; decode and paged rows with
+nothing to attend return exact zeros, as the Pallas kernels do.
 """
 
 from __future__ import annotations
@@ -44,6 +44,34 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths, *, window: int = 0,
+                         cap: float = 0.0, scale: Optional[float] = None):
+    """q: [B, H, d]; k/v: [B, K, T, d] (any strides; slot t holds position
+    t); lengths: [B].  Query b attends slots t < lengths[b], and with a
+    ``window`` only those with lengths[b] - 1 - t < window.  ``scale``
+    defaults to d**-0.5.  A row with no slot to attend (length 0) returns
+    exact zeros, as the Pallas kernel does (the reference's jnp oracle
+    averages V there).  Returns [B, H, d] in q's dtype."""
+    B, H, d = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    if scale is None:
+        scale = d ** -0.5
+    qf = q.float().reshape(B, K, G, d) * scale
+    s = _softcap(torch.einsum("bkgd,bktd->bkgt", qf, k.float()), cap)
+    lens = lengths.long()[:, None]
+    t = torch.arange(T, device=q.device)[None]
+    mask = t < lens
+    if window:
+        mask = mask & ((lens - 1 - t) < window)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", p, v.float()).reshape(B, H, d)
+    out = torch.where(mask.any(-1)[:, None, None], out,
+                      torch.zeros_like(out))
+    return out.to(q.dtype)
 
 
 def _gather(pool, block_tables):
@@ -126,3 +154,28 @@ def dequant_ref(q, scale, base=None):
     if base is not None:
         out = out + base.float()
     return out
+
+
+def ssd_scan_ref(x, dt, A, B, C, *, chunk=None):
+    """The sequential SSD recurrence (exact, one step per position).
+
+    x: [b, L, H, P]; dt: [b, L, H]; A: [H] (negative); B/C: [b, L, G, N],
+    head h reading group h // (H / G).  ``chunk`` is accepted for the
+    kernel's signature and unused.  Returns (y [b, L, H, P], final state
+    [b, H, P, N]), both f32."""
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Bf = B.float().repeat_interleave(rep, dim=2)
+    Cf = C.float().repeat_interleave(rep, dim=2)
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    state = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t] * Af[None])                     # [b, H]
+        xdt = xf[:, t] * dtf[:, t, :, None]                      # [b, H, P]
+        state = (state * dA[..., None, None]
+                 + xdt[..., None] * Bf[:, t, :, None, :])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, t], state))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, H, P))
+    return y, state

@@ -1,0 +1,72 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernel's wrapper.
+
+Port of ``repro.kernels.ssd_scan.ssd_scan`` (a Pallas TPU kernel) to
+``csrc/ssd_scan.cu``; the source's header says what bounds it and how it
+is laid out.  The plain version is ``kernels.ref.ssd_scan_ref``;
+``kernels.ops.ssd`` picks between the two by device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import DTYPE_CODES
+from repro_torch.kernels.ref import ssd_scan_ref  # noqa: F401
+
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"ssd_scan: {msg}")
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
+    """x: [b, L, H, P]; dt: [b, L, H]; A: [H]; B/C: [b, L, G, N], H a
+    multiple of G.  x, dt, B and C share one dtype, float32 or bfloat16,
+    with any strides and a dense last dim (the model passes slices of its
+    conv output); A is read as f32.  Returns (y [b, L, H, P] f32, final
+    state [b, H, P, N] f32)."""
+    tensors = (x, dt, A, B, C)
+    _require(all(t.is_cuda and t.device == x.device for t in tensors),
+             "every tensor must be on the same CUDA device")
+    _require(x.dim() == 4 and dt.dim() == 3 and A.dim() == 1
+             and B.dim() == 4 and B.shape == C.shape, "bad ranks")
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    _require(dt.shape == (b, L, H) and A.shape == (H,)
+             and B.shape[:2] == (b, L), "dt must be [b, L, H], A [H] and "
+             "B/C [b, L, G, N]")
+    _require(G > 0 and H % G == 0, f"H={H} must be a multiple of G={G}")
+    _require(x.dtype in DTYPE_CODES and all(
+        t.dtype == x.dtype for t in (dt, B, C)), "x, dt, B and C must "
+        "share one dtype, float32 or bfloat16")
+    _require(all(t.stride(-1) == 1 for t in (x, B, C)),
+             "x, B and C must be dense in their last dim")
+    _require(chunk > 0, f"chunk={chunk} must be positive")
+    y = torch.empty((b, L, H, P), dtype=torch.float32, device=x.device)
+    state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    if y.numel() == 0 and state.numel() == 0:
+        return y, state
+    A32 = A.float().contiguous()
+    fn = build.c_function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
+    rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, L, H, G, P, N,
+            int(chunk), *x.stride()[:3], *dt.stride(), *B.stride()[:3],
+            *C.stride()[:3], DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    # the launcher refuses (-1) a chunk whose [P, N] state and chunk
+    # tiles do not fit one block's shared memory
+    _require(rc != -1, f"chunk={chunk} with P={P}, N={N} does not fit one "
+             "block's shared memory")
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan: launch failed (cudaError {rc})")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

@@ -3,8 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       [--reduced] [--device cpu] --prompts "12+34=" "7*8=" --max-new 16
 
-Runs on the GPU unless ``--device cpu``.  Weights are random, drawn from
-``--seed``.
+``--arch`` is any registered config: the dense Qwen family (``qwen3-8b``,
+``qwen3-14b``, ``qwen3-32b``, ``qwen2-7b``), the hybrid ``hymba-1.5b``
+and the SSM ``mamba2-130m``.  Runs on the GPU unless ``--device cpu``.
+Weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.configs.base import list_archs
 from repro_torch.data import tokenizer as tok
 from repro_torch.models.transformer import init_params
 from repro_torch.rl.sampler import request_key
@@ -24,7 +27,8 @@ from repro_torch.serving.engine import InferenceEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    help=f"one of {list_archs()}")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU-sized)")
     ap.add_argument("--device", default=None, help="default: cuda")

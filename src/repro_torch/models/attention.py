@@ -1,10 +1,11 @@
-"""RoPE, paged KV writes and the dense paged-attention oracles (port of the
-paged half of ``repro.models.attention``).
+"""RoPE, paged KV writes and the dense attention oracles (port of
+``repro.models.attention``).
 
 The serving path attends through ``kernels.ops`` (the CUDA kernels on the
-card, their plain versions on the CPU).  ``gather_pages``,
-``attention_paged_decode`` and ``attention_paged_prefill`` materialise the
-whole padded context and serve only as test oracles.
+card, their plain versions on the CPU).  ``attention_fwd``,
+``attention_decode``, ``gather_pages``, ``attention_paged_decode`` and
+``attention_paged_prefill`` materialise the whole padded context and
+serve only as test oracles.
 """
 
 from __future__ import annotations
@@ -57,6 +58,43 @@ def _attend(q, k, v, mask, cap: float):
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
+def attention_fwd(q, k, v, *, causal: bool, window: int, cap: float):
+    """Full-sequence attention.  q: [B,S,H,dh] roped/scaled; k/v:
+    [B,S,K,dh] roped.  ``window`` > 0 keeps query - key < window (causal
+    only); ``causal=False`` is bidirectional.  Returns [B,S,H,dh]."""
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    mask = None
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        mask = pos[:, None] >= pos[None, :]
+        if window and window < S:
+            mask = mask & ((pos[:, None] - pos[None, :]) < window)
+        mask = mask[None, None, None]
+    else:
+        mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool, device=q.device)
+    out = _attend(q.reshape(B, S, K, H // K, dh), k, v, mask, cap)
+    return out.reshape(B, S, H, dh)
+
+
+def attention_decode(q, k_cache, v_cache, kv_positions, q_positions, *,
+                     window: int, cap: float):
+    """One-token decode against a slab or ring cache.  q: [B,1,H,dh]
+    roped/scaled; k_cache/v_cache: [B,T,K,dh]; kv_positions: [B,T] the
+    absolute position held in each slot (-1 => empty); q_positions: [B].
+    Returns [B,1,H,dh]."""
+    B, _, H, dh = q.shape
+    K = k_cache.shape[2]
+    kvp = kv_positions.long()
+    qp = q_positions.long()[:, None]
+    mask = (kvp >= 0) & (kvp <= qp)
+    if window:
+        mask = mask & ((qp - kvp) < window)
+    out = _attend(q.reshape(B, 1, K, H // K, dh), k_cache, v_cache,
+                  mask[:, None, None, None, :], cap)
+    return out.reshape(B, 1, H, dh)
 
 
 def attention_paged_decode(q, k_pool, v_pool, block_tables, q_positions, *,

@@ -31,10 +31,19 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
                 for k, v in t.items()}
 
     params = conv(tree)
-    embed = tuple(params["embed"].shape)
-    wq = tuple(params["groups"]["sub0"]["attn"]["wq"].shape)
-    if (embed != (cfg.vocab_size, cfg.d_model)
-            or wq != (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim)):
+    layer = params["groups"]["sub0"]
+    got = {"embed": tuple(params["embed"].shape)}
+    want = {"embed": (cfg.vocab_size, cfg.d_model)}
+    if cfg.has_attention:
+        got["attn.wq"] = tuple(layer["attn"]["wq"].shape)
+        want["attn.wq"] = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                           cfg.head_dim)
+    if cfg.has_ssm:
+        got["mamba.in_proj"] = tuple(layer["mamba"]["in_proj"].shape)
+        want["mamba.in_proj"] = (cfg.n_layers, cfg.d_model,
+                                 2 * cfg.d_inner + 2 * cfg.ssm_groups
+                                 * cfg.ssm_state + cfg.ssm_nheads)
+    if got != want:
         raise ValueError(f"{cfg.name}: tree does not match the config "
-                         f"(embed {embed}, wq {wq})")
+                         f"(got {got}, want {want})")
     return params

@@ -1,14 +1,22 @@
-"""Paged KV pools and their host-side page allocator (port of the paged
-half of ``repro.models.kv_cache``).
+"""Paged KV pools, per-slot ring and SSM state, and the host-side page
+allocator (port of ``repro.models.kv_cache``).
 
-Cache layout for the dense all-global family:
+Cache layout (every layer of a config has the same mixer, so each leaf
+carries a leading layer axis, as the reference's group-stacked leaves
+under ``groups/sub0`` do):
 
   cache = {
-    "pos":     [B] int32 — tokens already in the pool per decode slot,
-    "k_pages": [L, P, page_size, K, dh] — one pool per layer, leading layer
-               axis (the reference keeps the same pools group-stacked
-               under ``groups/sub0``),
+    "pos":     [B] int32 — tokens already in the cache per decode slot,
+    # global attention (dense family): shared page pools
+    "k_pages": [L, P, page_size, K, dh],
     "v_pages": same,
+    # hybrid sliding-window attention: a per-slot ring of W = min(window,
+    # ring_len) slots, position p at slot p % W
+    "k":       [L, B, W, K, dh],
+    "v":       same,
+    # mamba / hybrid: per-slot conv inputs and SSM state
+    "conv":    [L, B, ssm_conv - 1, conv_dim],
+    "ssm":     [L, B, H_ssm, P_ssm, N],
   }
 
 Position p of a request lives at (table[p // page_size], p % page_size)
@@ -17,11 +25,12 @@ inactive writes are routed there, so block tables can always be padded
 with 0.  ``PagedKVAllocator`` and ``OutOfPages`` are a copy of the
 reference's host-side allocator (free list, refcounts, copy-on-write).
 
-The port updates pools IN PLACE (``index_put_``, ``index_copy_``) where the
-reference returns new arrays; ``grow_pool`` allocates new pools, so callers
-never keep a pool across it.  ``gather_pages`` / ``scatter_pages`` carry
-pages to and from the host for KV migration, keyed as the reference's
-cache tree keys its pools.
+The port updates pools and rings IN PLACE (``index_put_``,
+``index_copy_``) where the reference returns new arrays; ``grow_pool``
+allocates new pools, so callers never keep a pool across it.
+``gather_pages`` / ``scatter_pages`` and ``gather_slot_rows`` /
+``scatter_slot_rows`` carry pages and per-slot rows to and from the host
+for KV migration, keyed as the reference's cache tree keys its leaves.
 """
 
 from __future__ import annotations
@@ -188,22 +197,51 @@ class PagedKVAllocator:
 
 
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
-                     dtype=torch.float32, device=None) -> Dict:
-    """Fresh cache: zeroed pools of ``num_pages`` pages for every layer and
-    a ``pos`` row per decode slot.  ``device=None`` means CUDA (raises
-    when absent)."""
+                     ring_len: int = 128, dtype=torch.float32,
+                     device=None) -> Dict:
+    """Fresh cache: zeroed leaves for the config's mixer and a ``pos`` row
+    per decode slot.  Global attention gets pools of ``num_pages`` pages;
+    the hybrid mixer a ring of min(window, ``ring_len``) slots per slot;
+    mamba / hybrid f32 conv and SSM state.  ``device=None`` means CUDA
+    (raises when absent)."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    mixer = cfg.pattern[0]
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if mixer == "global":
+        shape = (L, num_pages, page_size, K, dh)
+        cache["k_pages"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v_pages"] = torch.zeros(shape, dtype=dtype, device=device)
+    if mixer == "hybrid":
+        shape = (L, batch, min(cfg.window, ring_len), K, dh)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.has_ssm:
+        cache["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1,
+                                     cfg.conv_dim), device=device)
+        cache["ssm"] = torch.zeros((L, batch, cfg.ssm_nheads,
+                                    cfg.ssm_headdim, cfg.ssm_state),
+                                   device=device)
+    return cache
+
+
+# leaf -> its key string in the reference's cache tree, where every leaf of
+# a single-mixer config sits group-stacked under groups/sub0 with the same
+# shape as here; KV exports use these keys so that an export from either
+# package imports into the other
+POOL_KEYS = {"k_pages": "['groups']['sub0']['k_pages']",
+             "v_pages": "['groups']['sub0']['v_pages']"}
+SLOT_KEYS = {name: f"['groups']['sub0']['{name}']"
+             for name in ("k", "v", "conv", "ssm")}
 
 
 def copy_pool_pages(cache, src, dst):
     """pool[:, dst] = pool[:, src] on both pools, in place (COW page
     materialisation).  src/dst: [m] int tensors; padding entries copy the
-    garbage page onto itself."""
-    for key in ("k_pages", "v_pages"):
+    garbage page onto itself.  A cache without pools is left alone."""
+    for key in POOL_KEYS:
+        if key not in cache:
+            continue
         pool = cache[key]
         pool.index_copy_(1, dst.long(), pool.index_select(1, src.long()))
     return cache
@@ -212,7 +250,9 @@ def copy_pool_pages(cache, src, dst):
 def grow_pool(cache, new_num_pages: int):
     """New pools of ``new_num_pages`` pages (zero-filled tail)."""
     out = dict(cache)
-    for key in ("k_pages", "v_pages"):
+    for key in POOL_KEYS:
+        if key not in cache:
+            continue
         pool = cache[key]
         pad = pool.new_zeros((pool.shape[0], new_num_pages - pool.shape[1])
                              + tuple(pool.shape[2:]))
@@ -220,18 +260,12 @@ def grow_pool(cache, new_num_pages: int):
     return out
 
 
-# pool leaf -> its key string in the reference's cache tree, where the dense
-# family's pools sit group-stacked under groups/sub0 with the same
-# [L, P, ps, K, dh] shape; KV exports use these keys so that an export
-# from either package imports into the other
-POOL_KEYS = {"k_pages": "['groups']['sub0']['k_pages']",
-             "v_pages": "['groups']['sub0']['v_pages']"}
-
-
 def gather_pages(cache, page_ids) -> Dict[str, torch.Tensor]:
     """Host copies of the pool pages at ``page_ids`` from both pools
     (KV-migration export): ``{POOL_KEYS[k]: [L, n, ps, K, dh]}`` CPU
-    tensors."""
+    tensors; empty for a cache without pools."""
+    if "k_pages" not in cache:
+        return {}
     k0 = cache["k_pages"]
     ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
     return {POOL_KEYS[k]: cache[k].index_select(1, ids).cpu()
@@ -242,7 +276,9 @@ def scatter_pages(cache, pages: Dict, page_ids):
     """Write exported page payloads (tensors or numpy arrays keyed as
     :func:`gather_pages` keys them) into both pools at ``page_ids``, in
     place (KV-migration import; inverse of :func:`gather_pages` up to page
-    renames)."""
+    renames).  A cache without pools takes nothing."""
+    if "k_pages" not in cache:
+        return cache
     k0 = cache["k_pages"]
     ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
     for k, key in POOL_KEYS.items():
@@ -250,3 +286,94 @@ def scatter_pages(cache, pages: Dict, page_ids):
         pool[:, ids] = torch.as_tensor(pages[key]).to(pool.device,
                                                        pool.dtype)
     return cache
+
+
+# --------------------------------------------------------------------------- #
+# per-slot rows: rings and SSM state
+# --------------------------------------------------------------------------- #
+def gather_rows(cache, idx) -> Dict:
+    """The per-slot leaves at slot rows ``idx`` [n] (copies; indices past
+    the last slot clamp to it) and ``pos`` at those rows; pool leaves pass
+    through whole (they are shared, not per-slot)."""
+    B = cache["pos"].shape[0]
+    idx = torch.as_tensor(idx, device=cache["pos"].device).long() \
+        .clamp(max=B - 1)
+    rows = {k: v for k, v in cache.items() if k in POOL_KEYS}
+    rows["pos"] = cache["pos"][idx]
+    for k in SLOT_KEYS:
+        if k in cache:
+            rows[k] = cache[k].index_select(1, idx)
+    return rows
+
+
+def scatter_rows(cache, rows, idx):
+    """Write rows gathered by :func:`gather_rows` back at slot rows
+    ``idx``, in place; indices past the last slot (padding rows) are
+    dropped.  ``pos`` is left to the caller; pools were updated in
+    place."""
+    B = cache["pos"].shape[0]
+    idx = torch.as_tensor(idx, device=cache["pos"].device).long()
+    keep = idx < B
+    for k in SLOT_KEYS:
+        if k in cache:
+            cache[k][:, idx[keep]] = rows[k][:, keep].to(cache[k].dtype)
+    return cache
+
+
+def gather_slot_rows(cache, slot: int) -> Dict[str, torch.Tensor]:
+    """Host copies of the per-slot leaves (ring K/V, conv and SSM state) at
+    batch row ``slot``, ``{SLOT_KEYS[k]: [L, ...]}``: the non-paged half
+    of a request's generation state, which rides in the same migration
+    manifest as its pages."""
+    return {SLOT_KEYS[k]: cache[k][:, slot].cpu()
+            for k in SLOT_KEYS if k in cache}
+
+
+def scatter_slot_rows(cache, rows: Dict, slot: int):
+    """Write exported per-slot rows (tensors or numpy arrays keyed as
+    :func:`gather_slot_rows` keys them) back at batch row ``slot``, in
+    place."""
+    for k, key in SLOT_KEYS.items():
+        if k in cache and key in rows:
+            cache[k][:, slot] = torch.as_tensor(np.asarray(rows[key])).to(
+                cache[k].device, cache[k].dtype)
+    return cache
+
+
+def ring_positions(pos, W: int):
+    """[B, W] absolute position held in each ring slot; -1 for empty.
+    pos: [B] current length."""
+    s = torch.arange(W, dtype=torch.int64, device=pos.device)[None, :]
+    p = torch.div(pos.long()[:, None] - 1 - s, W, rounding_mode="floor") \
+        * W + s
+    return torch.where(p >= 0, p, torch.full_like(p, -1))
+
+
+def write_decode_kv(cache_k, cache_v, new_k, new_v, pos):
+    """Write one token's K/V into each row's ring at slot pos % W, in
+    place.  cache_k/v: [B, W, K, dh]; new_k/v: [B, K, dh]; pos: [B]."""
+    B, W = cache_k.shape[:2]
+    b = torch.arange(B, device=cache_k.device)
+    slot = pos.long() % W
+    cache_k.index_put_((b, slot), new_k.to(cache_k.dtype))
+    cache_v.index_put_((b, slot), new_v.to(cache_v.dtype))
+
+
+def prefill_fill_ring(cache_k, cache_v, k, v, lens=None):
+    """Fill each row's ring from a whole prefill, in place: position p goes
+    to slot p % W, for the last W of the row's ``lens`` real positions;
+    slots no position reaches keep what they held (never read: decode
+    attends the first min(pos + 1, W) slots).  cache_k/v: [B, W, K, dh];
+    k/v: [B, L, K, dh]."""
+    B, L = k.shape[:2]
+    W = cache_k.shape[1]
+    if lens is None:
+        lens = torch.full((B,), L, dtype=torch.int64, device=k.device)
+    p = ring_positions(lens, W)                            # [B, W]
+    valid = (p >= 0)[:, :, None, None]
+    src = p.clamp(0, max(L - 1, 0))[:, :, None, None].expand(
+        B, W, *k.shape[2:])
+    kk = k.gather(1, src).to(cache_k.dtype)
+    vv = v.gather(1, src).to(cache_v.dtype)
+    cache_k.copy_(torch.where(valid, kk, cache_k))
+    cache_v.copy_(torch.where(valid, vv, cache_v))

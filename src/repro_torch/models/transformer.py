@@ -1,5 +1,8 @@
-"""Dense all-global decoder (port of ``repro.models.transformer``): the
-full-sequence ``train`` mode and the paged ``prefill`` / ``decode`` modes.
+"""Decoder backbone (port of ``repro.models.transformer``) for the
+single-mixer families: dense all-global attention (the full-sequence
+``train`` mode and the paged ``prefill`` / ``decode`` modes), and the
+hybrid (sliding-window attention beside a Mamba-2 mixer, Hymba) and SSM
+(Mamba-2) families in the ``prefill`` / ``decode`` modes.
 
 Parameters are the reference's nested dict with the same key strings:
 ``embed`` [V, D], ``lm_head`` [D, V] (untied configs only),
@@ -8,7 +11,12 @@ layer axis (the reference's scan stack).  Order of operations follows the
 reference: qk-norm before RoPE; in the paged modes q is pre-scaled by
 dh**-0.5 so the paged kernels get ``scale=1.0``, and a prefill chunk
 attends to its own K/V before that K/V is written to the pool; in train
-mode the flash attention gets unscaled q and scales inside.
+mode the flash attention gets unscaled q and scales inside.  The hybrid
+mixer's attention keeps a per-slot ring of the window (``kv_cache``): a
+prefill (always the whole context) attends through the flash kernel with
+the window and fills the ring; a decode step attends the ring through the
+slab decode kernel, whose valid slots are the first min(pos + 1, W).
+Mamba mixers scan through ``ops.ssd`` in prefill (``models.ssm``).
 """
 
 from __future__ import annotations
@@ -23,11 +31,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import kv_cache as kvc
 from repro_torch.models.attention import (apply_rope, paged_write,
                                           rope_inv_freq)
 from repro_torch.models.kv_cache import GARBAGE_PAGE
 from repro_torch.models.layers import (embed_tokens, rms_norm, softcap,
                                        swiglu)
+from repro_torch.models.ssm import (init_mamba_params, mamba_mixer_decode,
+                                    mamba_mixer_fwd)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -67,20 +78,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    attn = {"wq": _dense(g, (D, H, dh), D, dt, device, L),
-            "wk": _dense(g, (D, K, dh), D, dt, device, L),
-            "wv": _dense(g, (D, K, dh), D, dt, device, L),
-            "wo": _dense(g, (H, dh, D), H * dh, dt, device, L)}
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(L, H, dh, dtype=dt), bk=zeros(L, K, dh, dtype=dt),
-                    bv=zeros(L, K, dh, dtype=dt))
-    if cfg.qk_norm:
-        attn.update(q_norm=zeros(L, dh), k_norm=zeros(L, dh))
-    layer = {"ln1": {"scale": zeros(L, D)}, "attn": attn,
-             "ln2": {"scale": zeros(L, D)},
-             "mlp": {"wi": _dense(g, (D, F), D, dt, device, L),
-                     "wg": _dense(g, (D, F), D, dt, device, L),
-                     "wo": _dense(g, (F, D), F, dt, device, L)}}
+    mixer = cfg.pattern[0]
+    layer = {"ln1": {"scale": zeros(L, D)}}
+    if cfg.has_attention:
+        attn = {"wq": _dense(g, (D, H, dh), D, dt, device, L),
+                "wk": _dense(g, (D, K, dh), D, dt, device, L),
+                "wv": _dense(g, (D, K, dh), D, dt, device, L),
+                "wo": _dense(g, (H, dh, D), H * dh, dt, device, L)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(L, H, dh, dtype=dt),
+                        bk=zeros(L, K, dh, dtype=dt),
+                        bv=zeros(L, K, dh, dtype=dt))
+        if cfg.qk_norm:
+            attn.update(q_norm=zeros(L, dh), k_norm=zeros(L, dh))
+        layer["attn"] = attn
+    if cfg.has_ssm:
+        per_layer = [init_mamba_params(cfg, g, dt, device) for _ in range(L)]
+        layer["mamba"] = _stack(per_layer)
+    if mixer == "hybrid":
+        layer["attn_norm"] = {"scale": zeros(L, D)}
+        layer["ssm_norm"] = {"scale": zeros(L, D)}
+    if cfg.mlp_kind != "none":
+        layer["ln2"] = {"scale": zeros(L, D)}
+        layer["mlp"] = {"wi": _dense(g, (D, F), D, dt, device, L),
+                        "wg": _dense(g, (D, F), D, dt, device, L),
+                        "wo": _dense(g, (F, D), F, dt, device, L)}
     params = {"final_norm": {"scale": zeros(D)},
               "embed": _dense(g, (V, D), D, dt, device),
               "groups": {"sub0": layer}}
@@ -97,6 +119,14 @@ def _rope_table(head_dim: int, theta: float, device: torch.device):
     return rope_inv_freq(head_dim, theta, device=device)
 
 
+def _stack(trees):
+    """One tree whose leaves stack the leaves of ``trees`` on a new leading
+    (layer) axis."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
 def _layer(tree, i: int):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
@@ -105,8 +135,8 @@ def _layer(tree, i: int):
 # --------------------------------------------------------------------------- #
 # layers
 # --------------------------------------------------------------------------- #
-def _attn_apply(p, h, cfg: ModelConfig, mode: str, k_pool, v_pool,
-                positions, lens, paged, inv):
+def _attn_apply(p, h, cfg: ModelConfig, mode: str, lc, positions, lens,
+                paged):
     B, S, D = h.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (h @ p["wq"].reshape(D, H * dh)).view(B, S, H, dh)
@@ -119,15 +149,34 @@ def _attn_apply(p, h, cfg: ModelConfig, mode: str, k_pool, v_pool,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    # the hybrid mixer's attention is the sliding window, on the local theta
+    local = cfg.pattern[0] == "hybrid"
+    inv = _rope_table(dh, cfg.rope_theta_local if local else cfg.rope_theta,
+                      h.device)
     q = apply_rope(q, positions, inv)
     k = apply_rope(k, positions, inv)
-    if mode == "train":
+    wo = p["wo"].reshape(H * dh, D)
+    if mode == "train" or (local and mode == "prefill"):
         # unscaled q: the flash attention scales by dh**-0.5 itself
         out = ops.attention_bshd(q, k, v, causal=True,
+                                 window=cfg.window if local else 0,
                                  cap=cfg.attn_softcap)
-        return out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, D)
+        if local:
+            kvc.prefill_fill_ring(lc["k"], lc["v"], k, v, lens)
+        return out.reshape(B, S, H * dh) @ wo
     q = q * (dh ** -0.5)
+    if local:                                            # ring decode
+        pos = positions[:, 0]
+        kvc.write_decode_kv(lc["k"], lc["v"], k[:, 0], v[:, 0], pos)
+        # W <= window, so after writing pos the ring holds exactly the
+        # positions in the window, in its first min(pos + 1, W) slots
+        W = lc["k"].shape[1]
+        lengths = torch.clamp(pos + 1, max=W).to(torch.int32)
+        out = ops.decode_bshd(q, lc["k"], lc["v"], lengths,
+                              cap=cfg.attn_softcap, scale=1.0)
+        return out.reshape(B, S, H * dh) @ wo
 
+    k_pool, v_pool = lc["k_pages"], lc["v_pages"]
     bt = paged["block_tables"]                           # [B, nb] int32
     ps, nb = k_pool.shape[1], bt.shape[1]
     if mode == "decode":
@@ -152,14 +201,44 @@ def _attn_apply(p, h, cfg: ModelConfig, mode: str, k_pool, v_pool,
         slots = (pos_grid % ps).reshape(-1)
         paged_write(k_pool, k.reshape(B * S, K, dh), pages.reshape(-1), slots)
         paged_write(v_pool, v.reshape(B * S, K, dh), pages.reshape(-1), slots)
-    return out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, D)
+    return out.reshape(B, S, H * dh) @ wo
 
 
-def _apply_layer(p, x, cfg: ModelConfig, mode: str, k_pool, v_pool,
-                 positions, lens, paged, inv):
+def _mamba_apply(p, h, cfg: ModelConfig, mode: str, lc, lens, seq_mask):
+    """The Mamba-2 mixer; updates the layer's conv and SSM state in
+    place."""
+    if mode == "decode":
+        out, mc = mamba_mixer_decode(p, h[:, 0], cfg,
+                                     {"conv": lc["conv"], "ssm": lc["ssm"]})
+        out = out[:, None]
+    else:
+        if seq_mask is not None:
+            h = h * seq_mask[..., None].to(h.dtype)
+        out, mc = mamba_mixer_fwd(p, h, cfg, return_state=True,
+                                  seq_lens=lens)
+    lc["conv"].copy_(mc["conv"])
+    lc["ssm"].copy_(mc["ssm"])
+    return out
+
+
+def _apply_layer(p, x, cfg: ModelConfig, mode: str, lc, positions, lens,
+                 paged, seq_mask):
+    mixer = cfg.pattern[0]
     h = rms_norm(x, p["ln1"]["scale"])
-    x = x + _attn_apply(p["attn"], h, cfg, mode, k_pool, v_pool, positions,
-                        lens, paged, inv)
+    if mixer == "global":
+        mix = _attn_apply(p["attn"], h, cfg, mode, lc, positions, lens,
+                          paged)
+    elif mixer == "mamba":
+        mix = _mamba_apply(p["mamba"], h, cfg, mode, lc, lens, seq_mask)
+    else:                                                # hybrid
+        attn_out = _attn_apply(p["attn"], h, cfg, mode, lc, positions, lens,
+                               paged)
+        m_out = _mamba_apply(p["mamba"], h, cfg, mode, lc, lens, seq_mask)
+        mix = 0.5 * (rms_norm(attn_out, p["attn_norm"]["scale"])
+                     + rms_norm(m_out, p["ssm_norm"]["scale"]))
+    x = x + mix
+    if cfg.mlp_kind == "none":
+        return x
     h2 = rms_norm(x, p["ln2"]["scale"])
     return x + swiglu(h2, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
 
@@ -178,17 +257,24 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
              backward pass (``torch.utils.checkpoint``, the reference's
              per-group ``jax.checkpoint``) instead of keeping its
              activations.
-    decode:  tokens [B]; positions = cache["pos"]; writes the new K/V into
-             ``cache``'s pools IN PLACE.
+    decode:  tokens [B]; positions = cache["pos"]; writes the new K/V
+             (pools or rings) and SSM state into ``cache`` IN PLACE.
     prefill: tokens [B, C] right-padded (``seq_mask`` [B, C] marks the
              valid tokens); paged["q_offsets"] [B] = tokens of each row
-             already in the pool (the chunk attends that prefix); writes
-             the chunk's K/V IN PLACE.
-    paged["block_tables"]: [B, nb] int32, padded with the garbage page.
+             already in the pool (the chunk attends that prefix; 0 when
+             absent, and always 0 for the ring and SSM families, which
+             prefill a whole context at once); writes the chunk's K/V,
+             rings and SSM state IN PLACE into ``cache``, whose per-slot
+             leaves hold one row per prefill row.
+    paged["block_tables"]: [B, nb] int32, padded with the garbage page
+    (global attention only).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
+    if mode == "train" and cfg.pattern != ("global",):
+        raise NotImplementedError(
+            f"{cfg.name}: train mode is ported for the dense family only")
     lens = None
     if mode == "decode":
         x = embed_tokens(params["embed"], tokens[:, None], cfg.embed_scale,
@@ -201,29 +287,31 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     if mode == "prefill":
-        positions = paged["q_offsets"][:, None] + positions
+        offs = (paged or {}).get("q_offsets")
+        if offs is None:
+            offs = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+        positions = offs[:, None] + positions
         if seq_mask is None:
             lens = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
         else:
             lens = seq_mask.to(torch.int32).sum(-1, dtype=torch.int32)
-    inv = _rope_table(cfg.head_dim, cfg.rope_theta, x.device)
     stack = params["groups"]["sub0"]
     for i in range(cfg.n_layers):
         if mode == "train":
             def layer(x, i=i):
                 return _apply_layer(_layer(stack, i), x, cfg, mode, None,
-                                    None, positions, None, None, inv)
+                                    positions, None, None, None)
             x = checkpoint(layer, x, use_reentrant=False) if remat \
                 else layer(x)
         else:
-            x = _apply_layer(_layer(stack, i), x, cfg, mode,
-                             cache["k_pages"][i], cache["v_pages"][i],
-                             positions, lens, paged, inv)
+            lc = {k: v[i] for k, v in cache.items() if k != "pos"}
+            x = _apply_layer(_layer(stack, i), x, cfg, mode, lc, positions,
+                             lens, paged, seq_mask)
     x = rms_norm(x, params["final_norm"]["scale"])
     if mode == "train":
         return {"hidden": x}
-    pos = cache["pos"] + 1 if mode == "decode" else paged["q_offsets"] + lens
+    pos = cache["pos"] + 1 if mode == "decode" else offs + lens
     return {"hidden": x, "pos": pos}
 
 

@@ -2,9 +2,10 @@
 ``repro.serving.engine.InferenceEngine``: serving and KV migration).
 
 One engine is one rollout instance.  Global-attention KV lives in shared
-page pools with per-request block tables (``PagedKVAllocator``); decode
-concurrency is bounded by ``max_batch`` slots.  The scheduler keeps the
-reference's contracts:
+page pools with per-request block tables (``PagedKVAllocator``); the
+hybrid family's window ring and the SSM families' conv and scan state live
+in per-slot rows; decode concurrency is bounded by ``max_batch`` slots.
+The scheduler keeps the reference's contracts:
 
   * ``step()`` decodes ``horizon`` tokens per active request in one
     dispatch: a Python loop of H model steps with sampling, EOS /
@@ -17,14 +18,19 @@ reference's contracts:
     COW copies up front), so nothing in the loop touches the allocator;
   * prefill runs in token-budget chunks right-padded to multiples of
     ``PREFILL_TILE``, batched across waiting requests and interleaved with
-    decode;
+    decode; a model with ring or SSM state (which a chunk boundary would
+    cut) prefills each context whole, in one chunk, around a gather and
+    scatter of its owner slot's rows;
   * ``add_group`` prefills a GRPO group's prompt once and forks its pages
-    copy-on-write to every sibling;
+    copy-on-write to every sibling, on all-global models only: per-slot
+    state cannot be shared, so elsewhere a group of more than one is
+    refused (the reference admits it and leaves the siblings' rows
+    empty);
   * admission is by capacity (``AdmissionError``), commitment-based when the
     pool is capped (``max_pool_pages``);
   * at a horizon boundary a decode-resident request exports its KV pages
-    (shared prompt pages once per group), imports into another engine with
-    zero prefill, and is dropped from the source.
+    (shared prompt pages once per group) and per-slot rows, imports into
+    another engine with zero prefill, and is dropped from the source.
 
 Attention runs through ``kernels.ops``: the hand-written CUDA kernels on the
 card, their plain versions on the CPU.  Sampling keys are (request,
@@ -113,7 +119,8 @@ class InferenceEngine:
                  horizon: int = 1, max_pool_pages: Optional[int] = None,
                  tracer=None, device=None):
         """``slab_len`` sizes the initial pool (2 * max_batch * slab_len
-        tokens); pages are allocated, and the pool grown, on demand, bounded
+        tokens) and the sliding-window ring (min(window, slab_len) slots
+        per slot); pages are allocated, and the pool grown, on demand, bounded
         by ``max_context`` and ``max_pool_pages`` when set.  ``horizon`` is
         the number of tokens one ``step()`` decodes per active request.
         ``device=None`` means CUDA (raises when absent); tests pass "cpu".
@@ -129,6 +136,10 @@ class InferenceEngine:
         self.temperature = temperature
         self.max_context = max_context
         self.horizon = max(int(horizon), 1)
+        # chunked (multi-step) prefill and prompt sharing need layers with
+        # no per-slot state; models with ring / SSM state prefill each
+        # context whole and serve groups of one
+        self._chunkable = all(m == "global" for m in cfg.layer_mixers())
         num_pages = max(2 * (max_batch * slab_len) // page_size, 8) + 1
         if max_pool_pages is not None:
             num_pages = max(min(num_pages, int(max_pool_pages)), 2)
@@ -137,7 +148,8 @@ class InferenceEngine:
         self.alloc = PagedKVAllocator(num_pages, page_size,
                                       max_pages=max_pool_pages)
         self.cache = kvc.init_paged_cache(cfg, max_batch, num_pages,
-                                          page_size, dtype=torch.float32,
+                                          page_size, ring_len=slab_len,
+                                          dtype=torch.float32,
                                           device=self.device)
         self.slots: List[Optional[SlotState]] = [None] * max_batch
         self._reserved: Dict[int, int] = {}     # req_id -> slot (waiting)
@@ -189,9 +201,10 @@ class InferenceEngine:
 
     @property
     def supports_prefix_sharing(self) -> bool:
-        """Always: every layer of the port's family is global attention,
-        whose only per-request state is the paged pool."""
-        return True
+        """Only when every layer is global attention, whose only
+        per-request state is the paged pool: GRPO groups share prompt pages
+        copy-on-write.  Ring and SSM state is per slot and not shared."""
+        return self._chunkable
 
     def free_slots(self) -> int:
         return self.max_batch - self.n_active - len(self._reserved)
@@ -298,7 +311,14 @@ class InferenceEngine:
         members: [(req_id, key, max_total)].  The context is prefilled once
         and its pages are shared copy-on-write across the members' block
         tables.  Admission is checked, and pages allocated, before any slot
-        is reserved, so a rejection leaks nothing.  Returns the slots."""
+        is reserved, so a rejection leaks nothing.  Without prefix sharing
+        (ring or SSM state) a group of more than one is refused with
+        :class:`AdmissionError`.  Returns the slots."""
+        if len(members) > 1 and not self.supports_prefix_sharing:
+            raise AdmissionError(
+                f"{self.cfg.name}: a group of {len(members)} needs prompt "
+                f"sharing, which a model with per-slot ring or SSM state "
+                f"does not support; admit each member on its own")
         L = len(token_ids)
         max_tot = max(m[2] for m in members)
         self._check_admission(L, max_tot, need_slots=len(members))
@@ -445,7 +465,8 @@ class InferenceEngine:
         for row in self.waiting:
             if budget <= 0:
                 break
-            take = min(len(row.token_ids) - row.done, budget)
+            rem = len(row.token_ids) - row.done
+            take = min(rem, budget) if self._chunkable else rem
             chosen.append((row, row.done, take))
             budget -= take
         n = _bucket(len(chosen), minimum=1)
@@ -460,13 +481,18 @@ class InferenceEngine:
             toks[i, :take] = row.token_ids[start:start + take]
             mask[i, :take] = True
             offsets[i] = start
-            slot_idx[i] = row.members[0][4]     # owner slot's pos row
+            slot_idx[i] = row.members[0][4]     # owner slot's state rows
             bt[i, :len(row.table)] = row.table
+        # the owner slots' per-slot rows (pools pass through whole) go in
+        # and come back out around the forward
+        dev_slots = self._to_dev(slot_idx)
+        rows = kvc.gather_rows(self.cache, dev_slots)
         out = forward(self.params, self.cfg, tokens=self._to_dev(toks),
-                      cache=self.cache, mode="prefill",
+                      cache=rows, mode="prefill",
                       seq_mask=self._to_dev(mask),
                       paged={"block_tables": self._to_dev(bt),
                              "q_offsets": self._to_dev(offsets)})
+        kvc.scatter_rows(self.cache, rows, dev_slots)
         self.n_prefill_dispatches += 1
         real = slot_idx < self.max_batch
         self.cache["pos"][self._to_dev(slot_idx[real])] = \
@@ -562,18 +588,21 @@ class InferenceEngine:
         (COW prompt sharing) appear ONCE in the unique-page payload, and
         each request's table is a list of indices into it.  Only pages
         covering ``ctx_len`` ship — horizon-reserved tail pages past the
-        context are re-reserved by the destination.  The dense family has
-        no per-slot rows, so ``slot_state`` is empty.  The source state is
-        untouched; callers drop the requests after a successful export.
+        context are re-reserved by the destination.  Ring and SSM rows ride
+        along under ``slot_state`` (empty for the dense family).  The source
+        state is untouched; callers drop the requests after a successful
+        export.
         """
-        by_id = {s.req_id: s for s in self.slots if s is not None}
+        by_id = {s.req_id: (i, s) for i, s in enumerate(self.slots)
+                 if s is not None}
         unique: List[int] = []
         uidx: Dict[int, int] = {}
         requests: List[Dict] = []
+        slot_state: Dict[int, Dict] = {}
         for rid in req_ids:
             if rid not in by_id:
                 raise KeyError(f"request {rid} has no decode-resident state")
-            st = by_id[rid]
+            slot, st = by_id[rid]
             idxs = []
             for p in st.table[:self.alloc.pages_for(st.ctx_len)]:
                 if p not in uidx:
@@ -586,13 +615,15 @@ class InferenceEngine:
                 ctx_len=st.ctx_len,
                 key_data=np.array(st.key_data, np.uint32),
                 page_idx=idxs))
+            if not self._chunkable:         # ring / SSM state exists
+                slot_state[rid] = kvc.gather_slot_rows(self.cache, slot)
         span = self.tracer.begin("engine.kv_export", self.trace_lane,
                                  n_reqs=len(req_ids), n_pages=len(unique))
         pages = kvc.gather_pages(self.cache, unique) if unique else {}
         self.tracer.end(span)
         self.n_kv_export_pages += len(unique)
         return dict(page_size=self.page_size, n_pages=len(unique),
-                    pages=pages, requests=requests, slot_state={})
+                    pages=pages, requests=requests, slot_state=slot_state)
 
     def import_request_state(self, state: Dict,
                              only: Optional[List[int]] = None) -> List[int]:
@@ -667,6 +698,9 @@ class InferenceEngine:
             self.tokens_buf[slot] = r["last_token"]
             self.keys_buf[slot] = st.key_data
             self.maxtot_buf[slot] = r["max_total"]
+            if rid in state.get("slot_state", {}):
+                kvc.scatter_slot_rows(self.cache, state["slot_state"][rid],
+                                      slot)
             slots.append(slot)
             self.n_kv_import_tokens += r["ctx_len"]
         self.n_kv_import_pages += len(used)

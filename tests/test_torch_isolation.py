@@ -51,7 +51,11 @@ def test_package_imports_without_triton_nvcc_or_jax(tmp_path):
             "repro_torch.core.kv_migration", "repro_torch.optim.adamw",
             "repro_torch.rl.grpo", "repro_torch.checkpoint.checkpoint",
             "repro_torch.launch.train",
-            "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
+            "repro_torch.configs.hymba_1_5b",
+            "repro_torch.configs.mamba2_130m"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "class Block:\n"

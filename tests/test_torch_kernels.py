@@ -1,12 +1,14 @@
-"""Paged and flash attention in the port: plain versions against the
-reference.
+"""Paged, slab-decode and flash attention in the port: plain versions
+against the reference.
 
 On the CPU the port's plain versions (``repro_torch.kernels.ref``) are held
 against the reference's oracles and its Pallas kernels in interpret mode, on
 the sweeps of ``tests/test_kernels.py`` (ragged lengths with 0, page
 boundaries and mid-page values; offsets at 0, mid-page, page boundary and
-full table; chunk_len 0, full and ragged; the flash cases of
-``test_kernels.py`` plus a sequence length that is no multiple of 128).
+full table; chunk_len 0, full and ragged; the slab decode cases of
+``test_kernels.py:42-45`` plus Hymba's G = 5; the flash cases of
+``test_kernels.py`` plus a sequence length that is no multiple of 128 and
+a G = 5 sliding window).
 f32 at atol 2e-5; bf16 inputs at the reference's own bf16 tolerance, 1e-2
 for the paged versions and 2e-2 for flash (one bf16 rounding of the
 output).  The flash gradient is held against ``jax.grad`` of the
@@ -22,12 +24,15 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as \
+    pallas_slab_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.paged_attention import \
     paged_decode_attention as pallas_decode
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as pallas_prefill
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
@@ -183,7 +188,8 @@ FLASH_CASES = [(2, 4, 2, 256, 64, True, 0, 0.0),
                (2, 2, 1, 128, 32, True, 0, 50.0),
                (1, 8, 2, 256, 128, False, 0, 0.0),
                (1, 2, 2, 512, 64, True, 128, 30.0),
-               (2, 4, 2, 200, 64, True, 48, 20.0)]
+               (2, 4, 2, 200, 64, True, 48, 20.0),
+               (1, 10, 2, 256, 64, True, 64, 0.0)]        # G = 5 (Hymba)
 
 
 def _flash_inputs(B, H, K, S, d, seed=11):
@@ -259,6 +265,59 @@ def test_flash_autograd_function_backward_rule(monkeypatch):
         assert _err(t.grad, g) <= 2e-5
 
 
+# (B, H, K, T, d, window, cap): test_kernels.py:42-45, then Hymba's G = 5
+# over a ring of the window's width with softcap
+SLAB_CASES = [(2, 4, 2, 256, 64, 0, 0.0), (1, 8, 8, 256, 64, 64, 0.0),
+              (3, 4, 1, 128, 128, 0, 30.0), (2, 16, 4, 512, 64, 0, 0.0),
+              (3, 10, 2, 128, 64, 0, 20.0)]
+
+
+def _slab_inputs(B, H, K, T, d, seed=1):
+    rs = np.random.RandomState(seed)
+    lens = np.asarray(([1, T] + list(rs.randint(1, T + 1, size=B)))[:B],
+                      np.int32)
+    return (rs.randn(B, H, d).astype(np.float32),
+            rs.randn(B, K, T, d).astype(np.float32),
+            rs.randn(B, K, T, d).astype(np.float32), lens)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,T,d,window,cap", SLAB_CASES)
+def test_slab_decode_plain_matches_reference(B, H, K, T, d, window, cap,
+                                             dtype):
+    """Lengths >= 1 (with 1 and T), as test_kernels.py:52 draws them."""
+    args = _slab_inputs(B, H, K, T, d)
+    opts = dict(window=window, cap=cap)
+    got = ref.decode_attention_ref(*(_th(a, dtype) for a in args), **opts)
+    assert got.dtype == getattr(torch, dtype)
+    want = jref.decode_attention_ref(*(_jx(a, dtype) for a in args), **opts)
+    assert _err(got, want) <= TOL[dtype]
+    pallas = pallas_slab_decode(*(_jx(a, dtype) for a in args), **opts,
+                                block_k=64, interpret=True)
+    assert _err(got, pallas) <= TOL[dtype]
+
+
+def test_slab_decode_empty_row_is_zero_and_ring_view_is_read_in_place():
+    """A length-0 row returns exact zeros (the Pallas kernel's
+    decode_attention.py:66-70); ``ops.decode_bshd`` reads a [B, T, K, d]
+    ring as [B, K, T, d] and takes the pre-scaled q with scale=1.0."""
+    q, k, v, lens = _slab_inputs(3, 10, 2, 32, 64, seed=2)
+    lens[1] = 0
+    t = [torch.from_numpy(a) for a in (q, k, v, lens)]
+    out = ref.decode_attention_ref(*t)
+    assert float(out[1].abs().max()) == 0.0
+    ring_k, ring_v = (x.transpose(1, 2).contiguous() for x in t[1:3])
+    got = ops.decode_bshd((t[0] * 64 ** -0.5)[:, None], ring_k, ring_v,
+                          t[3], scale=1.0)
+    assert got.shape == (3, 1, 10, 64)
+    assert _err(got[:, 0], out.numpy()) <= 2e-5
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(*t)
+    assert decode_attention.launches == before
+    assert "decode_attention" in build.SOURCES
+
+
 def test_flash_wrapper_refuses_cpu():
     q, k, v = (torch.from_numpy(a) for a in _flash_inputs(1, 4, 2, 64, 64))
     before = flash_attention.launches
@@ -321,7 +380,34 @@ def test_prefill_kernel_matches_plain_on_card(cuda, B, C, H, K, ps, nb, d,
 
 
 GPU_FLASH_CASES = FLASH_CASES + [(10, 32, 8, 374, 128, True, 0, 0.0),
-                                 (2, 16, 2, 130, 128, False, 0, 0.0)]
+                                 (2, 16, 2, 130, 128, False, 0, 0.0),
+                                 (2, 25, 5, 1152, 64, True, 1024, 0.0)]
+GPU_SLAB_CASES = SLAB_CASES + [(8, 25, 5, 1024, 64, 0, 0.0),
+                               (2, 32, 1, 96, 128, 40, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
+                                      ("bfloat16", "float32"),
+                                      ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("B,H,K,T,d,window,cap", GPU_SLAB_CASES)
+def test_slab_decode_kernel_matches_plain_on_card(cuda, B, H, K, T, d,
+                                                  window, cap, qdt, kvdt):
+    """Head-major slabs and [B, T, K, d] rings read as views."""
+    q, k, v, lens = _slab_inputs(B, H, K, T, d)
+    lens[0] = 0
+    args = (_th(q, qdt, cuda), _th(k, kvdt, cuda), _th(v, kvdt, cuda),
+            _th(lens, qdt, cuda))
+    opts = dict(window=window, cap=cap)
+    want = ref.decode_attention_ref(*args, **opts).float().cpu()
+    got = decode_attention(*args, **opts)
+    ring = [a.transpose(1, 2).contiguous().transpose(1, 2)
+            for a in args[1:3]]
+    got2 = decode_attention(args[0], *ring, args[3], **opts)
+    torch.cuda.synchronize()
+    for g in (got, got2):
+        assert _err(g, want) <= TOL[qdt]
+        assert float(g[0].float().abs().max()) == 0.0
 
 
 @pytest.mark.cuda
