@@ -19,27 +19,42 @@
 // sequential grid axis over KV blocks; Hopper blocks run in no order, so
 // here each CTA loops over the KV tiles itself, keeping the running max,
 // sum and accumulator of its queries in registers.  Two paths:
-//   - bf16 (the trainer's): tensor cores through mma.sync (m16n8k16, f32
-//     accumulators), one CTA of 4 warps per (row, head, 64 queries), K/V
-//     tiles of 64 keys staged in shared memory as bf16 (see the section
-//     below).  No TMA, no wgmma, no pipelining of the tile loads yet:
-//     those are later work.
+//   - bf16 (the trainer's and the hybrid prefill's): persistent CTAs of
+//     three warpgroups (two waves of one a SM) walk work items of (row,
+//     query head, tile of 128 queries), the most loaded first.  A
+//     producer warp keeps Q and K/V tiles of 128 keys arriving by TMA
+//     into a two-stage ring in shared memory (mbarriers count the bytes in
+//     and the consumers out), running into the next item while the
+//     consumers finish one; two consumer warpgroups of 64 queries each run
+//     S = Q K^T on wgmma from shared memory, the online softmax on the
+//     accumulator fragments (exp2 with scale * log2(e) folded in, its
+//     reductions in short chains: at 8 warps a SM it is latency-bound), and
+//     O += P V on wgmma with P from registers as bf16 and V read through
+//     the transposed (MN-major) operand layout.  Accumulators are f32.
+//     The tensor maps are built on the host from the strides of the
+//     [B, S, heads, d] views; TMA fills keys and queries past S with
+//     zeros.  See the section below.
 //   - f32: the f32 CUDA cores (the tensor cores' bf16 would lose the f32
 //     inputs' precision), one CTA per (row, KV head, floor(64 / G)
 //     queries) whose G = H / K heads share each K/V tile staged as f32;
-//     any G up to 64 (Hymba's G = 5 uses 60 of the 64 pair slots).
-// Block skipping, in both: a CTA's loop runs over keys [kv_lo, kv_hi)
-// only, kv_hi = its last query + 1 when causal (tiles above the diagonal
-// are never loaded) and kv_lo = its first query - window + 1 with a
-// window (tiles wholly outside every query's window are never loaded);
-// inside a tile each query masks its own [lo, hi).  Any S: queries past S
-// in the last tile load nothing, keep nothing and write nothing, and
-// kv_hi never passes S (K/V rows past it are zeros in shared memory).  A
-// query with nothing to keep (l == 0) writes exact zeros, as the Pallas
-// kernel does.  Layout: q/out [B, H, S, d], k/v [B, K, S, d] as strided
-// views (innermost stride 1; the bf16 path reads bf16 pairs, so the other
-// strides are even), so the model's [B, S, H, d] activations are read and
-// written in place, with no head-major copy.
+//     any G up to 64 (Hymba's G = 5 uses 60 of the 64 pair slots).  Not on
+//     the main path.
+// Block skipping, in both: a query tile's loop runs over keys
+// [kv_lo, kv_hi) only, kv_hi = its last query + 1 when causal (tiles
+// above the diagonal are never loaded) and kv_lo = its first query -
+// window + 1 with a window (tiles wholly outside every query's window are
+// never loaded);
+// inside a tile each query masks its own [lo, hi) (in bf16 only on the
+// tiles that straddle a limit).  Any S: queries past S load nothing, keep
+// nothing and write nothing.  A query with nothing to keep (l == 0)
+// writes exact zeros, as the Pallas kernel does.  Layout: q/out
+// [B, H, S, d], k/v [B, K, S, d] as strided views (innermost stride 1),
+// so the model's [B, S, H, d] activations are read and written in place,
+// with no head-major copy; the bf16 path needs 16-byte aligned bases and
+// strides (TMA).
+
+#include <cuda.h>   // CUtensorMap and its enums; the driver entry point is
+                    // reached through cudaGetDriverEntryPoint (no -lcuda)
 
 #include "paged_common.cuh"
 
@@ -54,6 +69,7 @@ struct FlashArgs {
   long long v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int causal, window;
   float scale, cap;
+  int n_qt;                   // bf16: query tiles of kBM (128) per sequence
 };
 
 // ---------------------------------------------------------------------------
@@ -175,54 +191,286 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulators).  One CTA of four
-// warps per (row, head, tile of kTcRows queries); each warp owns 16 query
-// rows.  Q stays in registers as A fragments for the whole loop; each K/V
-// tile of kTcKeys keys is staged in shared memory as bf16 (rows padded by
-// 8 elements, so the fragment loads hit 32 distinct banks).  S = Q K^T and
-// the online softmax run on the accumulator fragments; P is rounded to
-// bf16 and multiplied by V through ldmatrix.trans fragments.  Each thread
-// holds two query rows (g and g + 8 of its warp's 16) and reduces row
-// maxima and sums over the four threads of its quad.
+// bf16: TMA + wgmma.  Persistent CTAs of three warpgroups, each walking
+// work items of (row, query head, tile of kBM = 128 queries).  Warpgroup
+// 0 is the producer: one thread issues the TMA loads (an item's Q, then
+// its K and V tiles of kBN = 128 keys into a kStages ring, running ahead
+// into the next item while the consumers finish one); the others only
+// give their registers back.  Warpgroups 1
+// and 2 are consumers, 64 query rows each; they take turns issuing their
+// Q K^T, so one's softmax runs while the other's products hold the tensor
+// cores.
+//
+// Shared memory (1024-byte aligned): Q [128 x d], then kStages K and
+// kStages V tiles [128 x d], all bf16 in TMA's swizzled layout: a tile is
+// split into column blocks of CB = 64 elements (32 when d = 32), each
+// [128 rows x CB] with 128-byte rows (64 when d = 32) whose 16-byte chunks
+// are XOR-swizzled by the row within groups of 8 rows, the layout wgmma's
+// SWIZZLE_128B (64B) descriptors read.  Barriers: q_full, k_full[s],
+// v_full[s] (TMA transaction bytes), q_empty and empty[s] (one arrival per
+// consumer warp).
+//
+// A consumer warp's 16 rows and the thread layout of its accumulators are
+// the mma.sync m16n8 C layout repeated along N (rows g and g + 8 of the
+// warp, columns 2t, 2t + 1 of every 8-wide block), so the softmax reduces
+// a row over the four threads of a quad, and the score fragments of two
+// neighbouring 8-key blocks are, rounded to bf16, the A fragment of the
+// P V product for those 16 keys.
 // ---------------------------------------------------------------------------
-constexpr int kTcRows = 64;          // queries per CTA: 4 warps x 16
-constexpr int kTcKeys = 64;          // keys per K/V tile
-constexpr int kTcThreads = 128;
+constexpr int kBM = 128;              // queries per CTA: 2 consumers x 64
+constexpr int kBN = 128;              // keys per K/V tile
+constexpr int kStages = 2;            // K/V ring depth (3 measured no faster)
+constexpr int kTmaThreads = 3 * 128;  // producer + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <int D>
+struct TmaTile {
+  static constexpr int CB = D >= 64 ? 64 : 32;    // elements per column block
+  static constexpr int RB = CB * 2;                // bytes per smem row
+  static constexpr int NCB = D / CB;               // column blocks per tile
+  static constexpr int BLOCK = kBN * RB;           // bytes per column block
+  static constexpr int TILE = NCB * BLOCK;         // bytes per 128 x d tile
+  static constexpr int LAYOUT = RB == 128 ? 1 : 2; // wgmma: 128B / 64B swizzle
+  // Q, kStages K and V tiles, 128 bytes of barriers, 1024 of alignment
+  static constexpr int SMEM = (1 + 2 * kStages) * TILE + 128 + 1024;
+};
+static_assert(kBM == kBN, "Q and K/V tiles share one tensor-map box");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-// Four transposed 8x8 bf16 matrices from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(row));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.  A wait that
+// outlasts ~2^34 cycles (seconds) means a load that never lands: trap, so
+// the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long t0 = 0;
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spin == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle layout (1 = 128B, 2 = 64B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching registers an in-flight wgmma reads or
+// writes: every use after the wait depends on these.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], A (P) from registers, B (V) from
+// shared memory read MN-major (imm-trans-b = 1); scale-d = 1
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Issue S[64 x 128] = Q[64 x d] K^T for this warpgroup's 64 rows (the
+// caller waits): Q and K both K-major (d contiguous); k-step kk reads 16
+// columns, 32 bytes into its column block's swizzled rows.
+template <int D>
+__device__ __forceinline__ void qk_wgmma(float (&s)[kBN / 2], uint32_t q,
+                                         uint32_t k) {
+  using L = TmaTile<D>;
+  constexpr int KPB = L::CB / 16;                  // k-steps per column block
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / KPB) * L::BLOCK + (kk % KPB) * 32;
+    wgmma_ss_n128(s, gmma_desc(q + off, 16, 8 * L::RB, L::LAYOUT),
+                  gmma_desc(k + off, 16, 8 * L::RB, L::LAYOUT), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Issue O[64 x d] += P[64 x 128] V (the caller waits): P from registers (k-step kk = keys
+// 16 kk .. 16 kk + 15), V MN-major (d contiguous): 8-key groups one atom
+// (8 rows) apart, column blocks of CB values one BLOCK apart.
+template <int D>
+__device__ __forceinline__ void pv_wgmma(float (&o)[D / 2],
+                                         uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t v) {
+  using L = TmaTile<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t dv =
+        gmma_desc(v + kk * 16 * L::RB, L::BLOCK, 8 * L::RB, L::LAYOUT);
+    if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], dv);
+    else if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], dv);
+    else wgmma_rs_n32(o, pa[kk], dv);
+  }
+  wgmma_commit();
 }
 
 // -inf marks a masked score (finite scores never reach it)
 __device__ __forceinline__ float neg_inf() {
   return __uint_as_float(0xff800000u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -235,160 +483,353 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One K/V tile of the online softmax for a thread's two rows (g and g + 8
+// of its warp): S (raw Q K^T fragments) becomes P as the bf16 A fragments
+// of P V, with m / l / O rescaled.  It runs with 8 consumer warps a SM, so
+// latency, not issue rate, bounds it: the row maxima and sums run in four
+// independent chains each, the maximum is taken on the raw scores (the
+// scale is positive), the scale folds into the exponent's FFMA, exp2 is
+// one ex2.approx.ftz (results under 2^-126 flush to 0, far below a
+// bf16 P's resolution), and O is rescaled only when a row's maximum moved.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, FlashArgs a) {
-  constexpr int LD = D + 8;          // padded shared-memory row
-  constexpr int NT = kTcKeys / 8;    // score n-tiles of one K/V tile
-  constexpr int KS = D / 16;         // k-steps of Q K^T
-  constexpr int OT = D / 8;          // output n-tiles
-  __shared__ __align__(16) __nv_bfloat16 ks[kTcKeys * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTcKeys * LD];
-
-  const int b = blockIdx.x, h = blockIdx.y, kh = h / (a.H / a.K);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int i0 = blockIdx.z * kTcRows;
-  const int rows[2] = {i0 + warp * 16 + g, i0 + warp * 16 + g + 8};
-
-  // Q as A fragments, zero past S
-  uint32_t qa[KS][4];
-  const __nv_bfloat16* qb = q + b * a.q_sb + h * a.q_sh;
+__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
+                                             float (&o)[D / 2],
+                                             uint32_t (&pa)[kBN / 16][4],
+                                             float (&m)[2], float (&l)[2],
+                                             const FlashArgs& a, int j0,
+                                             int r0, const int (&rows)[2],
+                                             int t) {
+  const bool capped = a.cap > 0.f;
+  // the exp2 domain: scale * log2(e), or the softcap on the natural scale
+  float sc = a.scale * kLog2e;
+  if (capped) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+    for (int i = 0; i < kBN / 2; ++i)
+      s[i] = a.cap * tanhf(s[i] * a.scale / a.cap) * kLog2e;
+    sc = 1.f;
+  }
+  // per-element masks only on tiles that straddle a limit of some row of
+  // this warpgroup (keys past S, the diagonal, the window's edge)
+  if (j0 + kBN > a.S || (a.causal && j0 + kBN - 1 > r0) ||
+      (a.window > 0 && r0 + 63 - j0 >= a.window)) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = rows[e & 1];
-      const int c = kk * 16 + 2 * t + (e >> 1) * 8;
-      qa[kk][e] = r < a.S ? ld32(qb + (long long)r * a.q_ss + c) : 0u;
+    for (int n = 0; n < kBN / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = rows[e >> 1];
+        const int col = j0 + 8 * n + 2 * t + (e & 1);
+        if (!(col < a.S && (!a.causal || col <= r) &&
+              (a.window <= 0 || r - col < a.window)))
+          s[4 * n + e] = neg_inf();
+      }
     }
   }
-
-  // keys each row keeps, [lo, hi); nothing for rows past S
-  int lo[2], hi[2];
+  float mx[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) mx[0][c] = mx[1][c] = neg_inf();
+#pragma unroll
+  for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1][n & 3] = fmaxf(mx[e >> 1][n & 3], s[4 * n + e]);
+  float corr[2], neg_m[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int r = rows[j];
-    lo[j] = a.window > 0 ? max(0, r - a.window + 1) : 0;
-    hi[j] = r >= a.S ? 0 : (a.causal ? r + 1 : a.S);
+    const float rm = fmaxf(fmaxf(mx[j][0], mx[j][1]),
+                           fmaxf(mx[j][2], mx[j][3]));
+    const float m_new = fmaxf(m[j], quad_max(rm) * sc);
+    corr[j] = ex2(m[j] - m_new);
+    m[j] = m_new;
+    neg_m[j] = -m_new;
   }
-  // keys any row of this CTA keeps: the block skip
-  const int i_last = min(a.S, i0 + kTcRows) - 1;
-  const int kv_lo = a.window > 0 ? max(0, i0 - a.window + 1) : 0;
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n + 0] *= corr[0];
+      o[4 * n + 1] *= corr[0];
+      o[4 * n + 2] *= corr[1];
+      o[4 * n + 3] *= corr[1];
+    }
+  }
+  // P = exp2(s * sc - m) (exp2 of -inf is 0), summed in f32 and rounded to
+  // bf16 as the A fragments of P V: 8-key blocks 2 kk and 2 kk + 1 make
+  // k-step kk
+  float ls[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    float p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int j = (e >> 1) & 1;
+      p[e] = ex2(fmaf(s[8 * kk + e], sc, neg_m[j]));
+      ls[j][kk & 3] += p[e];
+    }
+    pa[kk][0] = pack_bf16(p[0], p[1]);
+    pa[kk][1] = pack_bf16(p[2], p[3]);
+    pa[kk][2] = pack_bf16(p[4], p[5]);
+    pa[kk][3] = pack_bf16(p[6], p[7]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    l[j] = l[j] * corr[j] + ((ls[j][0] + ls[j][1]) + (ls[j][2] + ls[j][3]));
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads): consumer c waits on
+// kTurn + c before issuing its Q K^T and then lets the other one go, so the
+// two warpgroups take turns at the tensor cores and one's softmax runs
+// while the other's products do.
+constexpr int kTurn = 1;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// One work item: a 128-query tile of one (row, head), and the keys its
+// queries may keep, [j_first, j_first + n_tiles * kBN) on a kBN grid:
+// kv_hi = the tile's last query + 1 when causal (tiles above the diagonal
+// are never loaded), kv_lo = its first query - window + 1 with a window.
+struct Item {
+  int b, h, kh, i0, j_first, n_tiles;
+};
+
+__device__ __forceinline__ Item item(const FlashArgs& a, int w) {
+  Item it;
+  const int hb = a.H * a.B;
+  it.i0 = (a.n_qt - 1 - w / hb) * kBM;
+  it.h = (w % hb) % a.H;
+  it.b = (w % hb) / a.H;
+  it.kh = it.h / (a.H / a.K);
+  const int i_last = min(a.S, it.i0 + kBM) - 1;
+  const int kv_lo = a.window > 0 ? max(0, it.i0 - a.window + 1) : 0;
   const int kv_hi = a.causal ? i_last + 1 : a.S;
+  it.j_first = kv_lo - kv_lo % kBN;
+  it.n_tiles = (kv_hi - it.j_first + kBN - 1) / kBN;
+  return it;
+}
 
-  float o[OT][4];
-#pragma unroll
-  for (int n = 0; n < OT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+flash_attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ out, FlashArgs a) {
+  using L = TmaTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t ks = base + L::TILE;
+  const uint32_t vs = ks + kStages * L::TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem_raw + (base - raw) + (1 + 2 * kStages) * L::TILE);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 1;
+  uint64_t* k_full = bars + 2;
+  uint64_t* v_full = bars + 2 + kStages;
+  uint64_t* empty = bars + 2 + 2 * kStages;
 
-  const __nv_bfloat16* kb = k + b * a.k_sb + kh * a.k_sh;
-  const __nv_bfloat16* vb = v + b * a.v_sb + kh * a.v_sh;
-  for (int j0 = kv_lo; j0 < kv_hi; j0 += kTcKeys) {
-    const int nk = min(kTcKeys, kv_hi - j0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTcKeys * (D / 2); e += kTcThreads) {
-      const int r = e / (D / 2), c = (e % (D / 2)) * 2;
-      uint32_t kv = 0u, vv = 0u;          // rows past the tile: zeros
-      if (r < nk) {
-        kv = ld32(kb + (long long)(j0 + r) * a.k_ss + c);
-        vv = ld32(vb + (long long)(j0 + r) * a.v_ss + c);
-      }
-      *reinterpret_cast<uint32_t*>(&ks[r * LD + c]) = kv;
-      *reinterpret_cast<uint32_t*>(&vs[r * LD + c]) = vv;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumerWarps);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T: B[k][n] = K[key n][dim k], a bf16 pair of one K row
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-      const __nv_bfloat16* kr = &ks[(n * 8 + g) * LD + 2 * t];
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        mma_bf16(s[n], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
-
-    // scale, softcap, mask (to -inf), row maxima over the quad
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = e >> 1;
-        const int col = j0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * a.scale;
-        if (a.cap > 0.f) x = a.cap * tanhf(x / a.cap);
-        x = (col >= lo[j] && col < hi[j]) ? x : neg_inf();
-        s[n][e] = x;
-        mx[j] = fmaxf(mx[j], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float m_new = fmaxf(m[j], quad_max(mx[j]));
-      corr[j] = expf(m[j] - m_new);
-      m[j] = m_new;
-      l[j] *= corr[j];
-    }
-#pragma unroll
-    for (int n = 0; n < OT; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = e >> 1;
-        const float p = s[n][e] == neg_inf() ? 0.f : expf(s[n][e] - m[j]);
-        s[n][e] = p;
-        l[j] += p;
+  // Work items (query tile, head, row), the last query tiles (the most keys
+  // when causal) first; CTA c takes items c, c + gridDim.x, ...  The ring's
+  // stage and phase run on across items (tile_it), Q's phase per item.
+  const int n_items = a.n_qt * a.H * a.B;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int tile_it = 0, item_it = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++item_it) {
+        const Item it = item(a, w);
+        // Q's buffer is free once both consumers' last Q K^T of the
+        // previous item is done (the first wait passes at once)
+        mbar_wait(q_empty, (item_it & 1) ^ 1);
+        mbar_expect_tx(q_full, L::TILE);
+        for (int c = 0; c < L::NCB; ++c)
+          tma_load(qs + c * L::BLOCK, &tq, c * L::CB, it.i0, it.h, it.b,
+                   q_full);
+        for (int t = 0; t < it.n_tiles; ++t, ++tile_it) {
+          const int st = tile_it % kStages;
+          const uint32_t ph = (tile_it / kStages) & 1;
+          const int j0 = it.j_first + t * kBN;
+          mbar_wait(&empty[st], ph ^ 1);   // the first round passes at once
+          mbar_expect_tx(&k_full[st], L::TILE);
+          for (int c = 0; c < L::NCB; ++c)
+            tma_load(ks + st * L::TILE + c * L::BLOCK, &tk, c * L::CB, j0,
+                     it.kh, it.b, &k_full[st]);
+          mbar_expect_tx(&v_full[st], L::TILE);
+          for (int c = 0; c < L::NCB; ++c)
+            tma_load(vs + st * L::TILE + c * L::BLOCK, &tv, c * L::CB, j0,
+                     it.kh, it.b, &v_full[st]);
+        }
       }
     }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t q_wg = qs + 64 * cw * L::RB;
+    float o[D / 2], s[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+    uint32_t pa[kBN / 16][4];
 
-    // O += P V: the score fragments of n-tiles 2kk, 2kk + 1 are the A
-    // fragment of k-step kk; V's B fragments come transposed by ldmatrix
+    if (cw == 1) named_arrive(kTurn);              // consumer 0 goes first
+    int tile_it = 0, item_it = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++item_it) {
+      const Item it = item(a, w);
+      const bool last_item = w + gridDim.x >= n_items;
+      const int r0 = it.i0 + 64 * cw;              // this warpgroup's rows
+      const int rows[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
 #pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+      mbar_wait(q_full, item_it & 1);
+      for (int t = 0; t < it.n_tiles; ++t, ++tile_it) {
+        const int st = tile_it % kStages;
+        const uint32_t ph = (tile_it / kStages) & 1;
+        mbar_wait(&k_full[st], ph);
+        named_sync(kTurn + cw);
+        qk_wgmma<D>(s, q_wg, ks + st * L::TILE);
+        // the other consumer's turn (consumer 1's very last pass owes
+        // none: every wait of consumer 0 is matched by one arrival)
+        if (cw == 0 || !(last_item && t + 1 == it.n_tiles))
+          named_arrive(kTurn + 1 - cw);
+        wgmma_wait_all();
+        fence_regs(s);
+        if (t + 1 == it.n_tiles) {                 // Q may be reloaded
+          __syncwarp();
+          if (lane == 0) mbar_arrive(q_empty);
+        }
+        softmax_tile<D>(s, o, pa, m, l, a, it.j_first + t * kBN, r0, rows,
+                        t4);
+        mbar_wait(&v_full[st], ph);
+        pv_wgmma<D>(o, pa, vs + st * L::TILE);
+        wgmma_wait_all();
+        fence_regs(o);
+        fence_regs(pa);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);    // this warp is done
+      }
+
+      // rows with l == 0 would write zeros; rows past S write nothing
+      __nv_bfloat16* ob = out + it.b * a.o_sb + it.h * a.o_sh;
 #pragma unroll
-      for (int n2 = 0; n2 < OT / 2; ++n2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &vs[vr * LD + n2 * 16 + (lane >> 4) * 8]);
-        mma_bf16(o[2 * n2], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * n2 + 1], pa, vf[2], vf[3]);
+      for (int j = 0; j < 2; ++j) {
+        const float lsum = quad_sum(l[j]);
+        const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
+        if (rows[j] >= a.S) continue;
+        __nv_bfloat16* orow = ob + (long long)rows[j] * a.o_ss + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(orow + n * 8) =
+              pack_bf16(o[4 * n + 2 * j] * inv, o[4 * n + 2 * j + 1] * inv);
       }
     }
   }
+}
 
-  // rows with l == 0 (none past S is written) would write zeros
-  __nv_bfloat16* ob = out + b * a.o_sb + h * a.o_sh;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const float lsum = quad_sum(l[j]);
-    const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
-    if (rows[j] >= a.S) continue;
-    __nv_bfloat16* orow = ob + (long long)rows[j] * a.o_ss + 2 * t;
-#pragma unroll
-    for (int n = 0; n < OT; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(o[n][2 * j] * inv, o[n][2 * j + 1] * inv);
+// ---- host: tensor maps and launch ----
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// A [B, heads, S, d] bf16 view as a 4-D map, dims innermost first (d, S,
+// heads, B) with the view's own byte strides; boxes of CB x 128 positions.
+// Positions past S read as zeros.
+template <int D>
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
+              int heads, int S, long long sb, long long sh, long long ss) {
+  using L = TmaTile<D>;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)L::CB, (cuuint32_t)kBN, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             L::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Streaming multiprocessors of the current device, read once.
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+template <int D>
+int launch_tma(const void* q, const void* k, const void* v, void* out,
+               FlashArgs a, int max_ctas, cudaStream_t stream) {
+  using L = TmaTile<D>;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -2;
+  CUtensorMap mq, mk, mv;
+  if (!make_map<D>(enc, &mq, q, a.B, a.H, a.S, a.q_sb, a.q_sh, a.q_ss) ||
+      !make_map<D>(enc, &mk, k, a.B, a.K, a.S, a.k_sb, a.k_sh, a.k_ss) ||
+      !make_map<D>(enc, &mv, v, a.B, a.K, a.S, a.v_sb, a.v_sh, a.v_ss))
+    return -3;
+  auto kernel = flash_attention_tma_kernel<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  a.n_qt = (a.S + kBM - 1) / kBM;
+  const int n_items = a.n_qt * a.H * a.B;
+  kernel<<<min(n_items, max_ctas), kTmaThreads, L::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -402,17 +843,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* out,
-              const FlashArgs& a, cudaStream_t stream) {
-  dim3 grid(a.B, a.H, (a.S + kTcRows - 1) / kTcRows);
-  flash_attention_tc_kernel<D><<<grid, kTcThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), a);
-  return static_cast<int>(cudaGetLastError());
-}
 
 int by_head_dim_f32(int d, const void* q, const void* k, const void* v,
                     void* out, const FlashArgs& a, cudaStream_t stream) {
@@ -425,11 +855,12 @@ int by_head_dim_f32(int d, const void* q, const void* k, const void* v,
 }
 
 int by_head_dim_bf16(int d, const void* q, const void* k, const void* v,
-                     void* out, const FlashArgs& a, cudaStream_t stream) {
+                     void* out, const FlashArgs& a, int max_ctas,
+                     cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_tc<32>(q, k, v, out, a, stream);
-    case 64: return launch_tc<64>(q, k, v, out, a, stream);
-    case 128: return launch_tc<128>(q, k, v, out, a, stream);
+    case 32: return launch_tma<32>(q, k, v, out, a, max_ctas, stream);
+    case 64: return launch_tma<64>(q, k, v, out, a, max_ctas, stream);
+    case 128: return launch_tma<128>(q, k, v, out, a, max_ctas, stream);
   }
   return -1;
 }
@@ -438,9 +869,11 @@ int by_head_dim_bf16(int d, const void* q, const void* k, const void* v,
 
 // dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // Strides are in elements, (batch, head, position) for each of q, k, v,
-// out; for bf16 they are even and the pointers 4-byte aligned.  G = H / K
-// is at most 64.  Returns cudaGetLastError() after the
-// launch, or -1 for a configuration this file was not built for.
+// out; for bf16 the pointers are 16-byte aligned and the strides multiples
+// of 8 (TMA).  G = H / K is at most 64.  Returns cudaGetLastError() after
+// the launch, -1 for a
+// configuration this file was not built for, -2 without the driver's
+// cuTensorMapEncodeTiled, -3 for strides a tensor map refuses.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int K, int S, int d, long long q_sb, long long q_sh, long long q_ss,
@@ -452,9 +885,15 @@ extern "C" int flash_attention_launch(
   const FlashArgs a{B, H, K, S,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                     v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                    causal, window, scale, cap};
+                    causal, window, scale, cap, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return by_head_dim_f32(d, q, k, v, out, a, st);
-  if (dtype == 1) return by_head_dim_bf16(d, q, k, v, out, a, st);
+  // bf16: persistent CTAs, two waves of one a SM, so each CTA's set-up
+  // spreads over several work items and the second wave evens out the
+  // tail (measured faster than one wave or one CTA an item)
+  const int sms = sm_count();
+  if (dtype == 1 && sms > 0)
+    return by_head_dim_bf16(d, q, k, v, out, a, 2 * sms, st);
   return -1;
 }
+

@@ -19,7 +19,9 @@
 // kernel does its products on the f32 CUDA cores (67 TFLOP/s).
 //
 // Design: one CTA per (row, KV head, tile of 64 (query, head) pairs), that
-// is 64 / G queries with the G heads of the KV head beside each.  The pairs
+// is floor(64 / G) queries with the G heads of the KV head beside each
+// (any G up to 64: the 64 mod G pair slots left over keep nothing and
+// write nothing; Qwen3-32B's G = 5 uses 60 of the 64).  The pairs
 // share each K/V tile the CTA stages in shared memory, so device memory
 // sees each prefix page once per query tile, not once per query.  A tile
 // of 64 queries would hold 64 * G pairs; at G = 4 their f32 q and
@@ -90,7 +92,9 @@ paged_prefill_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kc,
   const int pair = threadIdx.x / kTPP, sub = threadIdx.x % kTPP;
   const int i = blockIdx.z * QT + pair / G;         // query index in chunk
   const int g = pair % G;
-  const bool live = i < C;
+  // the 64 mod G slots past QT * G would hold the next tile's first
+  // query, whose phase 2 this CTA cuts short at `last`: they stay idle
+  const bool live = pair < QT * G && i < C;
   const int64_t qoff = (((int64_t)b * C + i) * H + h * G + g) * D;
 
   PairState<D, kTPP> st;
@@ -155,7 +159,7 @@ int by_head_dim(int d, const PrefillArgs& a) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q/k/v share q_dtype, the pools
-// kv_dtype; q f32 needs f32 pools).  G = H / K must divide 64.  Returns
+// kv_dtype; q f32 needs f32 pools).  1 <= G = H / K <= 64.  Returns
 // cudaGetLastError() after the launch, or -1 for a configuration this file
 // was not built for.
 extern "C" int paged_prefill_attention_launch(
@@ -164,7 +168,7 @@ extern "C" int paged_prefill_attention_launch(
     const void* chunk_lens, void* out, int B, int C, int H, int K, int d,
     int ps, int nb, int q_dtype, int kv_dtype, float scale, float cap,
     void* stream) {
-  if ((H / K) <= 0 || kPairs % (H / K) != 0) return -1;
+  if (K <= 0 || H % K != 0 || H / K <= 0 || H / K > kPairs) return -1;
   PrefillArgs a{q, k, v, k_pages, v_pages,
                 static_cast<const int32_t*>(block_tables),
                 static_cast<const int32_t*>(offsets),

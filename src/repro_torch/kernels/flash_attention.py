@@ -28,14 +28,26 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"flash_attention: {msg}")
 
 
+def tma_layout_ok(ptr: int, strides, element_size: int) -> bool:
+    """Whether TMA can read a tensor through a tensor map: the base 16-byte
+    aligned, the last dim dense, every other stride a multiple of 16 bytes
+    and below 2**40 bytes.  ``strides`` in elements, as ``Tensor.stride()``
+    gives them."""
+    *outer, last = strides
+    return (ptr % 16 == 0 and last == 1
+            and all(st * element_size % 16 == 0
+                    and 0 <= st * element_size < 2 ** 40 for st in outer))
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     cap: float = 0.0):
     """q: [B, H, S, d] unscaled (scale d**-0.5 inside); k/v: [B, K, S, d];
-    one dtype, float32 (CUDA cores) or bfloat16 (tensor cores), on one
-    CUDA device.  Any strides with a dense last dim (even ones for bf16):
-    the model passes [B, S, H, d] activations as transposed views, and the
-    output takes q's memory order.  H / K is at most 64.  Returns
-    [B, H, S, d] in q's dtype."""
+    one dtype, float32 (CUDA cores) or bfloat16 (tensor cores through TMA
+    and wgmma), on one CUDA device.  Any strides with a dense last dim; in
+    bf16 the bases 16-byte aligned and the strides multiples of 8 (TMA,
+    ``tma_layout_ok``): the model passes [B, S, H, d] activations as
+    transposed views, and the output takes q's memory order.  H / K is at
+    most 64.  Returns [B, H, S, d] in q's dtype."""
     _require(all(t.is_cuda and t.device == q.device for t in (q, k, v)),
              "q, k and v must be on the same CUDA device")
     _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
@@ -53,9 +65,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _require(all(t.stride(-1) == 1 for t in (q, k, v)),
              "the head dim must be dense (stride 1)")
     _require(q.dtype == torch.float32 or all(
-        t.data_ptr() % 4 == 0 and all(st % 2 == 0 for st in t.stride()[:3])
-        for t in (q, k, v)), "bf16 tensors are read in pairs: strides must "
-        "be even and pointers 4-byte aligned")
+        tma_layout_ok(t.data_ptr(), t.stride(), t.element_size())
+        for t in (q, k, v)), "bf16 tensors are read by TMA: bases must be "
+        "16-byte aligned and strides multiples of 16 bytes")
     _require(window >= 0 and cap >= 0, "window and cap must be >= 0")
     out = torch.empty_like(q)            # q's memory order, dense last dim
     if out.numel() == 0:

@@ -34,7 +34,8 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables, offsets,
     """q: [B, C, H, d]; k/v: [B, C, K, d] the chunk's own K/V, q's dtype;
     k_pages/v_pages: [P, ps, K, d] (f32 q with f32 pools, or bf16 q with f32
     or bf16 pools); block_tables: [B, nb] int32; offsets / chunk_lens: [B]
-    int32.  H / K must divide 64.  All on one CUDA device and contiguous.
+    int32.  H a multiple of K with 1 <= H / K <= 64.  All on one CUDA
+    device and contiguous.
     Returns [B, C, H, d] in q's dtype."""
     tensors = (q, k, v, k_pages, v_pages, block_tables, offsets, chunk_lens)
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
@@ -49,8 +50,8 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables, offsets,
     _require(k.shape == (B, C, K, d), f"k/v must be [B, C, K, d], got "
              f"{tuple(k.shape)}")
     _require(d == dk and d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
-    _require(K > 0 and H % K == 0 and 64 % (H // K) == 0,
-             f"H={H}, K={K}: H / K must divide 64")
+    _require(K > 0 and H % K == 0 and 1 <= H // K <= 64,
+             f"H={H}, K={K}: H must be a multiple of K, H / K at most 64")
     _require(k.dtype == q.dtype and v.dtype == q.dtype,
              "q/k/v must share one dtype")
     _require((q.dtype, k_pages.dtype) in DTYPE_PAIRS

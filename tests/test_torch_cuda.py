@@ -1,0 +1,358 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Runs where the card is and JAX is not: this file imports only torch,
+numpy, pytest and ``repro_torch``, and needs no conftest:
+
+    python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
+
+Inputs come from numpy seeds.  It holds every hand-written kernel against
+its plain PyTorch version (``repro_torch.kernels.ref``) on the same inputs:
+the paged decode and prefill, the slab decode and the flash attention
+(f32 at atol 2e-5; bf16 at the reference test's 1e-2, and 2e-2 abs + rel
+for flash, whose tensor-core path rounds P to bf16), the SSD scan (a
+relative 2e-5 / 4e-2 on y and state), the dequant (atol = rtol = 1e-6) and
+an install that launches it once per int8-coded leaf.  Beyond the cases of
+the other ``test_torch_*`` files' ``cuda`` tests it takes the paged decode
+and prefill at G = 5, 6 and 7, the flash attention at d = 32, 64 and 128 with a ragged
+S, a window and a softcap, and the slab decode with empty rows, a window
+and more splits than live slots; and it checks that repeated launches are
+bit-identical.  Whether a card exists is decided in a fixture, so every
+process collects the same tests; without one they skip.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import tokenizer as tok
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import decode_attention, plan_splits
+from repro_torch.kernels.dequant import fused_dequant
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.paged_prefill import paged_prefill_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models.transformer import init_params
+from repro_torch.transfer.chunkstore import (ChunkStore, assemble_manifest,
+                                             flatten_params)
+
+TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+DEQUANT_TOL = dict(atol=1e-6, rtol=1e-6)
+KV_DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
+             ("bfloat16", "bfloat16")]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _th(a, dtype, device):
+    t = torch.from_numpy(a)
+    if a.dtype == np.float32:
+        t = t.to(getattr(torch, dtype))
+    return t.to(device)
+
+
+def _err(got, want):
+    return float((got.float().cpu() - want.float().cpu()).abs().max())
+
+
+# ------------------------------ paged decode ------------------------------ #
+def _decode_inputs(B, H, K, ps, nb, d, seed=5):
+    rs = np.random.RandomState(seed)
+    P = 1 + B * nb                               # page 0 = garbage
+    q = rs.randn(B, H, d).astype(np.float32)
+    kp = rs.randn(P, ps, K, d).astype(np.float32)
+    vp = rs.randn(P, ps, K, d).astype(np.float32)
+    bt = (rs.permutation(P - 1)[:B * nb] + 1).reshape(B, nb).astype(np.int32)
+    edge = [0, ps, ps + 1, nb * ps]
+    lens = np.asarray((edge + list(rs.randint(1, nb * ps + 1, size=B)))[:B],
+                      np.int32)
+    return q, kp, vp, bt, lens
+
+
+DECODE_CASES = [(4, 4, 2, 16, 8, 64, 0.0), (3, 32, 8, 16, 24, 128, 0.0),
+                (3, 4, 1, 8, 16, 128, 30.0), (2, 16, 2, 16, 4, 64, 0.0),
+                # G = 5, 6, 7: qwen3-32b, qwen3-14b and qwen2-7b's groups
+                (4, 40, 8, 16, 24, 128, 0.0), (4, 48, 8, 16, 24, 128, 0.0),
+                (4, 28, 4, 16, 24, 128, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", KV_DTYPES)
+@pytest.mark.parametrize("B,H,K,ps,nb,d,cap", DECODE_CASES)
+def test_decode_kernel_matches_plain_on_card(cuda, B, H, K, ps, nb, d, cap,
+                                             qdt, kvdt):
+    q, kp, vp, bt, lens = _decode_inputs(B, H, K, ps, nb, d)
+    args = (_th(q, qdt, cuda), _th(kp, kvdt, cuda), _th(vp, kvdt, cuda),
+            _th(bt, qdt, cuda), _th(lens, qdt, cuda))
+    got = paged_decode_attention(*args, cap=cap)
+    torch.cuda.synchronize()
+    want = ref.paged_decode_attention_ref(*args, cap=cap)
+    assert _err(got, want) <= TOL[qdt]
+    assert float(got[0].abs().max()) == 0.0
+
+
+# ------------------------------ paged prefill ----------------------------- #
+def _prefill_inputs(B, C, H, K, ps, nb, d, seed=17):
+    rs = np.random.RandomState(seed)
+    P = 1 + B * nb
+    q = rs.randn(B, C, H, d).astype(np.float32)
+    k = rs.randn(B, C, K, d).astype(np.float32)
+    v = rs.randn(B, C, K, d).astype(np.float32)
+    kp = rs.randn(P, ps, K, d).astype(np.float32)
+    vp = rs.randn(P, ps, K, d).astype(np.float32)
+    bt = (rs.permutation(P - 1)[:B * nb] + 1).reshape(B, nb).astype(np.int32)
+    offs = np.asarray([0, ps // 2 + 1, ps, nb * ps][:B], np.int32)
+    cls = np.asarray([0, C, C - 3, max(C // 2, 1)][:B], np.int32)
+    return q, k, v, kp, vp, bt, offs, cls
+
+
+PREFILL_CASES = [(4, 96, 4, 2, 8, 6, 64, 0.0),
+                 (4, 256, 32, 8, 16, 24, 128, 0.0),
+                 (3, 128, 8, 8, 16, 8, 128, 30.0),
+                 (2, 200, 16, 1, 16, 4, 64, 0.0),
+                 # G = 5, 6, 7: qwen3-32b, qwen3-14b and qwen2-7b's groups
+                 (4, 256, 40, 8, 16, 24, 128, 0.0),
+                 (4, 256, 48, 8, 16, 24, 128, 0.0),
+                 (3, 130, 28, 4, 16, 8, 128, 20.0),
+                 (2, 77, 7, 1, 16, 6, 64, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", KV_DTYPES)
+@pytest.mark.parametrize("B,C,H,K,ps,nb,d,cap", PREFILL_CASES)
+def test_prefill_kernel_matches_plain_on_card(cuda, B, C, H, K, ps, nb, d,
+                                              cap, qdt, kvdt):
+    q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(B, C, H, K, ps, nb, d)
+    args = (_th(q, qdt, cuda), _th(k, qdt, cuda), _th(v, qdt, cuda),
+            _th(kp, kvdt, cuda), _th(vp, kvdt, cuda), _th(bt, qdt, cuda),
+            _th(offs, qdt, cuda), _th(cls, qdt, cuda))
+    got = paged_prefill_attention(*args, cap=cap)
+    torch.cuda.synchronize()
+    want = ref.paged_prefill_attention_ref(*args, cap=cap)
+    assert not torch.isnan(got.float()).any()
+    assert _err(got, want) <= TOL[qdt]
+    assert float(got[0].abs().max()) == 0.0
+
+
+# ------------------------------- slab decode ------------------------------ #
+def _slab_inputs(B, H, K, T, d, seed=1):
+    rs = np.random.RandomState(seed)
+    lens = np.asarray(([1, T] + list(rs.randint(1, T + 1, size=B)))[:B],
+                      np.int32)
+    return (rs.randn(B, H, d).astype(np.float32),
+            rs.randn(B, K, T, d).astype(np.float32),
+            rs.randn(B, K, T, d).astype(np.float32), lens)
+
+
+SLAB_CASES = [(2, 4, 2, 256, 64, 0, 0.0), (1, 8, 8, 256, 64, 64, 0.0),
+              (3, 4, 1, 128, 128, 0, 30.0), (2, 16, 4, 512, 64, 0, 0.0),
+              (3, 10, 2, 128, 64, 0, 20.0), (8, 25, 5, 1024, 64, 0, 0.0),
+              (2, 32, 1, 96, 128, 40, 0.0),
+              # zero-length rows, windows, more splits than live slots
+              (6, 8, 2, 40, 64, 0, 0.0), (5, 25, 5, 1024, 64, 256, 0.0),
+              (4, 6, 3, 3, 128, 2, 10.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", KV_DTYPES)
+@pytest.mark.parametrize("B,H,K,T,d,window,cap", SLAB_CASES)
+def test_slab_decode_kernel_matches_plain_on_card(cuda, B, H, K, T, d,
+                                                  window, cap, qdt, kvdt):
+    """Head-major slabs and [B, T, K, d] rings read as views; row 0 empty,
+    every other odd row of one slot; repeated launches bit-identical."""
+    q, k, v, lens = _slab_inputs(B, H, K, T, d)
+    lens[0] = 0
+    lens[3::2] = 1
+    args = (_th(q, qdt, cuda), _th(k, kvdt, cuda), _th(v, kvdt, cuda),
+            _th(lens, qdt, cuda))
+    opts = dict(window=window, cap=cap)
+    want = ref.decode_attention_ref(*args, **opts)
+    got = decode_attention(*args, **opts)
+    ring = [a.transpose(1, 2).contiguous().transpose(1, 2)
+            for a in args[1:3]]
+    got2 = decode_attention(args[0], *ring, args[3], **opts)
+    again = decode_attention(*args, **opts)
+    torch.cuda.synchronize()
+    for g in (got, got2):
+        assert _err(g, want) <= TOL[qdt]
+        assert float(g[0].float().abs().max()) == 0.0
+    assert torch.equal(again, got)
+
+
+def test_slab_cases_split_past_their_live_slots():
+    """On an H100 SXM's 132 SMs the split planner gives some SLAB_CASES
+    more splits than a row has live slots (rows of 0 and 1 slots, T = 3),
+    and others one split."""
+    splits = {c: plan_splits(c[0], c[2], c[3], 132) for c in SLAB_CASES}
+    assert splits[(4, 6, 3, 3, 128, 2, 10.0)] == 1
+    assert max(splits.values()) > 1
+    assert splits[(5, 25, 5, 1024, 64, 256, 0.0)] >= 2
+
+
+# ----------------------------- flash attention ---------------------------- #
+def _flash_inputs(B, H, K, S, d, seed=11):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(B, H, S, d).astype(np.float32),
+            rs.randn(B, K, S, d).astype(np.float32),
+            rs.randn(B, K, S, d).astype(np.float32))
+
+
+FLASH_CASES = [(2, 4, 2, 256, 64, True, 0, 0.0),
+               (1, 4, 4, 256, 64, True, 64, 0.0),
+               (2, 2, 1, 128, 32, True, 0, 50.0),
+               (1, 8, 2, 256, 128, False, 0, 0.0),
+               (1, 2, 2, 512, 64, True, 128, 30.0),
+               (2, 4, 2, 200, 64, True, 48, 20.0),
+               (1, 10, 2, 256, 64, True, 64, 0.0),
+               (10, 32, 8, 374, 128, True, 0, 0.0),
+               (2, 16, 2, 130, 128, False, 0, 0.0),
+               (2, 25, 5, 1152, 64, True, 1024, 0.0),
+               # d = 32 / 64 / 128 with a ragged S, a window and a softcap
+               (2, 6, 2, 77, 32, True, 20, 15.0),
+               (1, 6, 3, 301, 64, False, 100, 25.0),
+               (2, 8, 1, 259, 128, True, 130, 40.0),
+               (1, 4, 4, 1, 128, True, 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,d,causal,window,cap", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, B, H, K, S, d, causal,
+                                            window, cap, dtype):
+    """Head-major inputs and the model's [B, S, H, d] layout as views;
+    atol = rtol as the reference's test holds its kernel: the tensor-core
+    path rounds P to bf16, so an output may land one bf16 ulp away.
+    Repeated launches bit-identical."""
+    opts = dict(causal=causal, window=window, cap=cap)
+    args = [_th(a, dtype, cuda) for a in _flash_inputs(B, H, K, S, d)]
+    want = ref.flash_attention_ref(*args, **opts).float().cpu()
+    got = flash_attention(*args, **opts)
+    bshd = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in args]
+    got2 = flash_attention(*bshd, **opts)
+    again = flash_attention(*args, **opts)
+    torch.cuda.synchronize()
+    assert got2.transpose(1, 2).is_contiguous()
+    tol = FLASH_TOL[dtype]
+    for g in (got, got2):
+        assert bool(((g.float().cpu() - want).abs()
+                     <= tol + tol * want.abs()).all())
+    assert torch.equal(again, got)
+
+
+# --------------------------------- SSD scan ------------------------------- #
+def _ssd_inputs(b, L, H, G, P, N, seed=2):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(b, L, H, P).astype(np.float32)
+    dt = np.log1p(np.exp(rs.randn(b, L, H))).astype(np.float32)
+    A = (-np.exp(rs.randn(H) * 0.3)).astype(np.float32)
+    B = rs.randn(b, L, G, N).astype(np.float32)
+    C = rs.randn(b, L, G, N).astype(np.float32)
+    return x, dt, A, B, C
+
+
+def _rel(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / (float(want.abs().max())
+                                              + 1e-6)
+
+
+SSD_CASES = [(2, 128, 4, 1, 64, 32, 32), (1, 256, 8, 2, 32, 64, 64),
+             (2, 64, 2, 2, 16, 16, 16), (1, 128, 24, 1, 64, 128, 64),
+             (2, 200, 50, 1, 64, 16, 64), (1, 77, 6, 3, 32, 16, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,L,H,G,P,N,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain_on_card(cuda, b, L, H, G, P, N, chunk,
+                                          dtype):
+    """Contiguous inputs and the model's strided slices of one conv
+    output, ragged L included; A stays f32."""
+    args = [torch.from_numpy(a) if i == 2 else
+            torch.from_numpy(a).to(getattr(torch, dtype))
+            for i, a in enumerate(_ssd_inputs(b, L, H, G, P, N))]
+    args = [t.to(cuda) for t in args]
+    yr, sr = ref.ssd_scan_ref(*args)
+    y, st = ssd_scan(*args, chunk=chunk)
+    x, dt, A, B, C = args
+    xbc = torch.cat([x.reshape(b, L, H * P), B.reshape(b, L, G * N),
+                     C.reshape(b, L, G * N)], dim=-1)
+    views = (xbc[..., :H * P].reshape(b, L, H, P), dt, A,
+             xbc[..., H * P:H * P + G * N].reshape(b, L, G, N),
+             xbc[..., H * P + G * N:].reshape(b, L, G, N))
+    y2, st2 = ssd_scan(*views, chunk=chunk)
+    torch.cuda.synchronize()
+    for got, want in ((y, yr), (st, sr), (y2, yr), (st2, sr)):
+        assert _rel(got, want) < SSD_TOL[dtype]
+
+
+# ---------------------------------- dequant ------------------------------- #
+def _dequant_inputs(R, C, base, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-127, 128, (R, C)).astype(np.int8)
+    scale = rng.uniform(1e-4, 1e-2, (C,)).astype(np.float32)
+    b = rng.randn(R, C).astype(np.float32) if base else None
+    return q, scale, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", [None, "float32", "bfloat16"])
+@pytest.mark.parametrize("R,C", [(8, 16), (100, 37), (256, 128), (1, 5),
+                                 (4096, 1), (33, 12288)])
+def test_dequant_kernel_matches_plain_on_card(cuda, R, C, base):
+    q, scale, b = _dequant_inputs(R, C, base)
+    args = [torch.from_numpy(q).to(cuda), torch.from_numpy(scale).to(cuda),
+            None if b is None else
+            torch.from_numpy(b).to(cuda, getattr(torch, base))]
+    before = fused_dequant.launches
+    got = ops.fused_dequant(*args)
+    torch.cuda.synchronize()
+    assert fused_dequant.launches == before + 1
+    want = ref.dequant_ref(*args)
+    torch.testing.assert_close(got, want, **DEQUANT_TOL)
+
+
+def _tree_map(tree, fn):
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _stores():
+    """A chunk store holding v1 (the port's reduced bf16 qwen3-8b, seeded)
+    and v2 = v1 + 0.01 N(0, 1) cast back to each leaf's dtype."""
+    cfg = get_config("qwen3-8b").reduced(vocab_size=tok.VOCAB_SIZE,
+                                         dtype="bfloat16")
+    p1 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(1)
+    p2 = _tree_map(p1, lambda t: (t.float() + torch.from_numpy(
+        0.01 * rng.randn(*t.shape).astype(np.float32))).to(t.dtype))
+    store = ChunkStore(4096)
+    store.publish(1, p1)
+    store.publish(2, p2)
+    return store, p1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "delta-int8"])
+def test_install_on_card_launches_once_per_int8_leaf(cuda, codec):
+    store, p1 = _stores()
+    like = _tree_map(p1, lambda t: t.to(cuda))
+    m = store.manifest(2, codec, base_version=1)
+    chunks = {c.digest: store.fetch(c.digest) for c in m.chunks}
+    before = fused_dequant.launches
+    got = flatten_params(store.assemble(m, chunks, like=like,
+                                        base_params=like))
+    assert fused_dequant.launches - before == len(m.leaves)
+    host = flatten_params(assemble_manifest(m, chunks, like=p1,
+                                            base_params=p1))
+    for k in host:
+        torch.testing.assert_close(got[k].float().cpu(), host[k].float(),
+                                   **DEQUANT_TOL)

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, no ``ml_dtypes`` (absent beside the card)
-and nothing of the reference package in ``src/repro_torch`` or
-``chip_smoke.py``; it imports without ``triton`` or ``nvcc``; its entry
+and nothing of the reference package in ``src/repro_torch``,
+``chip_smoke.py`` or the card's test file ``tests/test_torch_cuda.py``; it imports without ``triton`` or ``nvcc``; its entry
 points run on CUDA unless asked for the CPU."""
 
 import ast
@@ -13,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
 BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 

@@ -32,8 +32,10 @@ from repro.kernels.paged_attention import \
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as pallas_prefill
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  plan_splits)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 tma_layout_ok)
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.models.attention import (attention_paged_decode,
@@ -90,7 +92,10 @@ def _err(got, want):
 DECODE_CASES = [(4, 4, 2, 16, 8, 64, 0.0), (2, 8, 8, 32, 4, 64, 0.0),
                 (3, 4, 1, 8, 16, 128, 30.0)]
 PREFILL_CASES = [(4, 32, 4, 2, 8, 6, 16, 0.0), (2, 128, 4, 4, 16, 4, 32, 0.0),
-                 (3, 256, 2, 1, 8, 8, 32, 30.0)]
+                 (3, 256, 2, 1, 8, 8, 32, 30.0),
+                 # G = 5, 6, 7: qwen3-32b, qwen3-14b and qwen2-7b's groups
+                 (4, 32, 10, 2, 8, 6, 16, 0.0), (3, 64, 12, 2, 8, 8, 32, 0.0),
+                 (2, 48, 7, 1, 8, 6, 16, 20.0)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -325,6 +330,167 @@ def test_flash_wrapper_refuses_cpu():
         flash_attention(q, k, v)
     assert flash_attention.launches == before
     assert "flash_attention" in build.SOURCES
+
+
+# ------------------ split-K decode, in plain PyTorch ---------------------- #
+LOG2E = 1.4426950408889634
+
+
+def split_range(lo: int, hi: int, n_split: int, split: int):
+    """Slots [lo_s, hi_s) that split ``split`` of ``n_split`` walks of a
+    row's live slots [lo, hi), as csrc/decode_attention.cu computes them:
+    equal shares of ceil((hi - lo) / n_split), the last ones short or
+    empty."""
+    per = -(-(hi - lo) // n_split)
+    s_lo = min(lo + split * per, hi)
+    return s_lo, min(s_lo + per, hi)
+
+
+def _split_merge_decode(q, k, v, lengths, *, window, cap, scale, n_split):
+    """decode_attention as csrc/decode_attention.cu computes it, in plain
+    f32 PyTorch (tests only): each split of a row's live slots keeps
+    (m, l, acc) of its own in the exp2 domain (m = -inf, l = 0 when it has
+    no slot); the splits are merged in split order; a row with no live
+    slot is zeros."""
+    B, H, d = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    qs = q.float() * (scale if cap else scale * LOG2E)
+    out = torch.zeros(B, H, d)
+    for b in range(B):
+        n = int(lengths[b])
+        hi = min(max(n, 0), T)
+        lo = min(max(0, n - window), hi) if window else 0
+        for h in range(H):
+            kh = h // G
+            parts = []
+            for sp in range(n_split):
+                s_lo, s_hi = split_range(lo, hi, n_split, sp)
+                if s_lo == s_hi:
+                    parts.append((float("-inf"), 0.0, torch.zeros(d)))
+                    continue
+                x = k[b, kh, s_lo:s_hi].float() @ qs[b, h]
+                if cap:
+                    x = cap * torch.tanh(x / cap) * LOG2E
+                m = x.max()
+                p = torch.exp2(x - m)
+                parts.append((float(m), float(p.sum()),
+                              p @ v[b, kh, s_lo:s_hi].float()))
+            live = [pt for pt in parts if pt[1] > 0]
+            if not live:
+                continue
+            mx = max(m for m, _, _ in live)
+            w = [2.0 ** (m - mx) for m, _, _ in live]
+            lsum = sum(lw * wi for (_, lw, _), wi in zip(live, w))
+            out[b, h] = sum(a * wi for (_, _, a), wi in zip(live, w)) / lsum
+    return out
+
+
+SPLIT_CASES = [(2, 4, 2, 256, 64, 0, 0.0), (3, 8, 8, 128, 64, 48, 0.0),
+               (3, 10, 2, 128, 64, 0, 20.0), (2, 4, 1, 64, 128, 24, 30.0)]
+H100_SMS = 132          # streaming multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, "plan", "past-live"])
+@pytest.mark.parametrize("B,H,K,T,d,window,cap", SPLIT_CASES)
+def test_split_merge_decode_matches_reference(B, H, K, T, d, window, cap,
+                                              n_split):
+    """The split-and-merge arithmetic of the CUDA decode kernel, in f32,
+    within 2e-5 of the port's plain version and the reference's Pallas
+    kernel in interpret mode: empty rows, a row of one slot, full rows,
+    windows, softcap; split counts from 1 to more than a row's live
+    slots."""
+    q, k, v, lens = _slab_inputs(B, H, K, T, d, seed=7)
+    lens[0] = 0                                   # an empty row
+    lens[-1] = T                                  # a full one
+    if B > 2:
+        lens[1] = 1
+    if n_split == "plan":
+        n_split = plan_splits(B, K, T, H100_SMS)
+    elif n_split == "past-live":
+        n_split = T + 3
+    t = [torch.from_numpy(a) for a in (q, k, v, lens)]
+    got = _split_merge_decode(*t, window=window, cap=cap, scale=d ** -0.5,
+                              n_split=n_split)
+    want = ref.decode_attention_ref(*t, window=window, cap=cap)
+    assert _err(got, want.numpy()) <= 2e-5
+    assert float(got[0].abs().max()) == 0.0
+    pallas = pallas_slab_decode(*(jnp.asarray(a) for a in (q, k, v, lens)),
+                                window=window, cap=cap,
+                                block_k=min(64, T), interpret=True)
+    assert _err(got, pallas) <= 2e-5
+
+
+def test_split_planner_is_a_function_of_the_shapes():
+    """Enough CTAs for two per SM where the slab allows it, never a split
+    shorter than one 32-slot tile of a full row, at least one; and the
+    split ranges tile a row's live slots in order."""
+    assert plan_splits(8, 5, 1024, H100_SMS) == 7      # Hymba's ring
+    for B, K, T in [(8, 5, 1024), (1, 1, 4096), (10, 8, 512), (64, 8, 2048),
+                    (1, 2, 16), (3, 1, 0), (300, 4, 1024)]:
+        for sms in (H100_SMS, 114, 1):
+            n = plan_splits(B, K, T, sms)
+            assert n >= 1 and n == plan_splits(B, K, T, sms)
+            assert n <= max(1, -(-T // 32))
+            if T >= 32 * n and n < -(-T // 32):
+                assert B * K * n >= 2 * sms
+            assert B * K * (n - 1) < 2 * sms or n == 1
+    for lo, hi in [(0, 0), (0, 1), (3, 200), (0, 1024), (7, 9)]:
+        for n in (1, 2, 5, 7, 40):
+            got = [split_range(lo, hi, n, s) for s in range(n)]
+            cover = [p for a, b in got for p in range(a, b)]
+            assert cover == list(range(lo, hi))
+            assert all(a <= b for a, b in got)
+
+
+def _attention_views(monkeypatch, cfg, run):
+    """(data_ptr, strides, element size) of every q / k / v view that
+    ``ops.attention_bshd`` hands the flash attention in ``run()``."""
+    seen = []
+    plain = ops.ref.flash_attention_ref
+
+    def record(q, k, v, **kw):
+        seen.extend((t.data_ptr(), t.stride(), t.element_size())
+                    for t in (q, k, v))
+        return plain(q, k, v, **kw)
+
+    monkeypatch.setattr(ops.ref, "flash_attention_ref", record)
+    run()
+    return seen
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b"])
+def test_tma_layout_accepts_the_models_attention_views(monkeypatch, arch):
+    """Every [B, heads, S, d] view of the model's [B, S, heads, d]
+    activations that reaches the flash attention (the dense train forward,
+    the hybrid prefill) passes the TMA layout check of the bf16 kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import kv_cache as kvc
+    from repro_torch.models.transformer import forward, init_params
+    cfg = get_config(arch).reduced(dtype="bfloat16", head_dim=32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(3, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    if arch == "qwen3-8b":
+        run = lambda: forward(params, cfg, tokens=toks, mode="train")
+    else:
+        cache = kvc.init_paged_cache(cfg, 2, 2, 16, ring_len=32,
+                                     device="cpu")
+        run = lambda: forward(params, cfg, tokens=toks.int(), cache=cache,
+                              mode="prefill")
+    views = _attention_views(monkeypatch, cfg, run)
+    assert len(views) == 3 * cfg.n_layers
+    assert all(es == 2 for _, _, es in views)
+    assert all(tma_layout_ok(*v) for v in views)
+
+
+def test_tma_layout_check_refuses_what_tma_cannot_read():
+    assert tma_layout_ok(1024, (4096, 128, 1024, 1), 2)
+    assert not tma_layout_ok(1026, (4096, 128, 1024, 1), 2)     # base
+    assert not tma_layout_ok(1024, (4096, 129, 1024, 1), 2)     # stride
+    assert not tma_layout_ok(1024, (4096, 128, 1024, 2), 2)     # last dim
+    assert not tma_layout_ok(1024, (2 ** 40, 128, 1024, 1), 2)  # too far
+    assert tma_layout_ok(1024, (4096, 4, 512, 1), 4)            # 16 B
 
 
 # ---------------------------- on the card --------------------------------- #
