@@ -12,7 +12,13 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 kernels at Qwen3-8B shapes (H=32, K=8, d=128, page 16; bf16
                 q, f32 pools) with ragged lengths / offsets / chunk lengths,
                 the paged decode and prefill also at the G = 5, 6, 7 of
-                qwen3-32b, qwen3-14b and qwen2-7b;
+                qwen3-32b, qwen3-14b and qwen2-7b, the prefill also at C = 1
+                and a ragged C = 130, all under one gate (2e-2 or one bf16
+                ulp of |want|); the paged decode's outputs bit-identical
+                with its table padded to 2 nb and rows appended (splits
+                fixed in position space), and both paged kernels on a
+                second launch; the paged decode timed at split lengths
+                of 32, 64 and 128 positions (SPLIT_SWEEP);
                 ``fused_dequant`` at the full-width leaf shapes (mlp.wi,
                 embed, wq rows at C=128, a 1-D leaf at C=1) with base none,
                 f32 and bf16; ``flash_attention`` in bf16 at the train
@@ -117,6 +123,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = []        # the kernel wrappers, each with its ``launches`` count
+# time_ms: clock cycles the card spins before each timed call, ~0.1 ms at
+# the H100's ~1.8 GHz, more than a wrapper's host time
+SPIN_CYCLES = 200_000
 
 # H100 SXM published dense peaks: HBM3 bandwidth; the TF32 tensor-core rate
 # (the card's fastest for products with an f32 pool operand), the bf16
@@ -132,6 +141,12 @@ F32_KERNEL_TOL = 2e-5   # f32 inputs: sums in another order
 # its plain version that both round an f32 result to bf16 land at most
 # this far apart once their f32 sums differ in the last bits
 BF16_ULP = 2 ** -7
+# the paged prefill's one gate: KERNEL_TOL or one bf16 ulp of |want|,
+# whichever is larger.  Its output is rounded to bf16 from f32 sums that
+# differ from the plain version's in the last bits (TF32 products against
+# the f32 pool, P rounded to bf16 against the chunk's k/v), so it lands
+# up to one ulp of its own magnitude away; past |want| = 2.56 that ulp
+# is more than KERNEL_TOL (0.03125 for |want| in [4, 8)).
 # flash attention: the reference's own test (tests/test_kernels.py:16, 41)
 # holds its kernel with atol = rtol = 2e-2 in bf16 and 2e-5 in f32; the
 # tensor-core path rounds P to bf16 before P V, so an output can land one
@@ -193,10 +208,18 @@ SLAB_RING_EDGE = (("zero length", (0, 1024, 17, 0, 513, 800, 1000, 1023), 0),
 # paged decode at every GQA geometry the port registers, (name, H, K)
 DECODE_CASES = (("qwen3-8b", 32, 8), ("qwen3-32b", 40, 8),
                 ("qwen3-14b", 48, 8), ("qwen2-7b", 28, 4))
-# paged prefill at every GQA geometry the port registers, (name, H, K, C)
+# the fixed-split property: the same rows with their table padded to 2 nb
+# with page 0 and three rows appended (a full doubled table, one position,
+# a ragged length); the original rows' outputs must not change by a bit
+DECODE_EXTRA_LENS = (1024, 1, 100)
+# split lengths of the paged decode timed against each other
+SPLIT_SWEEP = (32, 64, 128)
+# paged prefill at every GQA geometry the port registers, (name, H, K, C),
+# then a single-query chunk and a ragged one at Qwen3-8B's
 PREFILL_CASES = (("qwen3-8b", 32, 8, 128), ("qwen3-8b", 32, 8, 256),
                  ("qwen3-32b", 40, 8, 256), ("qwen3-14b", 48, 8, 256),
-                 ("qwen2-7b", 28, 4, 256))
+                 ("qwen2-7b", 28, 4, 256), ("qwen3-8b", 32, 8, 1),
+                 ("qwen3-8b", 32, 8, 130))
 # ssd_scan, (b, L, H, G, P, N, chunk): Hymba's prefill (8 rows of 1152,
 # ragged true lengths) and tests/test_kernels.py:184 (Mamba2-130m); the
 # reference test's bound (:196) is a relative error of 2e-5 in f32 and
@@ -230,13 +253,17 @@ def log(msg: str):
 # timing helpers
 # --------------------------------------------------------------------------- #
 def time_ms(fn, torch, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, L2 flushed before every call."""
+    """Mean device time of one call, L2 flushed before every call.  A spin
+    of SPIN_CYCLES clock cycles after the flush keeps the card busy while
+    the host runs the call's Python and enqueues its kernels, so the
+    events bracket the device's work and not the host's."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -263,8 +290,13 @@ def check_decode(torch, F, ref, kern):
     geometry the port registers (DECODE_CASES: G = 4, then G = 5, 6, 7),
     bf16 q over f32 pools, ragged lengths with an empty row, held at
     KERNEL_TOL; then in the model's regime at KERNEL_REL_TOL; each timed
-    against one SDPA call and the bound.  Returns the summary row (Qwen3-8B,
-    the worst error of all cases) and every case's row."""
+    against one SDPA call and the bound.  At each geometry the same rows
+    with the table padded to 2 nb and three rows appended
+    (DECODE_EXTRA_LENS) must give bit-identical outputs (the split
+    boundaries are fixed in position space), and so must a second launch.
+    Returns the summary row (Qwen3-8B, the worst error of all cases) and
+    every case's row."""
+    from repro_torch.kernels.paged_attention import SPLIT
     B, d, ps, nb = 10, 128, 16, 32
     lens_l = [0, 16, 17, 32, 300, 317, 350, 372, 511, 512]
     rows = {}
@@ -288,6 +320,35 @@ def check_decode(torch, F, ref, kern):
                  f"{KERNEL_TOL}")
         if float(out[0].float().abs().max()) != 0.0:
             fail(f"paged_decode_attention {name}: length-0 row is not zero")
+        # the fixed-split property: a doubled table (page 0 past the rows'
+        # pages) and three more rows leave the original rows' bits alone
+        n_x = len(DECODE_EXTRA_LENS)
+        bt_x = torch.cat([
+            torch.cat([bt, torch.zeros_like(bt)], 1),
+            (torch.randperm(P - 1, generator=g, device="cuda")[:n_x * 2 * nb]
+             % (P - 1) + 1).reshape(n_x, 2 * nb).to(torch.int32)])
+        q_x = torch.cat([q, torch.randn(n_x, H, d, generator=g,
+                                        device="cuda").bfloat16()])
+        lens_x = torch.cat([lens, torch.tensor(DECODE_EXTRA_LENS,
+                                               dtype=torch.int32,
+                                               device="cuda")])
+        out_x = kern(q_x, kp, vp, bt_x, lens_x, scale=1.0)
+        again = kern(q, kp, vp, bt, lens, scale=1.0)
+        torch.cuda.synchronize()
+        if not torch.equal(out_x[:B], out):
+            fail(f"paged_decode_attention {name}: the rows' outputs changed "
+                 f"with the table padded to {2 * nb} pages and "
+                 f"{n_x} rows added (max diff "
+                 f"{float((out_x[:B].float() - out.float()).abs().max())})")
+        if not torch.equal(again, out):
+            fail(f"paged_decode_attention {name}: a second launch on the "
+                 f"same inputs is not bit-identical")
+        err_x = float((out_x[B:].float() - ref.paged_decode_attention_ref(
+            q_x, kp, vp, bt_x, lens_x, scale=1.0)[B:].float()).abs().max())
+        if err_x > KERNEL_TOL:
+            fail(f"paged_decode_attention {name}: appended rows max err "
+                 f"{err_x} > {KERNEL_TOL}")
+        del bt_x, q_x, lens_x, out_x, again
         # the model's regime: q and k qk-normed (unit RMS per head), q
         # scaled by dh**-0.5, so scores are of order 1 and the softmax is
         # flat over hundreds of keys
@@ -328,8 +389,12 @@ def check_decode(torch, F, ref, kern):
         flops = 4 * n_kv * H * d                # bf16 q x f32 pool: TF32
         b_ms, b_by = bound(nbytes, [(flops, TF32_FLOP_PER_S)])
         log(f"[kernels] paged_decode_attention {name} B={B} H={H} K={K} "
-            f"G={H // K} d={d} ps={ps} nb={nb} lens={lens_l}: "
-            f"max_abs_err={err:.3e} (tol {KERNEL_TOL}) kernel {ms:.4f} ms, "
+            f"G={H // K} d={d} ps={ps} nb={nb} lens={lens_l} (splits of "
+            f"{SPLIT} positions, {-(-nb * ps // SPLIT)} a row): "
+            f"max_abs_err={err:.3e} (tol {KERNEL_TOL}); bit-identical with "
+            f"the table padded to {2 * nb} pages and "
+            f"{len(DECODE_EXTRA_LENS)} rows added, and on a second launch; "
+            f"kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
         rows[name] = dict(max_abs_err=max(err, errm), ms=ms,
@@ -342,18 +407,67 @@ def check_decode(torch, F, ref, kern):
     return dict(rows["qwen3-8b"], max_abs_err=worst), rows
 
 
+def sweep_decode_split(torch, ref, kern):
+    """The paged decode's split length, measured: Qwen3-8B's heads at B =
+    10 with check_decode's lengths (nb = 32) and with long rows (up to 4096
+    positions, nb = 256), each timed at SPLIT_SWEEP positions a split in
+    turns (each length twice, in both orders); every length within
+    KERNEL_TOL of the plain version.  The wrapper's SPLIT is restored."""
+    import repro_torch.kernels.paged_attention as pa
+    keep = pa.SPLIT
+    B, H, K, d, ps = 10, 32, 8, 128, 16
+    for name, nb, lens_l in (
+            ("check_decode's lengths", 32,
+             [0, 16, 17, 32, 300, 317, 350, 372, 511, 512]),
+            ("long rows", 256,
+             [4096, 3000, 2048, 1500, 1000, 777, 512, 300, 100, 1])):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        P = 1 + B * nb
+        q = torch.randn(B, H, d, generator=g, device="cuda").bfloat16()
+        kp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+        vp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+        bt = (torch.randperm(P - 1, generator=g, device="cuda")[:B * nb] + 1) \
+            .reshape(B, nb).to(torch.int32)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens, scale=1.0)
+        times = {n: [] for n in SPLIT_SWEEP}
+        try:
+            for n in SPLIT_SWEEP + SPLIT_SWEEP[::-1]:
+                pa.SPLIT = n
+                out = kern(q, kp, vp, bt, lens, scale=1.0)
+                torch.cuda.synchronize()
+                err = float((out.float() - want.float()).abs().max())
+                if err > KERNEL_TOL:
+                    fail(f"paged_decode_attention split {n}: max err {err}")
+                times[n].append(time_ms(
+                    lambda: kern(q, kp, vp, bt, lens, scale=1.0), torch,
+                    iters=50))
+        finally:
+            pa.SPLIT = keep
+        log(f"[kernels] paged_decode_attention split length, {name} (B={B} "
+            f"H={H} K={K} nb={nb} lens={lens_l}): "
+            + ", ".join(f"{n}: {' / '.join(f'{t:.4f}' for t in ts)} ms"
+                        for n, ts in times.items())
+            + f" (the wrapper splits every {keep})")
+        del q, kp, vp, bt, want, out
+        torch.cuda.empty_cache()
+
+
 def check_prefill(torch, F, ref, kern):
     """``paged_prefill_attention`` against its plain version at every GQA
     geometry the port registers (PREFILL_CASES: G = 4 at C = 128 and 256,
-    then G = 5, 6, 7 at C = 256), bf16 q over f32 pools, ragged offsets and
-    chunk lengths; times against one SDPA call and the bound.  Returns the
-    summary row (Qwen3-8B at C = 256, the worst error of all cases) and
-    every case's row."""
+    then G = 5, 6, 7 at C = 256, then C = 1 and a ragged C = 130), bf16 q
+    over f32 pools, ragged offsets and chunk lengths, every case held to
+    one gate (KERNEL_TOL or one bf16 ulp of |want|, whichever is larger); a
+    second launch bit-identical; times against one SDPA call and the
+    bound.  Returns the summary row (Qwen3-8B at C = 256, the worst error
+    of all cases) and every case's row."""
     d, ps, nb, B = 128, 16, 24, 4
     rows = {}
     for name, H, K, C in PREFILL_CASES:
         offs_l = [0, 8, 256, 300]               # 0, mid-page, boundary
-        cls_l = [0, C, C - 37, C // 2]          # empty row, full, ragged
+        # empty row, full, ragged (at least one query at C = 1)
+        cls_l = [0, C, max(C - 37, 1), max(C // 2, 1)]
         # the G = 4 rows keep the seed they always had
         g = torch.Generator(device="cuda").manual_seed(
             2 + C if H // K == 4 else 2 + C + H)
@@ -374,18 +488,19 @@ def check_prefill(torch, F, ref, kern):
         diff = (out.float() - want.float()).abs()
         err = float(diff.max())
         at = float(want.float().abs().flatten()[diff.argmax()])
-        # G = 4 is held at KERNEL_TOL as it always was; the new groups at
-        # KERNEL_TOL or, where |want| passes 2.56, one bf16 ulp of it (a
-        # single rounding of an output in [4, 8) moves it 0.03125)
-        tol = KERNEL_TOL if H // K == 4 else torch.clamp(
-            BF16_ULP * want.float().abs(), min=KERNEL_TOL)
-        tol_s = (f"tol {KERNEL_TOL}" if H // K == 4 else
-                 f"tol {KERNEL_TOL} or one bf16 ulp of |want|")
+        tol = torch.clamp(BF16_ULP * want.float().abs(), min=KERNEL_TOL)
+        tol_s = f"tol {KERNEL_TOL} or one bf16 ulp of |want|"
         if not torch.isfinite(out.float()).all() or bool((diff > tol).any()):
             fail(f"paged_prefill_attention {name} C={C} max err {err} at "
                  f"|want| {at} ({tol_s})")
         if float(out[0].float().abs().max()) != 0.0:
             fail("paged_prefill_attention: empty row is not zero")
+        again = kern(*args, scale=1.0)
+        torch.cuda.synchronize()
+        if not torch.equal(again, out):
+            fail(f"paged_prefill_attention {name} C={C}: a second launch on "
+                 f"the same inputs is not bit-identical")
+        del again
         T = nb * ps
         kk = torch.cat([kp[bt.long()].reshape(B, T, K, d), k.float()], 1)
         vv = torch.cat([vp[bt.long()].reshape(B, T, K, d), v.float()], 1)
@@ -418,7 +533,7 @@ def check_prefill(torch, F, ref, kern):
         log(f"[kernels] paged_prefill_attention {name} B={B} C={C} H={H} "
             f"K={K} G={H // K} d={d} ps={ps} nb={nb} offsets={offs_l} "
             f"chunk_lens={cls_l}: max_abs_err={err:.3e} at |want| {at:.3f} "
-            f"({tol_s}) "
+            f"({tol_s}); a second launch bit-identical; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
             f"{flops} flop)")
@@ -715,6 +830,20 @@ def ssd_rel(torch, got, want, tol: float, what: str) -> float:
     return rel
 
 
+def ssd_bound(b, L, H, G, P, N, chunk):
+    """Least time of one scan: its bytes (x and y, dt, B and C, A, the final
+    state, f32) against the chunked form's products per (row, head, chunk
+    of c): C B^T on and below the diagonal, its weighted sum over x, the
+    carried state's C state^T and the state update, on the f32 CUDA
+    cores.  Returns (ms, bound_by, bytes, flops)."""
+    nbytes = 4 * (2 * b * L * H * P + b * L * H + 2 * b * L * G * N + H
+                  + b * H * P * N)
+    c, n_chunks = chunk, -(-L // chunk)
+    tri = c * (c + 1) // 2
+    flops = b * H * n_chunks * (2 * tri * N + 2 * tri * P + 4 * c * P * N)
+    return (*bound(nbytes, [(flops, F32_FLOP_PER_S)]), nbytes, flops)
+
+
 def check_ssd(torch, ref, kern):
     """``ssd_scan`` against the sequential recurrence at Mamba2-130m's
     geometry (f32 and bf16), at its served prefill (f32) and at Hymba's
@@ -741,10 +870,12 @@ def check_ssd(torch, ref, kern):
                 ssd_rel(torch, st, sr, SSD_TOL["float32"],
                         "ssd_scan mamba2-130m served state"))
     ms_m = time_ms(lambda: kern(*args, chunk=chunk), torch)
+    bm_ms, bm_by, bm_bytes, bm_flops = ssd_bound(b, L, H, G, P, N, chunk)
     log(f"[kernels] ssd_scan mamba2-130m served b={b} L={L} H={H} G={G} "
         f"P={P} N={N} chunk={chunk} (f32 strided slices, "
         f"lens={list(SSD_HYMBA_LENS)}): max rel err {rel_m:.3e} (y and "
-        f"state; tol {SSD_TOL['float32']}); kernel {ms_m:.4f} ms")
+        f"state; tol {SSD_TOL['float32']}); kernel {ms_m:.4f} ms, bound "
+        f"{bm_ms:.4f} ms ({bm_by}: {bm_bytes} B, {bm_flops} flop)")
     del args, y, st, yr, sr
     b, L, H, G, P, N, chunk = SSD_HYMBA
     args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32,
@@ -759,15 +890,7 @@ def check_ssd(torch, ref, kern):
     ms = time_ms(lambda: kern(*args, chunk=chunk), torch)
     plain_ms = time_ms(lambda: ref.ssd_scan_ref(*args), torch, iters=3,
                        warmup=1)
-    nbytes = 4 * (2 * b * L * H * P + b * L * H + 2 * b * L * G * N + H
-                  + b * H * P * N)
-    # the chunked form's products per (row, head, chunk of c): C B^T on
-    # and below the diagonal, its weighted sum over x, the carried state's
-    # C state^T, and the state update: f32 CUDA cores
-    c, n_chunks = chunk, -(-L // chunk)
-    tri = c * (c + 1) // 2
-    flops = b * H * n_chunks * (2 * tri * N + 2 * tri * P + 4 * c * P * N)
-    b_ms, b_by = bound(nbytes, [(flops, F32_FLOP_PER_S)])
+    b_ms, b_by, nbytes, flops = ssd_bound(b, L, H, G, P, N, chunk)
     log(f"[kernels] ssd_scan b={b} L={L} H={H} G={G} P={P} N={N} "
         f"chunk={chunk} (f32 strided slices, lens={list(SSD_HYMBA_LENS)}): "
         f"max rel err {rel:.3e} (y and state; tol {SSD_TOL['float32']}), "
@@ -921,8 +1044,12 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
         return None
     log(f"{tag} one decode horizon ({what}): wall {wall_ms:.2f} ms, device "
         f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for ms, count, name in sorted(rows, reverse=True)[:8]:
-        log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    ranked = sorted(rows, reverse=True)
+    # the top eight rows, and every decode kernel's row (the split
+    # decodes' merge may rank below them)
+    for k, (ms, count, name) in enumerate(ranked):
+        if k < 8 or "decode" in name or "split_merge" in name:
+            log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 idle_share=1 - busy_ms / wall_ms)
 
@@ -1968,6 +2095,7 @@ def main():
         torch.cuda.synchronize()
     del warm
     dec, dec_cases = check_decode(torch, F, ref, paged_decode_attention)
+    sweep_decode_split(torch, ref, paged_decode_attention)
     pre, pre_cases = check_prefill(torch, F, ref, paged_prefill_attention)
     deq = check_dequant(torch, ref, fused_dequant)
     fla, fla_cases = check_flash(torch, F, ref, flash_attention)

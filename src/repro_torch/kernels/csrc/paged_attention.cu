@@ -8,23 +8,43 @@
 // What bounds it on this card: bytes.  Each row reads 2 * len * K * d pool
 // elements and does about 4 * G flops per element read (G = H / K query
 // heads per KV head), far below the H100's ~295 flops per byte, so the
-// least time is (K/V pages read + q + out) / 3.35 TB/s.
+// least time is (live K/V pages + q + out + table) / 3.35 TB/s.  With one
+// CTA per (row, KV head), B * K = 80 CTAs at Qwen3-8B's B = 10 would leave
+// most of the 132 SMs idle and walk a 512-position row's tiles in series.
 //
-// Design: one CTA per (row, KV head), one warp per query head of that KV
-// head's GQA group, so a page tile is read from device memory once and
-// used by all G heads.  The CTA walks only the row's live positions,
-// min(len, nb * ps): pages past the length are never read, and the table
-// is never indexed past its width, which keeps frozen rows inside a decode
-// horizon (their length may point past the table they were masked to)
-// in bounds.  Softcap is applied before the length mask; a row of length 0
-// writes zeros.  Simple first: no split over the page stream (with
-// B * K < 132 CTAs most SMs idle), no TMA, no tensor cores.
+// Design (flash-decoding, split_decode.cuh): each row's positions are split
+// over the grid, so that many CTAs stream pages at once.  Kernel 1 runs one
+// CTA per (split, KV head, row); split s walks positions [s * S, (s + 1) *
+// S) of the row's live range [0, min(len, nb * ps)) in tiles of 32,
+// gathered through the block table by 16-byte cp.async into a
+// double-buffered, padded shared-memory ring: position p of KV head h is
+// the contiguous row ((bt[p / ps] * ps + p % ps) * K + h) * d of the pool.
+// The G heads of the KV head share each tile (a lane owns a key's row for
+// Q K^T, d / 32 dims for P V) and write (m, l, acc) per head to f32
+// scratch; kernel 2 merges a row's splits in split order, reading only the
+// splits that hold a live position, so a split past the row's length exits
+// at once and writes nothing; a row of length 0 writes exact zeros.  The
+// table is never indexed past its width, which keeps frozen rows inside a
+// decode horizon (their length may point past the table they were masked
+// to) in bounds.  Softcap is applied before the length mask.
+//
+// Why the split boundaries are fixed in position space: the engine's table
+// width nb is a power-of-two bucket of the pages its rows need, so it
+// differs between a horizon of 8 and of 1, between horizons, and between
+// the two ends of a migration.  A split count planned from nb, B, the SM
+// count or other rows' lengths would change a row's summation order there,
+// and greedy H=8 would no longer equal H=1 nor a migrated row an unmigrated
+// one.  With a constant S (a multiple of the 32-position tile) a row's
+// result is a function of its own length and data alone; the grid has
+// ceil(nb * ps / S) splits, computed from shapes, so the wrapper never reads
+// the lengths on the host.
 
-#include "paged_common.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
-using namespace paged;
+using namespace split_decode;
+using paged::PagedRows;
 
 struct DecodeArgs {
   const void* q;
@@ -33,56 +53,71 @@ struct DecodeArgs {
   const int32_t* bt;
   const int32_t* lengths;
   void* out;
-  int B, H, K, ps, nb;
+  float* ml;                            // [B, H, n_split, 2]: m, l
+  float* acc;                           // [B, H, n_split, d]
+  int B, H, K, ps, nb, split_len, n_split;
   float scale, cap;
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TKV, int D>
-__global__ void paged_decode_kernel(const TQ* __restrict__ q,
-                                    const TKV* __restrict__ kp,
-                                    const TKV* __restrict__ vp,
-                                    const int32_t* __restrict__ bt,
-                                    const int32_t* __restrict__ lengths,
-                                    TQ* __restrict__ out, int H, int K, int ps,
-                                    int nb, float scale, float cap) {
-  constexpr int TPP = 32;
-  constexpr int TT = Tile<D>::TT;
-  constexpr int DPT = D / TPP;
-  __shared__ float ks[TT * D];
-  __shared__ float vs[TT * D];
+template <typename TQ, typename TKV, int D, int HPW>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_kernel(const TQ* __restrict__ q,
+                          const TKV* __restrict__ kp,
+                          const TKV* __restrict__ vp,
+                          const int32_t* __restrict__ bt,
+                          const int32_t* __restrict__ lengths, DecodeArgs a) {
+  using L = SplitTile<TKV, D>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem + L::SMEM_KV);   // [G][D]
 
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int G = H / K;
-  const int g = threadIdx.x / TPP, sub = threadIdx.x % TPP;
-  const int64_t qoff = ((int64_t)b * H + h * G + g) * D;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int hi = min(max(lengths[b], 0), a.nb * a.ps);
+  const int s_lo = split * a.split_len;
+  if (s_lo >= hi) return;               // past the row: the merge skips it
+  const int s_hi = min(s_lo + a.split_len, hi);
+  const int G = a.H / a.K;
 
-  PairState<D, TPP> st;
-  st.init();
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) st.q[i] = to_f(q[qoff + sub + TPP * i]) * scale;
+  const float qscale = q_scale(a.scale, a.cap);
+  const long long q0 = ((long long)b * a.H + kh * G) * D;
+  for (int e = threadIdx.x; e < G * D; e += kThreads)
+    qs[e] = to_f(q[q0 + e]) * qscale;
 
-  const int n = min(max(lengths[b], 0), nb * ps);
-  const int32_t* bt_row = bt + (int64_t)b * nb;
-  for (int p0 = 0; p0 < n; p0 += TT) {
-    const int nt = min(TT, n - p0);
-    __syncthreads();                     // previous tile fully consumed
-    load_page_tile<TKV, D, TT>(ks, vs, kp, vp, bt_row, ps, K, h, p0, nt);
-    __syncthreads();
-    attend_tile<D, TPP, TT>(st, ks, vs, nt, nt, sub, cap);
-  }
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) out[qoff + sub + TPP * i] = from_f<TQ>(st.out(i));
+  const PagedRows<TKV, D> rows{kp, vp, bt + (long long)b * a.nb, a.ps, a.K,
+                               kh};
+  attend_split<TKV, D, HPW>(smem, rows, s_lo, s_hi, G, a.cap,
+                            (long long)b * a.H + kh * G, a.n_split, split,
+                            a.ml, a.acc);
+}
+
+template <typename TQ, typename TKV, int D, int HPW>
+int launch_split(const DecodeArgs& a) {
+  using L = SplitTile<TKV, D>;
+  auto split = paged_decode_split_kernel<TQ, TKV, D, HPW>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(split),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_MAX);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid(a.n_split, a.K, a.B);
+  split<<<grid, kThreads, L::smem(a.H / a.K), a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
+      static_cast<const TKV*>(a.vp), a.bt, a.lengths, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TKV, int D>
 int launch(const DecodeArgs& a) {
-  dim3 grid(a.B, a.K);
-  dim3 block(32 * (a.H / a.K));
-  paged_decode_kernel<TQ, TKV, D><<<grid, block, 0, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
-      static_cast<const TKV*>(a.vp), a.bt, a.lengths, static_cast<TQ*>(a.out),
-      a.H, a.K, a.ps, a.nb, a.scale, a.cap);
+  int e = -1;
+  switch (heads_per_warp(a.H / a.K)) {
+    case 1: e = launch_split<TQ, TKV, D, 1>(a); break;
+    case 2: e = launch_split<TQ, TKV, D, 2>(a); break;
+    case 4: e = launch_split<TQ, TKV, D, 4>(a); break;
+    case 8: e = launch_split<TQ, TKV, D, 8>(a); break;
+  }
+  if (e != 0) return e;
+  split_merge_kernel<TQ, D><<<a.B * a.H, D, 0, a.stream>>>(
+      static_cast<TQ*>(a.out), a.ml, a.acc, a.lengths, a.H, a.n_split,
+      a.split_len, a.nb * a.ps, (long long)a.H * D, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -97,18 +132,28 @@ int by_head_dim(int d, const DecodeArgs& a) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; q f32 needs f32 pools.  Returns
-// cudaGetLastError() after the launch, or -1 for a configuration this file
-// was not built for.
+// dtype codes: 0 = float32, 1 = bfloat16; q f32 needs f32 pools; pools
+// 16-byte aligned.  ml / acc: f32 scratch of B * H * n_split * 2 and
+// B * H * n_split * d values; split_len a positive multiple of 32 and
+// n_split >= 1 splits of it covering the table's nb * ps positions.
+// Returns cudaGetLastError() after the launches, or -1 for a configuration
+// this file was not built for.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* block_tables, const void* lengths, void* out, int B, int H,
-    int K, int d, int ps, int nb, int q_dtype, int kv_dtype, float scale,
-    float cap, void* stream) {
+    const void* block_tables, const void* lengths, void* out, void* ml,
+    void* acc, int B, int H, int K, int d, int ps, int nb, int split_len,
+    int n_split, int q_dtype, int kv_dtype, float scale, float cap,
+    void* stream) {
+  if (K <= 0 || H % K != 0 || H / K > kMaxG || split_len <= 0 ||
+      split_len % kTile != 0 || n_split < 1 ||
+      (long long)n_split * split_len < (long long)nb * ps)
+    return -1;
   DecodeArgs a{q, k_pages, v_pages,
                static_cast<const int32_t*>(block_tables),
-               static_cast<const int32_t*>(lengths), out, B, H, K, ps, nb,
-               scale, cap, static_cast<cudaStream_t>(stream)};
+               static_cast<const int32_t*>(lengths), out,
+               static_cast<float*>(ml), static_cast<float*>(acc), B, H, K, ps,
+               nb, split_len, n_split, scale, cap,
+               static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0 && kv_dtype == 0) return by_head_dim<float, float>(d, a);
   if (q_dtype == 1 && kv_dtype == 0) return by_head_dim<__nv_bfloat16, float>(d, a);
   if (q_dtype == 1 && kv_dtype == 1)

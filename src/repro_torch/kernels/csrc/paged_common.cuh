@@ -1,7 +1,8 @@
-// Device helpers shared by the paged decode, paged prefill and slab decode
-// kernels.
+// Device helpers shared by the attention kernels: conversions, 16-byte
+// cp.async, the paged pool's row addressing, and the CUDA-core tile
+// attention of the f32 paths (paged prefill, flash).
 //
-// The kernels stream a row's KV through shared memory in tiles of TT
+// The CUDA-core paths stream a row's KV through shared memory in tiles of TT
 // positions (K and V as f32, 32 KB per tile pair whatever the head width)
 // and keep one flash-style online softmax per (query, head) pair.  A pair
 // is spread over TPP neighbouring threads of one warp: thread `sub` of the
@@ -131,20 +132,42 @@ __device__ __forceinline__ void load_page_tile(float* ks, float* vs,
   }
 }
 
-// Load positions [p0, p0 + nt) of one KV head of a slab row into the tile.
-// kb / vb point at position 0 of that (row, head); ks_t / vs_t are the
-// position strides in elements (the head dim is dense), so a [B, T, K, d]
-// ring buffer is read in place as a [B, K, T, d] view.
-template <typename TKV, int D, int TT>
-__device__ __forceinline__ void load_slab_tile(float* ks, float* vs,
-                                               const TKV* kb, const TKV* vb,
-                                               long long ks_t, long long vs_t,
-                                               int p0, int nt) {
-  for (int e = threadIdx.x; e < nt * D; e += blockDim.x) {
-    const int t = e / D, j = e % D;
-    ks[e] = to_f(kb[(p0 + t) * ks_t + j]);
-    vs[e] = to_f(vb[(p0 + t) * vs_t + j]);
-  }
+// 16-byte asynchronous copies global -> shared.  The zfill form copies
+// nothing and writes 16 zero bytes when `valid` is false (src must still be
+// a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src) : "memory");
 }
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Position p of one (row, KV head h) of a paged pool [P, ps, K, D]: the
+// contiguous row ((bt_row[p / ps] * ps + p % ps) * K + h) * D.  The caller
+// keeps p < nb * ps, so no table entry past the row is read.
+template <typename TKV, int D>
+struct PagedRows {
+  const TKV* kp;
+  const TKV* vp;
+  const int32_t* bt_row;
+  int ps, K, h;
+  __device__ __forceinline__ long long off(int p) const {
+    return (((long long)bt_row[p / ps] * ps + p % ps) * K + h) * D;
+  }
+  __device__ __forceinline__ const TKV* k(int p) const { return kp + off(p); }
+  __device__ __forceinline__ const TKV* v(int p) const { return vp + off(p); }
+};
 
 }  // namespace paged

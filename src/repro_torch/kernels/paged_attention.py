@@ -22,8 +22,16 @@ HEAD_DIMS = (64, 128)
 # (q dtype, pool dtype) pairs the library is built for
 DTYPE_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                (torch.bfloat16, torch.bfloat16)}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+# Positions per split of a row, fixed in position space so that a row's
+# summation order depends on its own length alone, never on the table
+# width nb (a bucket that changes between horizons and across a migration),
+# the batch or the card.  A multiple of the kernel's 32-position tile; of
+# 32, 64 and 128, 64 is the fastest at serving contexts of a few hundred
+# positions, while rows of thousands favour 128 (chip_smoke.py times all
+# three; PERF.md section 6).
+SPLIT = 64
 
 
 def _require(cond: bool, msg: str):
@@ -37,12 +45,17 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     pools, or bf16 q with f32 or bf16 pools); block_tables: [B, nb] int32
     (pad with the garbage page 0); lengths: [B] int32 (0 allowed =>
     zeros).  ``scale`` defaults to d**-0.5.  All on one CUDA device and
-    contiguous.  Returns [B, H, d] in q's dtype."""
+    contiguous.  Each row's positions are split every ``SPLIT`` positions
+    and the splits merged in a second launch; the grid and the scratch
+    follow from the shapes, so ``lengths`` is never read on the host.
+    Returns [B, H, d] in q's dtype."""
     tensors = (q, k_pages, v_pages, block_tables, lengths)
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
              "every tensor must be on the same CUDA device")
     _require(all(t.is_contiguous() for t in tensors),
              "every tensor must be contiguous")
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             "the pools are copied in 16-byte pieces: 16-byte aligned bases")
     _require(q.dim() == 3 and k_pages.dim() == 4
              and k_pages.shape == v_pages.shape, "bad shapes")
     B, H, d = q.shape
@@ -65,12 +78,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         return out
     if scale is None:
         scale = d ** -0.5
+    n_split = max(1, -(-nb * ps // SPLIT))
+    # per (row, head, split): (m, l) and the unnormalised accumulator
+    ml = torch.empty(B * H * n_split * 2, dtype=torch.float32,
+                     device=q.device)
+    acc = torch.empty(B * H * n_split * d, dtype=torch.float32,
+                      device=q.device)
     fn = build.c_function("paged_attention", "paged_decode_attention_launch",
                           _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, K, d, ps, nb, DTYPE_CODES[q.dtype],
-            DTYPE_CODES[k_pages.dtype], float(scale), float(cap),
+            ml.data_ptr(), acc.data_ptr(), B, H, K, d, ps, nb, SPLIT,
+            n_split, DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
+            float(scale), float(cap),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: launch failed "

@@ -35,13 +35,17 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables, offsets,
     k_pages/v_pages: [P, ps, K, d] (f32 q with f32 pools, or bf16 q with f32
     or bf16 pools); block_tables: [B, nb] int32; offsets / chunk_lens: [B]
     int32.  H a multiple of K with 1 <= H / K <= 64.  All on one CUDA
-    device and contiguous.
+    device, contiguous, with 16-byte aligned bases (the kernel copies q,
+    k/v and the pools in 16-byte pieces).  bf16 q runs on the tensor cores
+    (TF32 products against an f32 pool), f32 q on the f32 CUDA cores.
     Returns [B, C, H, d] in q's dtype."""
     tensors = (q, k, v, k_pages, v_pages, block_tables, offsets, chunk_lens)
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
              "every tensor must be on the same CUDA device")
     _require(all(t.is_contiguous() for t in tensors),
              "every tensor must be contiguous")
+    _require(all(t.data_ptr() % 16 == 0 for t in tensors[:5]),
+             "q, k/v and the pools need 16-byte aligned bases")
     _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
              and k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
              "bad shapes")

@@ -11,7 +11,10 @@ full table; chunk_len 0, full and ragged; the slab decode cases of
 a G = 5 sliding window).
 f32 at atol 2e-5; bf16 inputs at the reference's own bf16 tolerance, 1e-2
 for the paged versions and 2e-2 for flash (one bf16 rounding of the
-output).  The flash gradient is held against ``jax.grad`` of the
+output).  The split-K decodes' and the tensor-core prefill's arithmetic is
+emulated in plain PyTorch and held to the same references: the paged
+decode's fixed-length splits at 2e-5, the prefill's TF32 / bf16 roundings
+at its gate of 2e-2 or one bf16 ulp of the value.  The flash gradient is held against ``jax.grad`` of the
 reference's oracle in f32.
 The tests marked ``cuda`` hold the CUDA kernels against the plain versions
 on the card and skip elsewhere.
@@ -346,12 +349,36 @@ def split_range(lo: int, hi: int, n_split: int, split: int):
     return s_lo, min(s_lo + per, hi)
 
 
+def _attend_splits(qs, k, v, ranges, cap):
+    """One (row, head) as the split-K decode kernels compute it, in plain
+    f32 PyTorch (tests only): each range [lo, hi) of positions keeps
+    (m, l, acc) of its own in the exp2 domain (m = -inf, l = 0 when it is
+    empty); the ranges are merged in order; zeros when none holds a
+    position.  qs: [d] q with the kernels' scale folded in (times log2 e
+    unless capped); k / v: [T, d]."""
+    cap_x = (lambda x: cap * torch.tanh(x / cap) * LOG2E) if cap else \
+        (lambda x: x)
+    parts = []
+    for lo, hi in ranges:
+        if lo == hi:
+            parts.append((float("-inf"), 0.0, torch.zeros(k.shape[1])))
+            continue
+        x = cap_x(k[lo:hi].float() @ qs)
+        m = x.max()
+        p = torch.exp2(x - m)
+        parts.append((float(m), float(p.sum()), p @ v[lo:hi].float()))
+    live = [pt for pt in parts if pt[1] > 0]
+    if not live:
+        return torch.zeros(k.shape[1])
+    mx = max(m for m, _, _ in live)
+    w = [2.0 ** (m - mx) for m, _, _ in live]
+    lsum = sum(lw * wi for (_, lw, _), wi in zip(live, w))
+    return sum(a * wi for (_, _, a), wi in zip(live, w)) / lsum
+
+
 def _split_merge_decode(q, k, v, lengths, *, window, cap, scale, n_split):
-    """decode_attention as csrc/decode_attention.cu computes it, in plain
-    f32 PyTorch (tests only): each split of a row's live slots keeps
-    (m, l, acc) of its own in the exp2 domain (m = -inf, l = 0 when it has
-    no slot); the splits are merged in split order; a row with no live
-    slot is zeros."""
+    """decode_attention as csrc/decode_attention.cu computes it: each row's
+    live slots [lo, hi) split ``n_split`` ways by ``split_range``."""
     B, H, d = q.shape
     K, T = k.shape[1], k.shape[2]
     G = H // K
@@ -361,28 +388,10 @@ def _split_merge_decode(q, k, v, lengths, *, window, cap, scale, n_split):
         n = int(lengths[b])
         hi = min(max(n, 0), T)
         lo = min(max(0, n - window), hi) if window else 0
+        ranges = [split_range(lo, hi, n_split, sp) for sp in range(n_split)]
         for h in range(H):
-            kh = h // G
-            parts = []
-            for sp in range(n_split):
-                s_lo, s_hi = split_range(lo, hi, n_split, sp)
-                if s_lo == s_hi:
-                    parts.append((float("-inf"), 0.0, torch.zeros(d)))
-                    continue
-                x = k[b, kh, s_lo:s_hi].float() @ qs[b, h]
-                if cap:
-                    x = cap * torch.tanh(x / cap) * LOG2E
-                m = x.max()
-                p = torch.exp2(x - m)
-                parts.append((float(m), float(p.sum()),
-                              p @ v[b, kh, s_lo:s_hi].float()))
-            live = [pt for pt in parts if pt[1] > 0]
-            if not live:
-                continue
-            mx = max(m for m, _, _ in live)
-            w = [2.0 ** (m - mx) for m, _, _ in live]
-            lsum = sum(lw * wi for (_, lw, _), wi in zip(live, w))
-            out[b, h] = sum(a * wi for (_, _, a), wi in zip(live, w)) / lsum
+            out[b, h] = _attend_splits(qs[b, h], k[b, h // G], v[b, h // G],
+                                       ranges, cap)
     return out
 
 
@@ -441,6 +450,184 @@ def test_split_planner_is_a_function_of_the_shapes():
             cover = [p for a, b in got for p in range(a, b)]
             assert cover == list(range(lo, hi))
             assert all(a <= b for a, b in got)
+
+
+# ------------- paged decode split at fixed positions, in plain PyTorch ------ #
+def paged_split_ranges(length: int, nb: int, ps: int, split: int):
+    """Positions [s * split, (s + 1) * split) of each split s that holds a
+    live position of a row, as csrc/paged_attention.cu walks them: the
+    row's live range is [0, min(length, nb * ps)) and the boundaries are
+    fixed in position space; splits past the row exit at once and the
+    merge never reads them."""
+    hi = min(max(length, 0), nb * ps)
+    n_split = max(1, -(-nb * ps // split))
+    return [(s * split, min((s + 1) * split, hi)) for s in range(n_split)
+            if s * split < hi]
+
+
+def _paged_split_decode(q, kp, vp, bt, lengths, *, cap, scale, split):
+    """paged_decode_attention as csrc/paged_attention.cu computes it:
+    each row's pages gathered through its table, split every ``split``
+    positions, the splits merged in order."""
+    B, H, d = q.shape
+    K = kp.shape[2]
+    G = H // K
+    nb, ps = bt.shape[1], kp.shape[1]
+    k, v = ref._gather(kp, bt), ref._gather(vp, bt)        # [B, T, K, d]
+    qs = q.float() * (scale if cap else scale * LOG2E)
+    out = torch.zeros(B, H, d)
+    for b in range(B):
+        ranges = paged_split_ranges(int(lengths[b]), nb, ps, split)
+        for h in range(H):
+            out[b, h] = _attend_splits(qs[b, h], k[b, :, h // G],
+                                       v[b, :, h // G], ranges, cap)
+    return out
+
+
+@pytest.mark.parametrize("split", [32, 64, 128])
+@pytest.mark.parametrize("B,H,K,ps,nb,d,cap", DECODE_CASES)
+def test_paged_split_decode_matches_reference(B, H, K, ps, nb, d, cap,
+                                              split):
+    """The fixed-split arithmetic of the CUDA paged decode, in f32, within
+    2e-5 of the port's plain version and the reference's Pallas kernel in
+    interpret mode: an empty row, a row of one position, rows ending at a
+    page boundary and mid-page, a full table, softcap."""
+    q, kp, vp, bt, lens = _decode_inputs(max(B, 4) + 1, H, K, ps, nb, d)
+    lens[-1] = 1
+    # empty, one page, mid-page, the full table, one position
+    assert lens.tolist() == [0, ps, ps + 1, nb * ps, 1]
+    t = [torch.from_numpy(a) for a in (q, kp, vp, bt, lens)]
+    scale = d ** -0.5
+    got = _paged_split_decode(*t, cap=cap, scale=scale, split=split)
+    want = ref.paged_decode_attention_ref(*t, cap=cap, scale=scale)
+    assert _err(got, want.numpy()) <= 2e-5
+    assert float(got[0].abs().max()) == 0.0
+    pallas = pallas_decode(*(jnp.asarray(a) for a in (q, kp, vp, bt, lens)),
+                           cap=cap, scale=scale, interpret=True)
+    assert _err(got, pallas) <= 2e-5
+
+
+@pytest.mark.parametrize("split", [32, 64, 128])
+def test_paged_split_is_fixed_in_position_space(split):
+    """A row's split ranges and its emulated output do not change when the
+    table width doubles (padded with page 0, as the engine's bucket grows)
+    or when rows are added: they depend on the row's own length alone."""
+    B, H, K, ps, nb, d = 4, 8, 2, 8, 6, 64
+    q, kp, vp, bt, lens = _decode_inputs(B, H, K, ps, nb, d, seed=9)
+    lens[3] = 37                                  # mid-page, several splits
+    for n in lens:
+        assert paged_split_ranges(int(n), nb, ps, split) == \
+            paged_split_ranges(int(n), 2 * nb, ps, split)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, bt, lens)]
+    base = _paged_split_decode(*t, cap=0.0, scale=1.0, split=split)
+    rs = np.random.RandomState(3)
+    bt_x = np.concatenate([
+        np.concatenate([bt, np.zeros_like(bt)], 1),
+        rs.randint(1, kp.shape[0], size=(3, 2 * nb)).astype(np.int32)])
+    q_x = np.concatenate([q, rs.randn(3, H, d).astype(np.float32)])
+    lens_x = np.concatenate([lens, np.asarray([2 * nb * ps, 1, 29],
+                                              np.int32)])
+    tx = [torch.from_numpy(a) for a in (q_x, kp, vp, bt_x, lens_x)]
+    grown = _paged_split_decode(*tx, cap=0.0, scale=1.0, split=split)
+    assert torch.equal(grown[:B], base)
+    assert _err(grown, ref.paged_decode_attention_ref(
+        *tx, scale=1.0).numpy()) <= 2e-5
+
+
+# ------------ paged prefill on the tensor cores, in plain PyTorch ---------- #
+def tf32_round(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest with ties
+    away from zero, the 13 low mantissa bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mma_prefill(q, k, v, kp, vp, bt, offs, cls, *, cap, scale):
+    """paged_prefill_attention as the bf16-q tensor-core kernel rounds it
+    (tests only): products against an f32 pool in TF32 (K, V and P
+    rounded by ``tf32_round``), against bf16 k/v (the chunk, or a bf16
+    pool) with P rounded to bf16; f32 sums, the softmax's sum over the
+    unrounded P; the output rounded to q's dtype."""
+    B, C, H, d = q.shape
+    K = k.shape[2]
+    G = H // K
+    f32_pool = kp.dtype == torch.float32
+    pre = tf32_round if f32_pool else (lambda x: x.float())
+    k_pre, v_pre = pre(ref._gather(kp, bt)), pre(ref._gather(vp, bt))
+    T = k_pre.shape[1]
+    kk = torch.cat([k_pre, k.float()], 1)
+    vv = torch.cat([v_pre, v.float()], 1)
+    s = torch.einsum("bckgd,btkd->bkgct",
+                     q.float().reshape(B, C, K, G, d), kk) * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    ar_t, ar_c = torch.arange(T), torch.arange(C)
+    qpos = offs.long()[:, None] + ar_c[None]
+    kvpos = torch.cat([ar_t[None].expand(B, T), qpos], 1)
+    valid = torch.cat([ar_t[None] < offs.long()[:, None],
+                       ar_c[None] < cls.long()[:, None]], 1)
+    mask = valid[:, None, :] & (kvpos[:, None, :] <= qpos[:, :, None])
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -torch.inf))
+    m = s.amax(-1, keepdim=True).clamp(min=-1e30)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    p_pre = tf32_round(p[..., :T]) if f32_pool else \
+        p[..., :T].bfloat16().float()
+    pr = torch.cat([p_pre, p[..., T:].bfloat16().float()], -1)
+    o = torch.einsum("bkgct,btkd->bkgcd", pr, vv)
+    o = torch.where(l > 0, o / l.clamp(min=1e-30), torch.zeros_like(o))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, d).to(q.dtype)
+
+
+def _within_prefill_gate(got, want):
+    """The paged prefill's one gate (chip_smoke.py): 2e-2, or one bf16
+    ulp (2**-7) of |want| where that is larger."""
+    want = torch.from_numpy(np.array(want, np.float32))
+    diff = (got.float() - want).abs()
+    return bool((diff <= torch.clamp(2 ** -7 * want.abs(), min=2e-2)).all())
+
+
+@pytest.mark.parametrize("q_scale", ["model", "unscaled"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,H,K,ps,nb,d,cap", PREFILL_CASES)
+def test_mma_prefill_rounding_within_the_gate(B, C, H, K, ps, nb, d, cap,
+                                              pool, q_scale):
+    """The tensor-core prefill's roundings (TF32 against an f32 pool, bf16
+    against the chunk and a bf16 pool) keep bf16 q's output within the one
+    gate of the port's plain version and of the reference's Pallas kernel
+    in interpret mode, with scale = 1.0: q pre-scaled by d**-0.5 as the
+    engine calls it, or unscaled (scores of order sqrt(d), as
+    chip_smoke.py's cases draw them)."""
+    q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(B, C, H, K, ps, nb, d)
+    if q_scale == "model":
+        q = q * d ** -0.5
+    tq = [_th(a, "bfloat16") for a in (q, k, v)]
+    tp = [_th(a, pool) for a in (kp, vp)]
+    ti = [torch.from_numpy(a) for a in (bt, offs, cls)]
+    got = _mma_prefill(*tq, *tp, *ti, cap=cap, scale=1.0)
+    assert got.dtype == torch.bfloat16
+    assert float(got[0].float().abs().max()) == 0.0
+    want = ref.paged_prefill_attention_ref(*tq, *tp, *ti, cap=cap,
+                                           scale=1.0)
+    assert _within_prefill_gate(got, want.float().numpy())
+    pallas = pallas_prefill(*(_jx(a, "bfloat16") for a in (q, k, v)),
+                            *(_jx(a, pool) for a in (kp, vp)),
+                            *(jnp.asarray(a) for a in (bt, offs, cls)),
+                            cap=cap, scale=1.0, interpret=True)
+    assert _within_prefill_gate(got, np.asarray(pallas.astype(jnp.float32)))
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                              # TF32 keeps 10 bits
+    x = torch.tensor([one + ulp / 2, one + ulp / 4, -(one + ulp / 2),
+                      one + 3 * ulp / 4, 3.0, 0.0])
+    assert tf32_round(x).tolist() == [one + ulp, one, -(one + ulp),
+                                      one + ulp, 3.0, 0.0]
+    y = torch.randn(1000)
+    r = tf32_round(y)
+    assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((r - y).abs() / y.abs()).max()) <= 2.0 ** -11
 
 
 def _attention_views(monkeypatch, cfg, run):
@@ -541,7 +728,10 @@ def test_prefill_kernel_matches_plain_on_card(cuda, B, C, H, K, ps, nb, d,
     torch.cuda.synchronize()
     want = ref.paged_prefill_attention_ref(*args, cap=cap)
     assert not torch.isnan(got.float()).any()
-    assert _err(got, want.float().cpu()) <= TOL[qdt]
+    if qdt == "float32":
+        assert _err(got, want.float().cpu()) <= TOL[qdt]
+    else:                           # tensor cores: the one prefill gate
+        assert _within_prefill_gate(got.cpu(), want.float().cpu().numpy())
     assert float(got[0].abs().max()) == 0.0
 
 
