@@ -35,9 +35,11 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 (b=8, L=1152, H=50, P=64, N=16, strided slices of one conv
                 output, dt = 0 past each row's length), at Mamba2-130m's
                 geometry in f32 and bf16 and at its served prefill (the
-                same 8 ragged rows, H=24, N=128, f32); max error against
-                the stated tolerance, kernel / plain / library times (CUDA
-                events, L2 flushed before each launch) and the bound;
+                same 8 ragged rows, H=24, N=128, f32), each launched
+                twice (bit-identical); max error against the stated
+                tolerance, kernel / plain / library times (CUDA events, L2
+                flushed before each launch) and the bound (the scan's at
+                the 3xTF32 rate, beside its f32 CUDA-core figure);
   3. engine   — ``qwen3-8b`` at full width (random weights from a seeded
                 generator) served through ``InferenceEngine``: 2 GRPO groups
                 of 4 plus 2 single requests, ~300-token prompts,
@@ -96,7 +98,12 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 tokens with zero prefill; then ``mamba2-130m`` at full
                 width through the same mix, H=8 equal to H=1, and its
                 prefill's and decode step's logits against the plain
-                versions;
+                versions; for both, one prefill dispatch under
+                torch.profiler (``[profile] <arch> prefill``: wall and
+                device busy time, the scan's kernels and their share, the
+                top five rows); for Mamba2, the plain prefill again with
+                its scan's y moved by SCAN_PERTURBATION of max |y|, its
+                logits gap logged beside the kernels' (not a gate);
   8. serve14b — ``qwen3-14b`` at full width (48 layers, 48 / 8 heads: G =
                 6, random weights from a seeded generator, ~36 GB in bf16):
                 one GRPO group of 4 and two single requests on ~300-token
@@ -234,6 +241,10 @@ SSD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 # 1024-token window in prefill, 1000 + 64 crosses it in decode)
 HYBRID_PROMPT_LENS = SSD_HYMBA_LENS
 HYBRID_SLAB = 1024
+# phase 7: the plain Mamba2 prefill again with its scan's y moved by this
+# share of max |y| (the order of the kernel's error against the plain
+# scan), to see how far such a change moves the logits
+SCAN_PERTURBATION = 3e-6
 # phase 8: qwen3-14b (G = 6) at full width: one GRPO group of 4 on the
 # first prompt, single requests on the others
 SERVE14B_PROMPT_LENS = (300, 310, 290)
@@ -832,74 +843,119 @@ def ssd_rel(torch, got, want, tol: float, what: str) -> float:
 
 def ssd_bound(b, L, H, G, P, N, chunk):
     """Least time of one scan: its bytes (x and y, dt, B and C, A, the final
-    state, f32) against the chunked form's products per (row, head, chunk
-    of c): C B^T on and below the diagonal, its weighted sum over x, the
-    carried state's C state^T and the state update, on the f32 CUDA
-    cores.  Returns (ms, bound_by, bytes, flops)."""
+    state, f32; the kernel's scratch is not counted) against the chunked
+    form's products per (row, head, chunk of c): C B^T on and below the
+    diagonal, its weighted sum over x, the carried state's C state^T and
+    the state update.  The kernel runs each product as three TF32 products
+    (the 3xTF32 split), charged at the TF32 tensor-core peak; the earlier
+    single-pass kernel ran them once on the f32 CUDA cores, the old
+    figure.  Returns dict(ms, by, bytes, flops, f32_ms, f32_by)."""
     nbytes = 4 * (2 * b * L * H * P + b * L * H + 2 * b * L * G * N + H
                   + b * H * P * N)
     c, n_chunks = chunk, -(-L // chunk)
     tri = c * (c + 1) // 2
     flops = b * H * n_chunks * (2 * tri * N + 2 * tri * P + 4 * c * P * N)
-    return (*bound(nbytes, [(flops, F32_FLOP_PER_S)]), nbytes, flops)
+    ms, by = bound(nbytes, [(3 * flops, TF32_FLOP_PER_S)])
+    f32_ms, f32_by = bound(nbytes, [(flops, F32_FLOP_PER_S)])
+    return dict(ms=ms, by=by, bytes=nbytes, flops=flops, f32_ms=f32_ms,
+                f32_by=f32_by)
+
+
+def ssd_passes(torch, fn, n: int = 5):
+    """Device ms of each of the scan's kernels, one call of ``fn`` (the
+    mean of ``n`` calls under torch.profiler, L2 flushed before each)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ms, _, name in device_rows(prof):
+        m = re.search(r"ssd_\w+_kernel", name)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + ms / n
+    return out
+
+
+def ssd_served(torch, g, ref, kern, shape, what: str):
+    """``ssd_scan`` at a served prefill geometry (f32 strided slices, the
+    8 ragged rows of SSD_HYMBA_LENS): within SSD_TOL of the plain version
+    on y and state, a second launch bit-identical to the first, and
+    timed, with each of its kernels timed apart.  Returns (inputs, max rel
+    err, max abs err, kernel ms, bound with the kernels' ms under
+    "passes")."""
+    b, L, H, G, P, N, chunk = shape
+    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32,
+                      SSD_HYMBA_LENS)
+    y, st = kern(*args, chunk=chunk)
+    y2, st2 = kern(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(st, st2)):
+        fail(f"ssd_scan {what}: a second launch is not bit-identical")
+    yr, sr = ref.ssd_scan_ref(*args)
+    rel = max(ssd_rel(torch, y, yr, SSD_TOL["float32"], f"ssd_scan {what} y"),
+              ssd_rel(torch, st, sr, SSD_TOL["float32"],
+                      f"ssd_scan {what} state"))
+    err = max(float((y - yr).abs().max()), float((st - sr).abs().max()))
+    del y, st, y2, st2, yr, sr
+    ms = time_ms(lambda: kern(*args, chunk=chunk), torch)
+    passes = ssd_passes(torch, lambda: kern(*args, chunk=chunk))
+    bd = ssd_bound(b, L, H, G, P, N, chunk)
+    log(f"[kernels] ssd_scan {what} b={b} L={L} H={H} G={G} P={P} N={N} "
+        f"chunk={chunk} (f32 strided slices, lens={list(SSD_HYMBA_LENS)}): "
+        f"max rel err {rel:.3e} (y and state; tol {SSD_TOL['float32']}), "
+        f"max_abs_err={err:.3e}, second launch bit-identical; kernel "
+        f"{ms:.4f} ms, bound {bd['ms']:.4f} ms ({bd['by']}; 3xTF32 at "
+        f"the TF32 peak; f32 CUDA cores: {bd['f32_ms']:.4f} ms, "
+        f"{bd['f32_by']}; {bd['bytes']} B, {bd['flops']} flop); library: "
+        f"none: no one PyTorch call computes the scan")
+    log(f"[kernels] ssd_scan {what} passes (torch.profiler, mean of 5 "
+        f"calls, L2 flushed): " + (", ".join(
+            f"{k} {v:.4f} ms" for k, v in passes.items()) or "not measured "
+            "(the profiler reported no CUDA kernels)"))
+    bd["passes"] = passes
+    return args, rel, err, ms, bd
 
 
 def check_ssd(torch, ref, kern):
     """``ssd_scan`` against the sequential recurrence at Mamba2-130m's
-    geometry (f32 and bf16), at its served prefill (f32) and at Hymba's
-    prefill (f32, timed)."""
+    geometry (f32 and bf16, each launched twice: bit-identical), at its
+    served prefill (f32, timed) and at Hymba's prefill (f32, timed against
+    the plain version too).  Returns the summary row (Hymba's) and both
+    served geometries' numbers."""
     g = torch.Generator(device="cuda").manual_seed(6)
     b, L, H, G, P, N, chunk = SSD_MAMBA2
     for name, dt in (("float32", torch.float32),
                      ("bfloat16", torch.bfloat16)):
         args = ssd_inputs(torch, g, b, L, H, G, P, N, dt)
         y, st = kern(*args, chunk=chunk)
+        y2, st2 = kern(*args, chunk=chunk)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            fail(f"ssd_scan mamba2-130m {name}: a second launch is not "
+                 f"bit-identical")
         yr, sr = ref.ssd_scan_ref(*args)
         for got, want, what in ((y, yr, "y"), (st, sr, "state")):
             ssd_rel(torch, got, want, SSD_TOL[name],
                     f"ssd_scan mamba2-130m {name} {what}")
-    b, L, H, G, P, N, chunk = SSD_MAMBA2_SERVE
-    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32,
-                      SSD_HYMBA_LENS)
-    y, st = kern(*args, chunk=chunk)
-    torch.cuda.synchronize()
-    yr, sr = ref.ssd_scan_ref(*args)
-    rel_m = max(ssd_rel(torch, y, yr, SSD_TOL["float32"],
-                        "ssd_scan mamba2-130m served y"),
-                ssd_rel(torch, st, sr, SSD_TOL["float32"],
-                        "ssd_scan mamba2-130m served state"))
-    ms_m = time_ms(lambda: kern(*args, chunk=chunk), torch)
-    bm_ms, bm_by, bm_bytes, bm_flops = ssd_bound(b, L, H, G, P, N, chunk)
-    log(f"[kernels] ssd_scan mamba2-130m served b={b} L={L} H={H} G={G} "
-        f"P={P} N={N} chunk={chunk} (f32 strided slices, "
-        f"lens={list(SSD_HYMBA_LENS)}): max rel err {rel_m:.3e} (y and "
-        f"state; tol {SSD_TOL['float32']}); kernel {ms_m:.4f} ms, bound "
-        f"{bm_ms:.4f} ms ({bm_by}: {bm_bytes} B, {bm_flops} flop)")
-    del args, y, st, yr, sr
-    b, L, H, G, P, N, chunk = SSD_HYMBA
-    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32,
-                      SSD_HYMBA_LENS)
-    y, st = kern(*args, chunk=chunk)
-    torch.cuda.synchronize()
-    yr, sr = ref.ssd_scan_ref(*args)
-    rel = max(ssd_rel(torch, y, yr, SSD_TOL["float32"], "ssd_scan hymba y"),
-              ssd_rel(torch, st, sr, SSD_TOL["float32"],
-                      "ssd_scan hymba state"))
-    err = max(float((y - yr).abs().max()), float((st - sr).abs().max()))
-    ms = time_ms(lambda: kern(*args, chunk=chunk), torch)
+    args, rel_m, _, ms_m, bd_m = ssd_served(
+        torch, g, ref, kern, SSD_MAMBA2_SERVE, "mamba2-130m served")
+    del args
+    args, rel, err, ms, bd = ssd_served(torch, g, ref, kern, SSD_HYMBA,
+                                        "hymba")
     plain_ms = time_ms(lambda: ref.ssd_scan_ref(*args), torch, iters=3,
                        warmup=1)
-    b_ms, b_by, nbytes, flops = ssd_bound(b, L, H, G, P, N, chunk)
-    log(f"[kernels] ssd_scan b={b} L={L} H={H} G={G} P={P} N={N} "
-        f"chunk={chunk} (f32 strided slices, lens={list(SSD_HYMBA_LENS)}): "
-        f"max rel err {rel:.3e} (y and state; tol {SSD_TOL['float32']}), "
-        f"max_abs_err={err:.3e}; mamba2-130m geometry f32 and bf16 within "
-        f"{SSD_TOL['float32']} / {SSD_TOL['bfloat16']}; kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, library n/a, bound {b_ms:.4f} ms "
-        f"({b_by}: {nbytes} B, {flops} flop)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    log(f"[kernels] ssd_scan hymba: plain {plain_ms:.4f} ms; mamba2-130m "
+        f"geometry f32 and bf16 within {SSD_TOL['float32']} / "
+        f"{SSD_TOL['bfloat16']}, bit-identical on a second launch")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bd["ms"], bound_by=bd["by"], library_ms=None)
+    return row, dict(hymba=dict(ms=ms, rel_err=rel, bound=bd),
+                     mamba2_served=dict(ms=ms_m, rel_err=rel_m, bound=bd_m))
 
 
 # --------------------------------------------------------------------------- #
@@ -1742,6 +1798,93 @@ def serve_hybrid(torch, InferenceEngine, cfg, params, prompts, *, horizon,
     return eng, out, wall, launches
 
 
+def profile_prefill(torch, cfg, eng, prompts):
+    """Where one prefill dispatch's time goes: torch.profiler over the
+    ``step()`` of a fresh engine that prefills the whole mix in one
+    dispatch (untimed, like the train profile): wall and device busy time,
+    the ``ssd_scan`` kernels' device time and share, the top five rows."""
+    from torch.profiler import ProfilerActivity, profile
+    admit_singles(eng, prompts)
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = check_launches(cfg, eng, f"{cfg.name} profiled prefill",
+                              eng.n_decode_dispatches,
+                              eng.n_prefill_dispatches)
+    if eng.n_prefill_dispatches != 1 or eng.n_decode_dispatches:
+        fail(f"{cfg.name} profiled prefill: {eng.n_prefill_dispatches} "
+             f"prefill and {eng.n_decode_dispatches} decode dispatches")
+    tag = f"[profile] {cfg.name} prefill"
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        log(f"{tag}: wall {wall_ms:.2f} ms; device time not measured (the "
+            f"profiler reported no CUDA kernels)")
+        return None
+    scan = [r for r in rows if "ssd_" in r[2]]
+    scan_ms, scan_n = sum(r[0] for r in scan), sum(r[1] for r in scan)
+    log(f"{tag} (one dispatch of {eng.n_prefill_tokens} tokens in "
+        f"{len(prompts)} rows, profiler on, not timed elsewhere): wall "
+        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; ssd_scan kernels {scan_ms:.3f} ms "
+        f"in {scan_n} kernels ({launches['ssd_scan']} launches), "
+        f"{scan_ms / busy_ms:.3f} of device busy")
+    top = sorted(rows, reverse=True)[:5]
+    for ms, count, name in top:
+        log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1 - busy_ms / wall_ms, ssd_ms=scan_ms,
+                ssd_kernels=scan_n, ssd_share=scan_ms / busy_ms,
+                top=[dict(ms=ms, count=c, name=n) for ms, c, n in top])
+
+
+@contextlib.contextmanager
+def perturbed_scan(torch, ops, ref, rel: float, seed: int):
+    """Route the model's SSD scan through the plain version with its y
+    moved by ``rel`` x max |y| in a seeded sign pattern (a yardstick for
+    this script only)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    saved = ops.ssd
+
+    def ssd(x, dt, A, B, C, **opts):
+        y, st = ref.ssd_scan_ref(x, dt, A, B, C, **opts)
+        sign = torch.randint(0, 2, y.shape, generator=g, device=y.device,
+                             dtype=torch.int8).float() * 2 - 1
+        return y + rel * y.abs().max() * sign, st
+
+    ops.ssd = ssd
+    try:
+        yield
+    finally:
+        ops.ssd = saved
+
+
+def scan_perturbation(torch, cfg, params, prompt, ops, ref, plain,
+                      kernel_gap: float):
+    """How far a last-bit-sized change of the scan's output moves the
+    plain prefill's logits: the plain path again, its scan's y perturbed by
+    SCAN_PERTURBATION of max |y|, against the unperturbed plain logits,
+    logged beside the kernel-vs-plain gap.  A measurement, not a gate."""
+    with plain_attention(ops, ref), perturbed_scan(
+            torch, ops, ref, SCAN_PERTURBATION, seed=3):
+        moved, _, _ = hybrid_logits(torch, cfg, params, prompt, ops, ref)
+    if not torch.isfinite(moved).all():
+        fail(f"{cfg.name}: perturbed plain logits are not finite")
+    gap = float((moved - plain).abs().max()) / float(plain.abs().max())
+    log(f"[hybrid] {cfg.name} scan perturbation: the plain prefill with "
+        f"the scan's y moved by {SCAN_PERTURBATION} x max |y| (seeded "
+        f"signs, every layer) differs from the plain prefill by {gap:.3e} "
+        f"of max |logit|; the kernels' prefill differs from it by "
+        f"{kernel_gap:.3e} (ratio {kernel_gap / max(gap, 1e-30):.2f})")
+    return dict(perturbation=SCAN_PERTURBATION, perturbed_gap=gap,
+                kernel_gap=kernel_gap)
+
+
 def hybrid_logits(torch, cfg, params, prompt, ops, ref):
     """Last-position logits of ``prompt`` prefilled whole into a fresh
     one-slot cache, and of one decode step after it with the kernels and
@@ -1907,6 +2050,10 @@ def hybrid_phase(torch, InferenceEngine, clock, ops, ref):
             f"dispatches)")
         del eng1
         torch.cuda.empty_cache()
+        row["prefill_profile"] = profile_prefill(
+            torch, cfg, make_hybrid_engine(InferenceEngine, cfg, params),
+            prompts)
+        torch.cuda.empty_cache()
         row["profile"] = profile_decode(
             torch, cfg, make_hybrid_engine(InferenceEngine, cfg, params),
             prompts, len(prompts), f"{cfg.name}, H=8, {len(prompts)} rows, "
@@ -1918,8 +2065,11 @@ def hybrid_phase(torch, InferenceEngine, clock, ops, ref):
         with plain_attention(ops, ref):
             plain, _, _ = hybrid_logits(torch, cfg, params, prompts[-1],
                                         ops, ref)
-        compare_logits(torch, cfg, f"{cfg.name} prefill "
-                       f"({len(prompts[-1])} tokens)", got, plain)
+        gap = compare_logits(torch, cfg, f"{cfg.name} prefill "
+                             f"({len(prompts[-1])} tokens)", got, plain)
+        if arch == "mamba2-130m":
+            row["scan_perturbation"] = scan_perturbation(
+                torch, cfg, params, prompts[-1], ops, ref, plain, gap)
         compare_logits(torch, cfg, f"{cfg.name} decode step", step,
                        step_plain)
         if arch == "hymba-1.5b":
@@ -2100,7 +2250,7 @@ def main():
     deq = check_dequant(torch, ref, fused_dequant)
     fla, fla_cases = check_flash(torch, F, ref, flash_attention)
     slab = check_slab_decode(torch, F, ref, decode_attention)
-    ssd = check_ssd(torch, ref, ssd_scan)
+    ssd, ssd_served_rows = check_ssd(torch, ref, ssd_scan)
 
     # ---- 3. the engine at full width ----
     cfg = get_config("qwen3-8b")
@@ -2231,7 +2381,7 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"kernels": rows, "installs": installs, "flash_cases": fla_cases,
          "decode_cases": dec_cases, "prefill_cases": pre_cases,
-         "train": train, "hybrid": hybrid,
+         "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
          "serve14b": serve14b,
          "nvidia_smi": smi.stdout.strip()}, indent=1))
     print(json.dumps({"kernels": rows}))

@@ -14,204 +14,666 @@
 // Head h reads SSD group h // (H / G).  The serving model calls it in every
 // mamba / hybrid layer of every prefill.
 //
-// What bounds it on this card: near the balance point.  It reads x, dt,
-// B and C once and writes y and the final state once, ~8 bytes per x
-// element in f32, and does about 2 * (c * N / 2 + c * P / 2 + 2 * P * N)
-// f32 flops per position and head (c the chunk): ~9 k flops per 512
-// bytes at Hymba's P = 64, N = 16 with c = 64 (18 flops a byte, against
-// the f32 CUDA cores' 67 TFLOP/s over 3.35 TB/s = 20), ~44 k at
-// Mamba2-130m's N = 128 (operations).
+// What bounds it on this card.  The least time is the larger of its bytes
+// (x, dt, B and C read once, y and the final state written once: ~8 bytes
+// per x element in f32) and its products (2 (c N / 2 + c P / 2 + 2 P N)
+// flops per position and head in the chunked form, each run as three TF32
+// products for f32 accuracy, below) at 495 TFLOP/s: the products at
+// Mamba2-130m's served prefill (b = 8, L = 1152, H = 24, P = 64, N = 128,
+// c = 64; 0.061 ms against 0.039 ms of bytes), the bytes at Hymba's (H =
+// 50, N = 16; 0.072 ms against 0.026 ms).  What holds it above that
+// (NVIDIA H100, chip_smoke.py and builds of this file with parts removed):
+// the chunk states below, b H (L / c) P N f32 of scratch written, read and
+// rewritten, and read again (~0.45 GB at Mamba2's served prefill; pass (b)
+// alone is a fifth of the scan there); x read by passes (a) and (c); and
+// mma.sync's TF32 rate, which the 3xTF32 split triples.
 //
-// Design: the Pallas kernel carries the [P, N] state in VMEM scratch
-// across a sequential grid axis over chunks; here one CTA per (row, head)
-// walks its chunks in order with the state in shared memory (P x N f32:
-// 4 KB at Hymba's P = 64, N = 16, 32 KB at Mamba2-130m's N = 128).  Per
-// chunk it stages x, dt, B and C (read through strides, so the model's
-// slices of the conv output need no copy), scans cum with one warp,
-// builds the decay-weighted scores L[s, t] from exp(cum[s] - cum[t])
-// (never exp(cum[s]) * exp(-cum[t]), which overflows once cum runs far
-// negative), then computes y and updates the state on f32 CUDA cores.
-// Shared rows of B, C and the state are padded by one word, so a warp's
-// column reads hit 32 banks.  Positions past L (the ragged last chunk)
-// load as dt = x = B = C = 0 and write nothing; dt = 0 leaves the state
-// exactly as it was, so right-padded prefill rows carry their state
-// through the padding.  Simple first: no tensor cores, no overlap of the
-// next chunk's loads with this chunk's products.
+// What the design does (the single-pass kernel before it walked each
+// (row, head)'s chunks in series in one CTA, on the f32 CUDA cores):
+//  1. Three chunk-parallel passes on the caller's stream, so the grid is
+//     (row, head, chunk) and not (row, head): 3,456 tiles at Mamba2's
+//     served prefill instead of 192 serial walks, 7,200 at Hymba's.
+//     (a) ssd_chunk_states_kernel: per chunk, cum (each warp scans the 64
+//         positions in registers, two a lane, so no barrier), exp(cum_last)
+//         into `decay`, and the chunk's own contribution
+//         sum_t exp(cum_last - cum[t]) dt[t] x[t] outer B[t], [P, N], into
+//         `work`; 4 warps, one 16-row tile of P each.
+//     (b) ssd_state_passing_kernel: elementwise over (row, head, 4 floats
+//         of [P, N]), in chunk order, the only serial part:
+//         S_in[k] = decay[k-1] S_in[k-1] + contribution[k-1], written over
+//         the contribution in place (S_in[0] = 0 is never stored or read),
+//         and the final state; eight chunks' loads in flight a thread.
+//     (c) ssd_chunk_outputs_kernel: per chunk, y = (L o C B^T)(dt x) +
+//         (exp(cum) C) S_in^T, with L[s, t] = exp(cum[s] - cum[t]) for t <=
+//         s (never exp(cum[s]) exp(-cum[t]), which overflows once cum runs
+//         far negative).  8 warps: the 20 causal score tiles split 3 / 2 a
+//         warp, W = L o C B^T through shared memory, and the y products
+//         split evenly by pairing row tiles {0, 3} and {1, 2} (the causal
+//         work of row tile i grows with i).
+//     The summation order is fixed (no atomics, no order set by the
+//     scheduler), so repeated launches are bit-identical.  (b) is not fused
+//     into (a) or (c): either would make a CTA wait on its predecessor.
+//  2. The four products (C B^T, its masked weighted sum over x, (x w)^T B
+//     and C S_in^T) run on mma.sync.m16n8k8 TF32 in the 3xTF32 split: each
+//     f32 operand a is big + small, big = tf32(a), small = tf32(a - big),
+//     and a b ~ small b_big + big b_small + big b_big in f32 (the small x
+//     small term, ~2^-22 relative, is dropped).  Plain TF32 (~2^-11) would
+//     miss the 2e-5 relative gate.  Rounding is round to nearest, ties away
+//     from zero (cvt.rna's), done with two integer operations.  The three
+//     mma.sync of a product go phase by phase over a warp's independent
+//     accumulators, not back to back into one.  bf16 inputs widen exactly
+//     to f32 and take the same path.  The fragment layouts are
+//     paged_prefill.cu's: where a product's A operand is the C fragment of
+//     the one before or a transposed tile (x^T), the contraction index is
+//     permuted (A column t is position 2t, t + 4 is 2t + 1), so a lane's C
+//     pair is its A pair and B reads rows 2t and 2t + 1.  Tile rows are
+//     padded to 4 mod 8 words (W's to 8 mod 32, read as float2), which
+//     keeps every fragment read free of bank conflicts.
+//  3. x, B and C tiles arrive by 16-byte cp.async where the base and
+//     strides allow (f32), by 16-byte loads widened in registers (bf16),
+//     else one element a thread: one kernel, three load paths chosen from
+//     the strides.  In (c) the entering state is copied into B's buffer
+//     once the scores are done, in flight while W x is computed.  A CTA of
+//     pass (c) holds 104 KB at N = 128 (B and the state share a buffer),
+//     so two fit an SM and their loads overlap each other's products; 46
+//     KB at N = 16.
+// Measured on the card and not kept, each slower or no faster: persistent
+// CTAs on a two-stage cp.async ring, launches over blocks of rows sized to
+// L2, 4-warp CTAs for pass (c) (faster at N = 16 only).  Not done: C B^T
+// shared across the heads of a group; the state passing fused into pass
+// (a), which would chain each (row, head)'s CTAs one after another.
+//
+// Tiles are 64 positions by a head dim of 64, so chunk <= 64 and P <= 64
+// (the served families have chunk 64 and P = 64); a shorter chunk or head
+// dim pads its tile with positions of dt = 0 and columns of zeros, which
+// add exact zeros.  Positions past L load as dt = x = B = C = 0 and write
+// nothing; dt = 0 leaves the state exactly as it was, so right-padded
+// prefill rows carry their state through the padding.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using paged::cp_async16_zfill;
+using paged::cp_async_commit;
+using paged::cp_async_wait;
+using paged::to_f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kCH = 64;              // positions per chunk tile
+constexpr int kPP = 64;              // head-dim (P) tile
+constexpr int kThreads = 128;       // pass (a): 4 warps
+constexpr int kOutThreads = 256;    // pass (c): 8 warps
+constexpr int kLDX = kPP + 4;        // x tile row stride, 4 mod 8 words
+constexpr int kLDW = kCH + 8;        // W tile row stride, 8 mod 32 words
+constexpr int kPassThreads = 256;
+static_assert(kCH == kPP, "stage() copies kCH rows, also for the state");
+static_assert(kCH == 64, "pass (c)'s warp tables assume 4 row tiles");
 
 struct SsdArgs {
-  int b, L, H, G, P, N, chunk;
+  int b, L, H, G, P, N, NP, chunk, nc;   // NP: N rounded up to 8
   // element strides (batch, position, head / group); the last dim is dense
   long long x_sb, x_sl, x_sh;
   long long dt_sb, dt_sl, dt_sh;
   long long B_sb, B_sl, B_sg;
   long long C_sb, C_sl, C_sg;
+  bool vec_x, vec_b, vec_c;              // 16-byte loads allowed
 };
 
-__host__ __device__ inline int smem_floats(int c, int P, int N) {
-  const int NS = N + 1;
-  return c * P + 2 * c * NS + P * NS + c * c + 3 * c;
+// row stride (floats) of an [rows][NP] tile: 4 mod 8 words
+__host__ __device__ inline int ld_n(int NP) { return NP + 4; }
+
+__host__ __device__ inline int states_smem_floats(int NP) {
+  return kCH * kLDX + kCH * ld_n(NP) + kCH;
+}
+__host__ __device__ inline int outputs_smem_floats(int NP) {
+  return 2 * kCH * ld_n(NP) + kCH * kLDX + kCH * kLDW + kCH;
+}
+
+// ----------------------------- 3xTF32 products ---------------------------- //
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds, in f32 format
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));   // x - big is exact
+}
+
+struct AFrag {
+  uint32_t big[4], small[4];
+};
+
+__device__ __forceinline__ AFrag split4(float a0, float a1, float a2,
+                                        float a3) {
+  AFrag f;
+  split(a0, f.big[0], f.small[0]);
+  split(a1, f.big[1], f.small[1]);
+  split(a2, f.big[2], f.small[2]);
+  split(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32) B (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 3xTF32 products of R row tiles (A fragments a[r]) against NB column
+// tiles (B fragments split into bb / bs), phase by phase: the small x big
+// terms of every tile, then big x small, then big x big, so consecutive
+// mma.sync feed different accumulators.
+// Row tile r takes part where r >= r0; column tile n where n < live.
+template <int R, int NB>
+__device__ __forceinline__ void mma3_tiles(float (&acc)[R][NB][4],
+                                           const AFrag (&a)[R],
+                                           const uint32_t (&bb)[NB][2],
+                                           const uint32_t (&bs)[NB][2],
+                                           int r0 = 0, int live = NB) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      if (r >= r0 && n < live)
+        mma_tf32(acc[r][n], a[r].small, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      if (r >= r0 && n < live)
+        mma_tf32(acc[r][n], a[r].big, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      if (r >= r0 && n < live)
+        mma_tf32(acc[r][n], a[r].big, bb[n][0], bb[n][1]);
+}
+
+// --------------------------------- loads ---------------------------------- //
+// Rows [0, kCH) x columns [0, wpad) of a tile with row stride ld: row r <
+// live holds src[r * rs + c] for c < width, everything else is zero.  With
+// `vec` (base and strides 16-byte aligned, width a multiple of the vector)
+// 16 bytes a thread: cp.async for f32 (the caller commits and waits), a
+// register load widened to f32 for bf16; else one element a thread.
+template <int NT, typename T>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+                                      long long rs, int live, int width,
+                                      int wpad, bool vec) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int per_row = wpad / V;
+    for (int e = threadIdx.x; e < kCH * per_row; e += NT) {
+      const int r = e / per_row, c = (e % per_row) * V;
+      const bool ok = r < live && c < width;
+      const T* s = src + (ok ? r * rs + c : 0);
+      float* d = dst + r * ld + c;
+      if constexpr (sizeof(T) == 4) {
+        cp_async16_zfill(d, s, ok);
+      } else {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) u = __ldg(reinterpret_cast<const uint4*>(s));
+        // bf16 element 2i is the low half of word i, 2i + 1 the high half
+        reinterpret_cast<float4*>(d)[0] = make_float4(
+            __uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+            __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+        reinterpret_cast<float4*>(d)[1] = make_float4(
+            __uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
+            __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < kCH * wpad; e += NT) {
+      const int r = e / wpad, c = e % wpad;
+      dst[r * ld + c] = r < live && c < width ? to_f(src[r * rs + c]) : 0.f;
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, float* __restrict__ y,
-                float* __restrict__ state_out, SsdArgs a) {
-  extern __shared__ float smem[];
-  const int c = a.chunk, P = a.P, N = a.N, NS = N + 1;
-  float* xs = smem;               // [c][P]
-  float* bs = xs + c * P;         // [c][NS]
-  float* cs = bs + c * NS;        // [c][NS]
-  float* S = cs + c * NS;         // [P][NS], the carried state
-  float* Lw = S + P * NS;         // [c][c]
-  float* dts = Lw + c * c;        // [c]
-  float* cum = dts + c;           // [c]
-  float* w = cum + c;             // [c]
+__device__ __forceinline__ void stage_dt(float* dts, const T* dt,
+                                         long long rs, int live) {
+  const int t = threadIdx.x;
+  if (t < kCH) dts[t] = t < live ? to_f(dt[t * rs]) : 0.f;
+}
 
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int h = blockIdx.x, bi = blockIdx.y;
-  const int g = h / (a.H / a.G);
-  const float Ah = A[h];
-  for (int e = tid; e < P * NS; e += kThreads) S[e] = 0.f;
-
-  const T* xb = x + bi * a.x_sb + h * a.x_sh;
-  const T* dtb = dt + bi * a.dt_sb + h * a.dt_sh;
-  const T* Bb = Bm + bi * a.B_sb + g * a.B_sg;
-  const T* Cb = Cm + bi * a.C_sb + g * a.C_sg;
-  const long long row_stride = (long long)a.H * P;     // y: [b, L, H, P]
-  float* yb = y + (long long)bi * a.L * row_stride + (long long)h * P;
-
-  for (int l0 = 0; l0 < a.L; l0 += c) {
-    const int nt = min(c, a.L - l0);
-    __syncthreads();                    // the last chunk's reads are done
-    for (int e = tid; e < c * P; e += kThreads) {
-      const int t = e / P, p = e % P;
-      xs[e] = t < nt ? to_f(xb[(long long)(l0 + t) * a.x_sl + p]) : 0.f;
-    }
-    for (int e = tid; e < c * N; e += kThreads) {
-      const int t = e / N, n = e % N;
-      const bool live = t < nt;
-      bs[t * NS + n] = live ? to_f(Bb[(long long)(l0 + t) * a.B_sl + n]) : 0.f;
-      cs[t * NS + n] = live ? to_f(Cb[(long long)(l0 + t) * a.C_sl + n]) : 0.f;
-    }
-    for (int t = tid; t < c; t += kThreads)
-      dts[t] = t < nt ? to_f(dtb[(long long)(l0 + t) * a.dt_sl]) : 0.f;
-    __syncthreads();
-
-    if (tid < 32) {                     // cum: inclusive scan of dt * A
-      float carry = 0.f;
-      for (int base = 0; base < c; base += 32) {
-        const int t = base + lane;
-        float v = t < c ? dts[t] * Ah : 0.f;
+// The inclusive cumulative sum of dt * A over the tile, in registers: lane
+// l holds positions 2l (c0) and 2l + 1 (c1).  Every warp computes the same
+// values in the same order, so no warp waits on another.
+__device__ __forceinline__ void chunk_cum(const float* dts, float Ah,
+                                          float& c0, float& c1) {
+  const int lane = threadIdx.x % 32;
+  const float2 d = reinterpret_cast<const float2*>(dts)[lane];
+  const float d0 = d.x * Ah, d1 = d.y * Ah;
+  float v = d0 + d1;
 #pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float u = __shfl_up_sync(0xffffffffu, v, o);
-          if (lane >= o) v += u;
-        }
-        v += carry;
-        if (t < c) cum[t] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
-    }
-    __syncthreads();
-
-    const float cum_last = cum[c - 1];
-    for (int e = tid; e < c * c; e += kThreads) {
-      const int s = e / c, t = e % c;
-      float val = 0.f;
-      if (t <= s) {
-        float dot = 0.f;
-        for (int n = 0; n < N; ++n) dot += cs[s * NS + n] * bs[t * NS + n];
-        val = dot * expf(cum[s] - cum[t]) * dts[t];
-      }
-      Lw[e] = val;
-    }
-    for (int t = tid; t < c; t += kThreads)
-      w[t] = expf(cum_last - cum[t]) * dts[t];
-    __syncthreads();
-
-    for (int e = tid; e < c * P; e += kThreads) {
-      const int s = e / P, p = e % P;
-      if (s >= nt) continue;
-      float acc = 0.f;
-      for (int t = 0; t <= s; ++t) acc += Lw[s * c + t] * xs[t * P + p];
-      float off = 0.f;
-      for (int n = 0; n < N; ++n) off += cs[s * NS + n] * S[p * NS + n];
-      yb[(long long)(l0 + s) * row_stride + p] = acc + expf(cum[s]) * off;
-    }
-    __syncthreads();                    // y read the state before the update
-
-    const float decay = expf(cum_last);
-    for (int e = tid; e < P * N; e += kThreads) {
-      const int p = e / N, n = e % N;
-      float acc = 0.f;
-      for (int t = 0; t < nt; ++t) acc += w[t] * xs[t * P + p] * bs[t * NS + n];
-      S[p * NS + n] = S[p * NS + n] * decay + acc;
-    }
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
   }
+  float ex = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) ex = 0.f;
+  c0 = ex + d0;
+  c1 = c0 + d1;
+}
+
+// cum at position s, from chunk_cum's registers (every lane must call it)
+__device__ __forceinline__ float cum_at(float c0, float c1, int s) {
+  const float u0 = __shfl_sync(0xffffffffu, c0, s / 2);
+  const float u1 = __shfl_sync(0xffffffffu, c1, s / 2);
+  return (s & 1) ? u1 : u0;
+}
+
+// ------------------------- (a) the chunks' states ------------------------- //
+// One CTA per (chunk, head, row).  Warp w computes rows p in [16w, 16w + 16)
+// of the chunk's contribution, [kPP, NP] (rows >= P and columns >= N are
+// exact zeros), NB column tiles at a time, and writes it to its tile of
+// `work`.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_states_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                        const float* __restrict__ A,
+                        const T* __restrict__ Bm, float* __restrict__ work,
+                        float* __restrict__ decay, SsdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int LDN = ld_n(a.NP);
+  float* xs = smem;                  // [kCH][kLDX]
+  float* bs = xs + kCH * kLDX;       // [kCH][LDN]
+  float* dts = bs + kCH * LDN;       // [kCH]
+
+  const int k = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int l0 = k * a.chunk, nt = min(a.chunk, a.L - l0);
+  stage<kThreads, T>(xs, kLDX, x + bi * a.x_sb + l0 * a.x_sl + h * a.x_sh,
+                     a.x_sl, nt, a.P, kPP, a.vec_x);
+  stage<kThreads, T>(bs, LDN, Bm + bi * a.B_sb + l0 * a.B_sl + g * a.B_sg,
+                     a.B_sl, nt, a.N, a.NP, a.vec_b);
+  stage_dt<T>(dts, dt + bi * a.dt_sb + l0 * a.dt_sl + h * a.dt_sh, a.dt_sl,
+              nt);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  float* so = state_out + ((long long)bi * a.H + h) * P * N;
-  for (int e = tid; e < P * N; e += kThreads) {
-    const int p = e / N, n = e % N;
-    so[e] = S[p * NS + n];
+
+  float c0, c1;
+  chunk_cum(dts, A[h], c0, c1);
+  const float last = __shfl_sync(0xffffffffu, c1, 31);
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  // exp(cum_last - cum[t]) dt[t] at this lane's positions 8j + 2tq, + 1
+  float wt[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float t0 = __shfl_sync(0xffffffffu, c0, 4 * j + tq);
+    const float t1 = __shfl_sync(0xffffffffu, c1, 4 * j + tq);
+    const float2 d = reinterpret_cast<const float2*>(dts)[4 * j + tq];
+    wt[j][0] = expf(last - t0) * d.x;
+    wt[j][1] = expf(last - t1) * d.y;
   }
+
+  // A[p][t] = x[t][p] w[t] (permuted: A column tq is position 8j + 2tq,
+  // tq + 4 is 8j + 2tq + 1), B[t][n] = B[t][n]
+  const float* xa = xs + 2 * tq * kLDX + 16 * w + gq;
+  float* out = work + (((long long)bi * a.H + h) * a.nc + k) * kPP * a.NP;
+  for (int n0 = 0; n0 < a.NP; n0 += 8 * NB) {
+    const int live = min(NB, (a.NP - n0) / 8);
+    float acc[1][NB][4] = {};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* xr = xa + 8 * j * kLDX;
+      const AFrag f[1] = {split4(xr[0] * wt[j][0], xr[8] * wt[j][0],
+                                 xr[kLDX] * wt[j][1],
+                                 xr[kLDX + 8] * wt[j][1])};
+      const float* br = bs + (8 * j + 2 * tq) * LDN + n0 + gq;
+      uint32_t bb[NB][2], bsm[NB][2];
+#pragma unroll
+      for (int ni = 0; ni < NB; ++ni) {
+        if (ni < live) {
+          split(br[8 * ni], bb[ni][0], bsm[ni][0]);
+          split(br[LDN + 8 * ni], bb[ni][1], bsm[ni][1]);
+        }
+      }
+      mma3_tiles(acc, f, bb, bsm, 0, live);
+    }
+    const int p = 16 * w + gq;
+#pragma unroll
+    for (int ni = 0; ni < NB; ++ni) {
+      const int n = n0 + 8 * ni + 2 * tq;
+      if (ni < live) {
+        *reinterpret_cast<float2*>(out + p * a.NP + n) =
+            make_float2(acc[0][ni][0], acc[0][ni][1]);
+        *reinterpret_cast<float2*>(out + (p + 8) * a.NP + n) =
+            make_float2(acc[0][ni][2], acc[0][ni][3]);
+      }
+    }
+  }
+  if (threadIdx.x == 0)
+    decay[((long long)bi * a.H + h) * a.nc + k] = expf(last);
+}
+
+// ---------------------------- (b) state passing --------------------------- //
+// One thread per 4 floats of a (row, head)'s [kPP, NP] state, in chunk
+// order: the state entering chunk k replaces chunk k's contribution in
+// `work` (k >= 1); the state after the last chunk goes to `state_out`.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_passing_kernel(float* __restrict__ work,
+                         const float* __restrict__ decay,
+                         float* __restrict__ state_out, SsdArgs a) {
+  const int tile4 = kPP * a.NP / 4;
+  const int e4 = blockIdx.x * kPassThreads + threadIdx.x;
+  if (e4 >= tile4) return;
+  const long long bh = (long long)blockIdx.z * a.H + blockIdx.y;
+  float4* st = reinterpret_cast<float4*>(work) + bh * a.nc * tile4 + e4;
+  const float* dk = decay + bh * a.nc;
+  float4 S = make_float4(0.f, 0.f, 0.f, 0.f);
+  // kBatch chunks' loads in flight at once, then their updates in order
+  constexpr int kBatch = 8;
+  for (int k0 = 0; k0 < a.nc; k0 += kBatch) {
+    float4 v[kBatch];
+    float d[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (k0 + i < a.nc) {
+        v[i] = st[(long long)(k0 + i) * tile4];
+        d[i] = dk[k0 + i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (k0 + i < a.nc) {
+        if (k0 + i > 0) st[(long long)(k0 + i) * tile4] = S;
+        S = make_float4(fmaf(S.x, d[i], v[i].x), fmaf(S.y, d[i], v[i].y),
+                        fmaf(S.z, d[i], v[i].z), fmaf(S.w, d[i], v[i].w));
+      }
+    }
+  }
+  const int p = 4 * e4 / a.NP, n = 4 * e4 % a.NP;
+  if (p >= a.P) return;
+  float* so = state_out + (bh * a.P + p) * a.N;
+  const float s4[4] = {S.x, S.y, S.z, S.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (n + i < a.N) so[n + i] = s4[i];
+}
+
+// ---------------------------- (c) the outputs ----------------------------- //
+// One CTA of 8 warps per (chunk, head, row).  The 20 score tiles (row tile
+// i of 16 positions, key tile j of 8, j <= 2i + 1) go in runs of one row
+// tile a warp, 3 or 2 tiles each: warp w takes key tiles [J0, J0 + CNT) of
+// row tile I, read from the nibble w of the tables below.  W goes through
+// shared memory, so the y products are split evenly too: warp w computes
+// row tiles {0, 3} (w < 4) or {1, 2} (w >= 4), whose causal key tiles sum
+// to 10 either way, against columns [16 (w % 4), + 16) of P.
+constexpr uint32_t kScoreI = 0x01122333u;     // row tile, w = 0 in nibble 0
+constexpr uint32_t kScoreJ0 = 0x02030630u;    // first key tile
+constexpr uint32_t kScoreCnt = 0x22233233u;   // key tiles (3 or 2)
+
+__device__ __forceinline__ int nibble(uint32_t table, int w) {
+  return static_cast<int>((table >> (4 * w)) & 0xfu);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kOutThreads)
+ssd_chunk_outputs_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const T* __restrict__ Bm, const T* __restrict__ Cm,
+                         const float* __restrict__ work, float* __restrict__ y,
+                         SsdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int LDN = ld_n(a.NP);
+  float* cs = smem;                  // [kCH][LDN] C
+  float* bs = cs + kCH * LDN;        // [kCH][LDN] B, then S_in [kPP][NP]
+  float* xs = bs + kCH * LDN;        // [kCH][kLDX]
+  float* ws = xs + kCH * kLDX;       // [kCH][kLDW] W
+  float* dts = ws + kCH * kLDW;      // [kCH]
+
+  const int k = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (a.H / a.G);
+  const int l0 = k * a.chunk, nt = min(a.chunk, a.L - l0);
+  stage<kOutThreads, T>(cs, LDN, Cm + bi * a.C_sb + l0 * a.C_sl + g * a.C_sg,
+                        a.C_sl, nt, a.N, a.NP, a.vec_c);
+  stage<kOutThreads, T>(bs, LDN, Bm + bi * a.B_sb + l0 * a.B_sl + g * a.B_sg,
+                        a.B_sl, nt, a.N, a.NP, a.vec_b);
+  stage<kOutThreads, T>(xs, kLDX,
+                        x + bi * a.x_sb + l0 * a.x_sl + h * a.x_sh, a.x_sl,
+                        nt, a.P, kPP, a.vec_x);
+  stage_dt<T>(dts, dt + bi * a.dt_sb + l0 * a.dt_sl + h * a.dt_sh, a.dt_sl,
+              nt);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float c0, c1;
+  chunk_cum(dts, A[h], c0, c1);
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int gq = lane / 4, tq = lane % 4;
+
+  // this warp's score tiles C B^T: A = C rows of row tile si, B[n][t] =
+  // B[t][n]; the A fragment is split once for all of them
+  const int si = nibble(kScoreI, w), sj0 = nibble(kScoreJ0, w);
+  const int scnt = nibble(kScoreCnt, w);
+  float sc[1][3][4] = {};
+  {
+    const float* ca = cs + (16 * si + gq) * LDN + tq;
+    for (int k0 = 0; k0 < a.NP; k0 += 8) {
+      const AFrag f[1] = {split4(ca[k0], ca[8 * LDN + k0], ca[k0 + 4],
+                                 ca[8 * LDN + k0 + 4])};
+      uint32_t bb[3][2], bsm[3][2];
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        if (u < scnt) {
+          const float* br = bs + (8 * (sj0 + u) + gq) * LDN + k0 + tq;
+          split(br[0], bb[u][0], bsm[u][0]);
+          split(br[4], bb[u][1], bsm[u][1]);
+        }
+      }
+      mma3_tiles(sc, f, bb, bsm, 0, scnt);
+    }
+  }
+  // W = scores exp(cum[s] - cum[t]) dt[t] for t <= s, else 0, into ws
+  {
+    const int s = 16 * si + gq;
+    const float cs0 = cum_at(c0, c1, s), cs1 = cum_at(c0, c1, s + 8);
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      const int j = sj0 + min(u, scnt - 1);
+      const float t0 = __shfl_sync(0xffffffffu, c0, 4 * j + tq);
+      const float t1 = __shfl_sync(0xffffffffu, c1, 4 * j + tq);
+      if (u < scnt) {
+        const float2 d = reinterpret_cast<const float2*>(dts)[4 * j + tq];
+        const int t = 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(ws + s * kLDW + t) = make_float2(
+            t <= s ? sc[0][u][0] * expf(cs0 - t0) * d.x : 0.f,
+            t + 1 <= s ? sc[0][u][1] * expf(cs0 - t1) * d.y : 0.f);
+        *reinterpret_cast<float2*>(ws + (s + 8) * kLDW + t) = make_float2(
+            t <= s + 8 ? sc[0][u][2] * expf(cs1 - t0) * d.x : 0.f,
+            t + 1 <= s + 8 ? sc[0][u][3] * expf(cs1 - t1) * d.y : 0.f);
+      }
+    }
+  }
+  __syncthreads();                   // W is whole; every warp is done with B
+
+  // the entering state into B's buffer, in flight during W x
+  const bool carry = k > 0;
+  if (carry) {
+    stage<kOutThreads, float>(
+        bs, LDN, work + (((long long)bi * a.H + h) * a.nc + k) * kPP * a.NP,
+        a.NP, kPP, a.NP, a.NP, true);
+    cp_async_commit();
+  }
+
+  // y = W x on row tiles {pair, 3 - pair} (r = 0, 1), columns [16q, 16q +
+  // 16); W's A fragment is read permuted (A column tq is position 8j + 2tq,
+  // tq + 4 is 8j + 2tq + 1), so x's B fragment, shared by both row tiles,
+  // reads rows 2tq and 2tq + 1.  Row tile r = 0 stops at key tile 2 pair +
+  // 1, r = 1 at 7 - 2 pair.
+  const int pair = w / 4, q = w % 4;
+  float yacc[2][2][4] = {};
+  const float* xb = xs + 2 * tq * kLDX + 16 * q + gq;
+  const float* wr0 = ws + (16 * pair + gq) * kLDW + 2 * tq;
+  const float* wr1 = ws + (16 * (3 - pair) + gq) * kLDW + 2 * tq;
+  for (int j = 0; j < 8 - 2 * pair; ++j) {
+    const bool both = j <= 2 * pair + 1;
+    AFrag f[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r == 1 || both) {
+        const float* wr = (r == 0 ? wr0 : wr1) + 8 * j;
+        const float2 lo = *reinterpret_cast<const float2*>(wr);
+        const float2 hi = *reinterpret_cast<const float2*>(wr + 8 * kLDW);
+        f[r] = split4(lo.x, hi.x, lo.y, hi.y);
+      }
+    }
+    const float* xr = xb + 8 * j * kLDX;
+    uint32_t bb[2][2], bsm[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      split(xr[8 * n], bb[n][0], bsm[n][0]);
+      split(xr[kLDX + 8 * n], bb[n][1], bsm[n][1]);
+    }
+    mma3_tiles(yacc, f, bb, bsm, both ? 0 : 1);
+  }
+
+  // y += (exp(cum[s]) C) S_in^T; S_in's B fragments are split once for
+  // both row tiles
+  if (carry) {
+    float e[2][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = 16 * (r == 0 ? pair : 3 - pair) + gq;
+      e[r][0] = expf(cum_at(c0, c1, s));
+      e[r][1] = expf(cum_at(c0, c1, s + 8));
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const float* sb = bs + (16 * q + gq) * LDN + tq;
+    for (int k0 = 0; k0 < a.NP; k0 += 8) {
+      uint32_t bb[2][2], bsm[2][2];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        split(sb[8 * n * LDN + k0], bb[n][0], bsm[n][0]);
+        split(sb[8 * n * LDN + k0 + 4], bb[n][1], bsm[n][1]);
+      }
+      AFrag f[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = r == 0 ? pair : 3 - pair;
+        const float* cr = cs + (16 * i + gq) * LDN + k0 + tq;
+        f[r] = split4(cr[0] * e[r][0], cr[8 * LDN] * e[r][1],
+                      cr[4] * e[r][0], cr[8 * LDN + 4] * e[r][1]);
+      }
+      mma3_tiles(yacc, f, bb, bsm);
+    }
+  }
+
+  const long long HP = (long long)a.H * a.P;
+  float* yb = y + ((long long)bi * a.L + l0) * HP + (long long)h * a.P;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s0 = 16 * (r == 0 ? pair : 3 - pair) + gq;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int p = 16 * q + 8 * n + 2 * tq;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = s0 + 8 * (e / 2), pe = p + (e & 1);
+        if (s < nt && pe < a.P) yb[s * HP + pe] = yacc[r][n][e];
+      }
+    }
+  }
+}
+
+// 16-byte loads of a [.., rows, width] tensor: base and strides aligned
+bool vec_ok(const void* p, long long s0, long long s1, long long s2,
+            int width, int elems) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 % elems == 0 &&
+         s1 % elems == 0 && s2 % elems == 0 && width % elems == 0;
+}
+
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* B,
-           const void* C, void* y, void* state, const SsdArgs& a,
-           cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats(a.chunk, a.P, a.N);
-  if (bytes > 232448) return -1;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
+           const void* C, void* y, void* state, void* work, void* decay,
+           SsdArgs a, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  a.vec_x = vec_ok(x, a.x_sb, a.x_sl, a.x_sh, a.P, V);
+  a.vec_b = vec_ok(B, a.B_sb, a.B_sl, a.B_sg, a.N, V);
+  a.vec_c = vec_ok(C, a.C_sb, a.C_sl, a.C_sg, a.N, V);
+  const size_t st_bytes = sizeof(float) * states_smem_floats(a.NP);
+  const size_t out_bytes = sizeof(float) * outputs_smem_floats(a.NP);
+  if (out_bytes > 232448) return -1;
+  // column tiles a pass (a) warp holds at once: 2 where N <= 16
+  const auto states = a.NP <= 16 ? ssd_chunk_states_kernel<T, 2>
+                                 : ssd_chunk_states_kernel<T, 8>;
+  int rc = allow_smem(states, st_bytes);
+  if (rc == 0) rc = allow_smem(ssd_chunk_outputs_kernel<T>, out_bytes);
+  if (rc != 0) return rc;
+  const T* xt = static_cast<const T*>(x);
+  const T* dtt = static_cast<const T*>(dt);
+  const T* Bt = static_cast<const T*>(B);
+  const float* Af = static_cast<const float*>(A);
+  float* wk = static_cast<float*>(work);
+  float* dk = static_cast<float*>(decay);
+  const dim3 chunks(a.nc, a.H, a.b);
+  if (a.nc > 0) {
+    states<<<chunks, kThreads, st_bytes, stream>>>(xt, dtt, Af, Bt, wk, dk,
+                                                   a);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
   }
-  dim3 grid(a.H, a.b);
-  ssd_scan_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<float*>(y),
-      static_cast<float*>(state), a);
+  const int tile4 = kPP * a.NP / 4;
+  ssd_state_passing_kernel<<<dim3((tile4 + kPassThreads - 1) / kPassThreads,
+                                  a.H, a.b),
+                             kPassThreads, 0, stream>>>(
+      wk, dk, static_cast<float*>(state), a);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || a.nc == 0) return rc;
+  ssd_chunk_outputs_kernel<T><<<chunks, kOutThreads, out_bytes, stream>>>(
+      xt, dtt, Af, Bt, static_cast<const T*>(C), wk, static_cast<float*>(y),
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype code (x, dt, B and C share it): 0 = float32, 1 = bfloat16; A is
-// f32 [H]; y [b, L, H, P] and state [b, H, P, N] are dense f32.  Strides
-// in elements.  Returns cudaGetLastError() after the launch, or -1 for a
-// configuration this file was not built for.
+// f32 [H]; y [b, L, H, P] and state [b, H, P, N] are dense f32.  `work` is
+// f32 scratch of b * H * ceil(L / chunk) * 64 * NP floats (NP = N rounded
+// up to 8) and `decay` of b * H * ceil(L / chunk); the caller allocates
+// both.  Strides in elements.  Returns cudaGetLastError() after the
+// launches, or -1 for a configuration this file was not built for.
 extern "C" int ssd_scan_launch(
     const void* x, const void* dt, const void* A, const void* B,
-    const void* C, void* y, void* state, int b, int L, int H, int G, int P,
-    int N, int chunk, long long x_sb, long long x_sl, long long x_sh,
-    long long dt_sb, long long dt_sl, long long dt_sh, long long B_sb,
-    long long B_sl, long long B_sg, long long C_sb, long long C_sl,
-    long long C_sg, int dtype, void* stream) {
-  if (G <= 0 || H % G != 0 || chunk <= 0 || P <= 0 || N <= 0) return -1;
-  const SsdArgs a{b, L, H, G, P, N, chunk,
+    const void* C, void* y, void* state, void* work, void* decay, int b,
+    int L, int H, int G, int P, int N, int chunk, long long x_sb,
+    long long x_sl, long long x_sh, long long dt_sb, long long dt_sl,
+    long long dt_sh, long long B_sb, long long B_sl, long long B_sg,
+    long long C_sb, long long C_sl, long long C_sg, int dtype,
+    void* stream) {
+  if (G <= 0 || H % G != 0 || chunk <= 0 || chunk > kCH || P <= 0 ||
+      P > kPP || N <= 0)
+    return -1;
+  const int NP = (N + 7) / 8 * 8;
+  const SsdArgs a{b, L, H, G, P, N, NP, chunk, (L + chunk - 1) / chunk,
                   x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh,
-                  B_sb, B_sl, B_sg, C_sb, C_sl, C_sg};
+                  B_sb, B_sl, B_sg, C_sb, C_sl, C_sg, false, false, false};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, dt, A, B, C, y, state, a, st);
+  if (dtype == 0)
+    return launch<float>(x, dt, A, B, C, y, state, work, decay, a, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, B, C, y, state, a, st);
+    return launch<__nv_bfloat16>(x, dt, A, B, C, y, state, work, decay, a,
+                                 st);
   return -1;
 }

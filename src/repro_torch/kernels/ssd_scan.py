@@ -1,9 +1,11 @@
 """Mamba-2 SSD chunked scan: the CUDA kernel's wrapper.
 
 Port of ``repro.kernels.ssd_scan.ssd_scan`` (a Pallas TPU kernel) to
-``csrc/ssd_scan.cu``; the source's header says what bounds it and how it
-is laid out.  The plain version is ``kernels.ref.ssd_scan_ref``;
-``kernels.ops.ssd`` picks between the two by device.
+``csrc/ssd_scan.cu``: three chunk-parallel passes (the chunks' states, the
+state passing, the outputs) on the TF32 tensor cores in the 3xTF32 split;
+the source's header says what bounds it and how it is laid out.  The plain
+version is ``kernels.ref.ssd_scan_ref``; ``kernels.ops.ssd`` picks between
+the two by device.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import DTYPE_CODES
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: F401
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+# csrc/ssd_scan.cu's tiles: 64 positions by a head dim of 64, the state's
+# N rounded up to 8
+TILE = 64
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -27,10 +32,12 @@ def _require(cond: bool, msg: str):
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     """x: [b, L, H, P]; dt: [b, L, H]; A: [H]; B/C: [b, L, G, N], H a
-    multiple of G.  x, dt, B and C share one dtype, float32 or bfloat16,
-    with any strides and a dense last dim (the model passes slices of its
-    conv output); A is read as f32.  Returns (y [b, L, H, P] f32, final
-    state [b, H, P, N] f32)."""
+    multiple of G, P <= 64, 1 <= chunk <= 64.  x, dt, B and C share one
+    dtype, float32 or bfloat16, with any strides and a dense last dim (the
+    model passes slices of its conv output); A is read as f32.  Returns (y
+    [b, L, H, P] f32, final state [b, H, P, N] f32).  One call is one
+    launch in ``ssd_scan.launches``, whatever number of CUDA kernels it
+    runs."""
     tensors = (x, dt, A, B, C)
     _require(all(t.is_cuda and t.device == x.device for t in tensors),
              "every tensor must be on the same CUDA device")
@@ -47,22 +54,30 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
         "share one dtype, float32 or bfloat16")
     _require(all(t.stride(-1) == 1 for t in (x, B, C)),
              "x, B and C must be dense in their last dim")
-    _require(chunk > 0, f"chunk={chunk} must be positive")
+    _require(0 < chunk <= TILE and P <= TILE, f"chunk={chunk} and P={P} "
+             f"must be at most the kernel's tile of {TILE}")
     y = torch.empty((b, L, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0 and state.numel() == 0:
         return y, state
     A32 = A.float().contiguous()
+    nc = -(-L // chunk)
+    n_pad = -(-N // 8) * 8
+    # the chunks' contributions, overwritten in place by the states
+    # entering each chunk, and each chunk's decay exp(cum_last)
+    work = torch.empty(b * H * nc * TILE * n_pad, dtype=torch.float32,
+                       device=x.device)
+    decay = torch.empty(b * H * nc, dtype=torch.float32, device=x.device)
     fn = build.c_function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
     rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, L, H, G, P, N,
-            int(chunk), *x.stride()[:3], *dt.stride(), *B.stride()[:3],
-            *C.stride()[:3], DTYPE_CODES[x.dtype],
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), work.data_ptr(),
+            decay.data_ptr(), b, L, H, G, P, N, int(chunk),
+            *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+            DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
-    # the launcher refuses (-1) a chunk whose [P, N] state and chunk
-    # tiles do not fit one block's shared memory
-    _require(rc != -1, f"chunk={chunk} with P={P}, N={N} does not fit one "
-             "block's shared memory")
+    # the launcher refuses (-1) an N whose tiles do not fit one block's
+    # shared memory
+    _require(rc != -1, f"N={N} does not fit one block's shared memory")
     if rc != 0:
         raise RuntimeError(f"ssd_scan: launch failed (cudaError {rc})")
     ssd_scan.launches += 1

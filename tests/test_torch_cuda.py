@@ -17,8 +17,11 @@ an install that launches it once per int8-coded leaf.  Beyond the cases of
 the other ``test_torch_*`` files' ``cuda`` tests it takes the paged decode
 and prefill at G = 5, 6 and 7 (the prefill also at C = 1 and ragged C),
 the flash attention at d = 32, 64 and 128 with a ragged S, a window and a
-softcap, and the slab decode with empty rows, a window and more splits
-than live slots; it checks that repeated launches are bit-identical, and
+softcap, the slab decode with empty rows, a window and more splits than
+live slots, and the SSD scan at both served prefills (8 ragged rows of
+1152), with L < chunk and with a right-padded row whose state must equal
+the unpadded row's bit for bit; it checks that repeated launches are
+bit-identical, and
 that the paged decode's outputs do not move by a bit when the table
 doubles or rows are added.  Whether a card exists is decided in a fixture, so every
 process collects the same tests; without one they skip.
@@ -320,9 +323,14 @@ def _rel(got, want):
                                               + 1e-6)
 
 
+# the served prefills (chip_smoke.py SSD_HYMBA, SSD_MAMBA2_SERVE): 8 rows
+# of 1152 with dt = 0 past each row's true length
+SSD_HYMBA_LENS = (210, 395, 580, 740, 905, 1000, 1090, 1150)
 SSD_CASES = [(2, 128, 4, 1, 64, 32, 32), (1, 256, 8, 2, 32, 64, 64),
              (2, 64, 2, 2, 16, 16, 16), (1, 128, 24, 1, 64, 128, 64),
-             (2, 200, 50, 1, 64, 16, 64), (1, 77, 6, 3, 32, 16, 32)]
+             (2, 200, 50, 1, 64, 16, 64), (1, 77, 6, 3, 32, 16, 32),
+             (8, 1152, 50, 1, 64, 16, 64), (8, 1152, 24, 1, 64, 128, 64),
+             (2, 40, 4, 1, 64, 32, 64)]
 
 
 @pytest.mark.cuda
@@ -331,13 +339,20 @@ SSD_CASES = [(2, 128, 4, 1, 64, 32, 32), (1, 256, 8, 2, 32, 64, 64),
 def test_ssd_kernel_matches_plain_on_card(cuda, b, L, H, G, P, N, chunk,
                                           dtype):
     """Contiguous inputs and the model's strided slices of one conv
-    output, ragged L included; A stays f32."""
+    output, ragged L, a single chunk (L < chunk) and the served prefills'
+    ragged rows included; A stays f32; a second launch is bit-identical."""
+    x, dt, A, B, C = _ssd_inputs(b, L, H, G, P, N)
+    if L == 1152:
+        dt = dt * (np.arange(L)[None, :, None]
+                   < np.array(SSD_HYMBA_LENS)[:, None, None])
     args = [torch.from_numpy(a) if i == 2 else
             torch.from_numpy(a).to(getattr(torch, dtype))
-            for i, a in enumerate(_ssd_inputs(b, L, H, G, P, N))]
+            for i, a in enumerate((x, dt.astype(np.float32), A, B, C))]
     args = [t.to(cuda) for t in args]
     yr, sr = ref.ssd_scan_ref(*args)
     y, st = ssd_scan(*args, chunk=chunk)
+    again = ssd_scan(*args, chunk=chunk)
+    assert torch.equal(again[0], y) and torch.equal(again[1], st)
     x, dt, A, B, C = args
     xbc = torch.cat([x.reshape(b, L, H * P), B.reshape(b, L, G * N),
                      C.reshape(b, L, G * N)], dim=-1)
@@ -348,6 +363,21 @@ def test_ssd_kernel_matches_plain_on_card(cuda, b, L, H, G, P, N, chunk,
     torch.cuda.synchronize()
     for got, want in ((y, yr), (st, sr), (y2, yr), (st2, sr)):
         assert _rel(got, want) < SSD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_right_padded_row_keeps_its_state_bit_exact(cuda):
+    """A row of 50 positions right-padded to 200 with dt = 0 (x, B and C
+    left as they are, as the model pads) ends in the unpadded row's state
+    bit for bit, and its first 50 outputs are the unpadded row's."""
+    x, dt, A, B, C = _ssd_inputs(1, 200, 6, 3, 64, 32, seed=5)
+    dt[:, 50:] = 0.0
+    full = [torch.from_numpy(a).to(cuda) for a in (x, dt, A, B, C)]
+    cut = [t[:, :50] if t.dim() > 1 else t for t in full]
+    y, st = ssd_scan(*full, chunk=64)
+    y_cut, st_cut = ssd_scan(*cut, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_cut) and torch.equal(y[:, :50], y_cut)
 
 
 # ---------------------------------- dequant ------------------------------- #
