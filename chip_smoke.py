@@ -51,18 +51,30 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 (v0 x 1.01 plus seeded noise) into a ``WeightStore``; while
                 the same mix is in flight, a ``delta-int8`` manifest of v1
                 (base v0, the engine's resident weights) and then an
-                ``int8`` one are assembled onto the card through the
-                dequant kernel and installed with ``swap_weights`` at
-                horizon boundaries; every leaf within the codec's bound of
-                v1, one dequant launch per int8-coded leaf, no request
-                dropped, versions monotone; seconds per step;
+                ``int8`` one are pulled through ``ChunkPull`` on one event
+                clock (two 400 Gbit/s agents, a 50 Gbit/s receiver, two
+                fetches in flight: modeled rates) under a seeded
+                ``FaultPlan`` (corrupt, pruned and stalled fetches, agent 1
+                flapping) with fetch-time sha256, retries, blacklisting and
+                one preemption (the delta-int8 pull cancelled halfway and
+                resumed from its cache), assembled onto the card through
+                the dequant kernel and installed with ``swap_weights`` at
+                horizon boundaries; resume fetches only missing chunks,
+                every fault kind fired and was retried, agent 1
+                blacklisted, no corrupt chunk at assemble, every leaf
+                within the codec's bound of v1, one dequant launch per
+                int8-coded leaf, no request dropped, versions monotone;
+                ``[pull]`` lines (modeled and host seconds, counters) and
+                the pulls' chunk spans in ``build/chip_runs/pull_trace.json``;
   5. migrate  — engine A serves the mix greedy; at a horizon boundary it
                 exports the whole batch, the state travels as a KV manifest
-                (codec none) through a local blob fetch into an empty engine
-                B, and A drops the requests; B's tokens must continue the
-                unmigrated run's exactly with zero prefill, and shared
-                prompt pages must ship once; then once more with codec int8,
-                which must run to completion;
+                (codec none) pulled through ``ChunkPull`` from A's NIC
+                under a plan with corrupt and pruned fetches into an empty
+                engine B, and A drops the requests; B's tokens must
+                continue the unmigrated run's exactly with zero prefill,
+                shared prompt pages must ship once, and neither allocator
+                may leak a page; then once more with codec int8, which
+                must run to completion;
   6. train    — one step of the RL loop on ``qwen3-8b`` at full width, its
                 depth cut to 8 layers (AdamW holds 16 bytes a parameter:
                 bf16 params and grads, f32 m, v and master): an engine on
@@ -123,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import random
 import subprocess
 import sys
 import time
@@ -249,6 +262,24 @@ SCAN_PERTURBATION = 3e-6
 # first prompt, single requests on the others
 SERVE14B_PROMPT_LENS = (300, 310, 290)
 SERVE14B_NEW_TOKENS = 16
+# phases 4-5: the pull plane's network, modeled on the event clock (rates
+# of the reference's runtime, not measurements): two reserved-node
+# transfer agents (hybrid_runtime.py:161), a spot instance's receiving NIC,
+# two chunk fetches in flight (RunnerConfig.transfer_fanout); the payloads
+# are real bytes, so one payload byte is one wire byte
+PULL_AGENT_GBPS = 400.0
+PULL_RECEIVER_GBPS = 50.0
+PULL_FANOUT = 2
+# the install pulls' seeded fault plan: corrupt, pruned and stalled
+# fetches, and agent 1 flapping for 10 s from t = 0.2 s, long enough to
+# time out blacklist_threshold (3) times in a row at 1 s each
+PULL_PLAN = dict(seed=0, corrupt_p=0.02, prune_p=0.01, stall_p=0.005,
+                 stall_s=5.0, agent_flaps=((0.2, 1, 10.0),))
+# the migration pull: the source instance's NIC serves it (instance.py:68)
+MIGRATE_AGENT = (1_000_000, 50.0)
+MIGRATE_PLAN = dict(seed=1, corrupt_p=0.05, prune_p=0.05)
+# the delta-int8 pull is preempted once this share of its chunks is cached
+PULL_CANCEL_SHARE = 0.5
 
 
 def fail(msg: str):
@@ -1324,15 +1355,175 @@ def check_install(torch, got_tree, v1, v0=None):
     return worst
 
 
+def flaky_source(fetch, p: float, seed: int):
+    """``fetch`` with a seeded share ``p`` of its calls answered with no
+    payload: the source pruned the blob.  ``ChunkPull`` takes a plan's own
+    ``pruned`` draw only on a synthetic manifest (no fetch function); with
+    real payloads a prune is a fetch that returns None, so the smoke's
+    source prunes at the plan's rate from a stream of its own."""
+    rng = random.Random(seed)
+    return lambda digest: None if rng.random() < p else fetch(digest)
+
+
+class PullPlane:
+    """An event clock with its transfer agents and a seeded ``FaultPlan``
+    installed on it; every ``ChunkPull`` on it shares one ``PeerHealth``,
+    one ``FaultStats`` over one ``MetricsRegistry`` and one ``Tracer`` on
+    the event clock (its ``transfer.chunk`` spans)."""
+
+    def __init__(self, agents, plan: dict):
+        from repro_torch.core.events import EventLoop
+        from repro_torch.core.faults import FaultPlan, FaultStats, PeerHealth
+        from repro_torch.obs.metrics import MetricsRegistry
+        from repro_torch.obs.tracer import Tracer
+        self.loop = EventLoop()
+        self.agents = agents
+        self.plan = FaultPlan(**plan)
+        self.plan.install(self.loop, agents)
+        self.registry = MetricsRegistry()
+        self.stats = FaultStats(self.registry)
+        self.health = PeerHealth(self.plan.blacklist_threshold,
+                                 self.plan.probation_s, stats=self.stats)
+        self.tracer = Tracer(lambda: self.loop.now)
+        self.pulls = []
+
+    def pull(self, manifest, fetch_fn, what: str, cancel_share=None,
+             wire_scale: float = 1.0):
+        """Pull ``manifest`` into a new cache; with ``cancel_share`` the
+        pull is cancelled (its receiver preempted) once that share of the
+        manifest's unique chunks is cached, and a second ``ChunkPull`` over
+        the same cache finishes it.  A chunk that exhausts its retries
+        fails the smoke.  ``wire_scale`` models each payload byte as that
+        many wire bytes.  Returns (cache, record)."""
+        from repro_torch.transfer.puller import ChunkPull
+        cache = {}
+        unique = len(set(manifest.digests()))
+
+        def on_failure(p):
+            fail(f"{what}: a chunk exhausted its {p.max_retries} retries "
+                 f"(pull of {manifest.n_chunks} chunks)")
+
+        def start():
+            p = ChunkPull(self.loop, self.agents, manifest,
+                          receiver_gbps=PULL_RECEIVER_GBPS, cache=cache,
+                          fetch_fn=fetch_fn, fanout=PULL_FANOUT,
+                          wire_scale=wire_scale,
+                          on_complete=lambda _: self.loop.stop(),
+                          on_failure=on_failure, faults=self.plan,
+                          health=self.health, stats=self.stats,
+                          tracer=self.tracer)
+            self.pulls.append(p)
+            return p.start()
+
+        t0 = time.perf_counter()
+        pulls = [start()]
+        at_cancel = None
+        if cancel_share is not None:
+            while pulls[0].active and len(cache) < cancel_share * unique:
+                self.loop.run(max_events=1)
+            pulls[0].cancel()
+            at_cancel = len(cache)
+            pulls.append(start())
+            if pulls[1].n_cache_hits != at_cancel:
+                fail(f"{what}: the restarted pull found "
+                     f"{pulls[1].n_cache_hits} cached chunks, the cache "
+                     f"held {at_cancel} at the cancel")
+        self.loop.run()             # until the last pull completes
+        host_s = time.perf_counter() - t0
+        last = pulls[-1]
+        if last.active or last.failed or last.finished_at is None:
+            fail(f"{what}: the pull did not complete")
+        if sum(p.n_fetched for p in pulls) != unique or \
+                set(manifest.digests()) - set(cache):
+            fail(f"{what}: fetched {[p.n_fetched for p in pulls]} chunks "
+                 f"for {unique} unique ones")
+        rec = dict(chunks=manifest.n_chunks, unique_chunks=unique,
+                   wire_bytes=manifest.total_bytes * wire_scale,
+                   started_at=pulls[0].started_at,
+                   finished_at=last.finished_at,
+                   modeled_s=last.finished_at - pulls[0].started_at,
+                   host_s=host_s, cached_at_cancel=at_cancel,
+                   cache_hits=last.n_cache_hits)
+        for k in ("n_fetched", "n_retries", "n_corrupt", "n_pruned",
+                  "n_timeouts", "bytes_fetched"):
+            rec[k] = sum(getattr(p, k) for p in pulls)
+        rec["modeled_gbps"] = rec["bytes_fetched"] * wire_scale * 8 / 1e9 \
+            / max(rec["modeled_s"], 1e-12)
+        return cache, rec
+
+    def finish(self, what: str, need=("n_corrupt_chunks", "n_pruned_chunks")):
+        """Drain the clock (late completions of cancelled and timed-out
+        fetches) and hold the plane: every agent idle, each fault kind of
+        ``need`` fired, every retry accounted for, and the chunk spans one
+        NIC lane per agent whose outcomes count as the pulls' counters.
+        Returns the registry's ``faults.*`` values."""
+        self.loop.run()
+        busy = {a.id: a.active_pulls for a in self.agents if a.active_pulls}
+        if busy:
+            fail(f"{what}: agents still hold fetches {busy}")
+        f = self.stats.as_dict()
+        if not all(f[k] for k in need):
+            fail(f"{what}: the plan did not fire {need}: {f}")
+        if f["n_chunk_retries"] != (f["n_corrupt_chunks"] + f["n_pruned_chunks"]
+                                    + f["n_deadline_timeouts"]) \
+                or f["n_chunk_failures"]:
+            fail(f"{what}: retries do not add up: {f}")
+        spans = [s for s in self.tracer.spans() if s.name == "transfer.chunk"]
+        lanes = {s.lane for s in spans}
+        if lanes != {f"nic:{a.id}" for a in self.agents} or \
+                not all(s.closed for s in spans):
+            fail(f"{what}: chunk spans on lanes {sorted(lanes)}")
+        outcomes = {}
+        for s in spans:
+            o = s.attrs["outcome"]
+            outcomes[o] = outcomes.get(o, 0) + 1
+        want = {"ok": sum(p.n_fetched for p in self.pulls),
+                "corrupt": sum(p.n_corrupt for p in self.pulls),
+                "pruned": sum(p.n_pruned for p in self.pulls),
+                "timeout": sum(p.n_timeouts for p in self.pulls)}
+        if {k: outcomes.get(k, 0) for k in want} != want or \
+                set(outcomes) - set(want) - {"cancelled"}:
+            fail(f"{what}: span outcomes {outcomes}, counters {want}")
+        return self.faults()
+
+    def faults(self) -> dict:
+        """The registry's ``faults.*`` values."""
+        return {k: v for k, v in self.registry.snapshot().items()
+                if k.startswith("faults.")}
+
+
+def pull_line(tag: str, what: str, rec: dict, faults=None) -> str:
+    """One log line for a pull record (and the plane's fault counters)."""
+    cancel = ("" if rec["cached_at_cancel"] is None else
+              f" (preempted with {rec['cached_at_cancel']} cached)")
+    line = (f"[{tag}] {what}: {rec['chunks']} chunks, {rec['wire_bytes']:.0f} "
+            f"B on the wire; modeled {rec['modeled_s']:.6f} s on the event "
+            f"clock (t = {rec['started_at']:.6f} -> "
+            f"{rec['finished_at']:.6f}), {rec['modeled_gbps']:.3f} Gbit/s "
+            f"modeled; host {rec['host_s']:.3f} s; fetched "
+            f"{rec['n_fetched']}, cache hits {rec['cache_hits']}{cancel}, "
+            f"retries {rec['n_retries']}, corrupt {rec['n_corrupt']}, "
+            f"pruned {rec['n_pruned']}, timeouts {rec['n_timeouts']}")
+    if faults is not None:
+        line += f"; {json.dumps(faults)}"
+    return line
+
+
 def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
                   dequant):
     """v0 serves the smoke mix; a delta-int8 (base v0) and then an int8
-    install of v1 land at horizon boundaries while it is in flight."""
+    install of v1 land at horizon boundaries while it is in flight, each
+    pulled through ``ChunkPull`` on one event clock under PULL_PLAN (the
+    delta-int8 pull preempted halfway and resumed from its cache)."""
     from repro_torch.core.weight_transfer import TransferAgent, WeightStore
+    from repro_torch.obs.perfetto import export_chrome_trace
     from repro_torch.obs.tracer import Tracer
-    from repro_torch.transfer.chunkstore import ChunkStore
+    from repro_torch.transfer.chunkstore import (ChunkIntegrityError,
+                                                 ChunkStore)
     tracer = Tracer(clock)
-    store = WeightStore([TransferAgent(0, 100.0)],
+    agents = [TransferAgent(i, PULL_AGENT_GBPS) for i in range(2)]
+    plane = PullPlane(agents, PULL_PLAN)
+    store = WeightStore(agents,
                         chunkstore=ChunkStore(history=2, tracer=tracer))
     v1 = perturbed(torch, params, seed=1)
     store.publish(0, params)
@@ -1374,13 +1565,23 @@ def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
         t_manifest = clock() - t0
         if m.codec != codec:
             fail(f"install: asked for a {codec} manifest, got {m.codec}")
-        fetch = store.fetch_fn()
-        chunks = {c.digest: fetch(c.digest) for c in m.chunks}
+        chunks, pull = plane.pull(
+            m, flaky_source(store.fetch_fn(), plane.plan.prune_p,
+                            seed=len(results)),
+            f"install {codec}",
+            cancel_share=PULL_CANCEL_SHARE if codec == "delta-int8" else None)
+        what = f"{codec} of v1" + ("" if base_version is None
+                                   else f" (base v{base_version})")
+        log(pull_line("pull", what, pull, plane.faults()))
         before = dequant.launches
         t0 = clock()
-        tree = store.chunkstore.assemble(
-            m, chunks, like=params,
-            base_params=eng.params if codec == "delta-int8" else None)
+        try:
+            tree = store.chunkstore.assemble(
+                m, chunks, like=params,
+                base_params=eng.params if codec == "delta-int8" else None)
+        except ChunkIntegrityError as e:
+            fail(f"install {codec}: a pulled chunk reached assemble "
+                 f"corrupt: {e}")
         t_assemble = clock() - t0
         launched = dequant.launches - before
         int8_leaves = sum(sp.codec != "none" for sp in m.leaves)
@@ -1402,7 +1603,7 @@ def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
         results[codec] = dict(manifest_s=t_manifest, assemble_s=t_assemble,
                               swap_s=t_swap, wire_bytes=m.total_bytes,
                               n_chunks=m.n_chunks, dequant_launches=launched,
-                              worst_over_bound=worst, **step)
+                              worst_over_bound=worst, pull=pull, **step)
         log(f"[install] {codec} (base v{base_version}) of v1 at decode "
             f"horizon {eng.n_decode_dispatches}: {m.total_bytes} B in "
             f"{m.n_chunks} chunks ({len(m.leaves)} leaves); manifest "
@@ -1419,6 +1620,19 @@ def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
     run()
     launches = check_launches(cfg, eng, "install run", eng.n_decode_dispatches,
                               eng.n_prefill_dispatches, n_dequant)
+    faults = plane.finish("install", need=(
+        "n_corrupt_chunks", "n_pruned_chunks", "n_deadline_timeouts",
+        "n_blacklisted_agents"))
+    trace_path = ROOT / "build" / "chip_runs" / "pull_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    export_chrome_trace(plane.tracer, str(trace_path),
+                        process_name="install pulls")
+    results["faults"] = faults
+    log(f"[pull] both installs: every agent idle, retries = corrupt + "
+        f"pruned + timeouts, no chunk failed; {json.dumps(faults)}; "
+        f"{len(plane.tracer.spans())} chunk spans on lanes "
+        f"{sorted({sp.lane for sp in plane.tracer.spans()})} written to "
+        f"{trace_path.relative_to(ROOT)}")
     if done != set(rids):
         fail(f"install: {len(rids) - len(done)} requests dropped")
     for r, vs in versions.items():
@@ -1438,11 +1652,19 @@ def migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
                   unmigrated, codec: str):
     """Engine A serves the mix; two decode horizons after the last prefill
     the whole batch moves through a KV manifest into an empty engine B
-    (same max_batch, so each row keeps its slot), and A drops it.  With
-    codec none B's tokens must continue ``unmigrated`` exactly, with zero
-    prefill."""
+    (same max_batch, so each row keeps its slot), and A drops it.  The
+    manifest is pulled through ``ChunkPull`` from A's NIC under
+    MIGRATE_PLAN.  With codec none B's tokens must continue ``unmigrated``
+    exactly, with zero prefill; neither allocator may leak a page."""
+    from repro_torch.core.faults import allocator_leak_report
+    from repro_torch.core.weight_transfer import TransferAgent
     from repro_torch.transfer.chunkstore import (assemble_kv_state,
                                                  build_kv_manifest)
+
+    def no_leaks(eng, what):
+        report = allocator_leak_report(eng)
+        if report:
+            fail(f"migrate ({codec}): {what}: {report}")
     src = make_engine(InferenceEngine, cfg, params)
     rids = admit(src, prompts)
     out = {r: [] for r in rids}
@@ -1463,7 +1685,14 @@ def migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
     t0 = clock()
     m, blobs, meta = build_kv_manifest(1, state, codec=codec)
     t_manifest = clock() - t0
-    fetched = {c.digest: blobs[c.digest] for c in m.chunks}
+    plane = PullPlane([TransferAgent(*MIGRATE_AGENT)], MIGRATE_PLAN)
+    fetched, pull = plane.pull(
+        m, flaky_source(blobs.get, plane.plan.prune_p, seed=7),
+        f"migrate {codec}")
+    # the int8 manifest's ~107 chunks may draw no fault of a kind; the
+    # none manifest's ~424 draw ~20 of each
+    faults = plane.finish(f"migrate {codec}", need=(
+        ("n_corrupt_chunks", "n_pruned_chunks") if codec == "none" else ()))
     t0 = clock()
     landed = assemble_kv_state(m, fetched, meta)
     t_assemble = clock() - t0
@@ -1472,8 +1701,10 @@ def migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
     t0 = clock()
     slots = dst.import_request_state(landed)
     t_import = clock() - t0
+    no_leaks(dst, "destination after the import")
     for rid in moving:
         src.drop_request(rid)
+    no_leaks(src, "source after drop_request")
     if slots != list(range(len(moving))) or src.n_active:
         fail(f"migrate: imported into slots {slots}, source keeps "
              f"{src.n_active} rows")
@@ -1487,6 +1718,8 @@ def migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
                 done.add(e.req_id)
     check_launches(cfg, dst, f"migrated ({codec}) destination",
                    dst.n_decode_dispatches, dst.n_prefill_dispatches)
+    no_leaks(src, "source at the end")
+    no_leaks(dst, "destination at the end")
     if done != set(rids):
         fail(f"migrate ({codec}): {len(rids) - len(done)} requests never "
              f"finished on the destination")
@@ -1510,7 +1743,10 @@ def migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
         f"{t_manifest:.3f} s, assemble {t_assemble:.3f} s, import "
         f"{t_import:.3f} s; destination prefill tokens "
         f"{dst.n_prefill_tokens}; tokens equal to the unmigrated run for "
-        f"{sum(same.values())} of {len(rids)} requests")
+        f"{sum(same.values())} of {len(rids)} requests; allocators leak "
+        f"nothing")
+    log(pull_line("migrate", f"{codec} pull from the source NIC", pull,
+                  faults))
     del src, dst, state, landed, blobs, fetched
     torch.cuda.empty_cache()
 

@@ -5,10 +5,11 @@
                   manifests), and the KV-migration manifests;
 ``codec``       — per-leaf transfer codecs (none / int8 / delta-int8); the
                   int8 decode runs the CUDA ``fused_dequant`` kernel on a
-                  card.
-
-The chunk-level pull scheduler (the reference's ``puller``) belongs to the
-control plane and is not ported yet.
+                  card;
+``puller``      — the chunk-level multi-peer pull scheduler on the event
+                  loop: per-chunk bandwidth shares, fetch-time sha256,
+                  retries with backoff, peer blacklisting, preemption
+                  resume from a local chunk cache, in-flight upgrade.
 """
 
 from repro_torch.transfer.chunkstore import (ChunkIntegrityError, ChunkMeta,
@@ -16,7 +17,8 @@ from repro_torch.transfer.chunkstore import (ChunkIntegrityError, ChunkMeta,
                                              synthetic_manifest)
 from repro_torch.transfer.codec import (COMPRESSION_FACTOR, dequantize_int8,
                                         quantize_int8)
+from repro_torch.transfer.puller import ChunkPull
 
 __all__ = ["ChunkIntegrityError", "ChunkMeta", "ChunkStore", "Manifest",
            "synthetic_manifest", "COMPRESSION_FACTOR", "dequantize_int8",
-           "quantize_int8"]
+           "quantize_int8", "ChunkPull"]

@@ -16,8 +16,8 @@ emulated in plain PyTorch and held to the same references: the paged
 decode's fixed-length splits at 2e-5, the prefill's TF32 / bf16 roundings
 at its gate of 2e-2 or one bf16 ulp of the value.  The flash gradient is held against ``jax.grad`` of the
 reference's oracle in f32.
-The tests marked ``cuda`` hold the CUDA kernels against the plain versions
-on the card and skip elsewhere.
+The CUDA kernels are held against the plain versions on the card in
+``tests/test_torch_cuda.py``.
 """
 
 import jax
@@ -678,112 +678,3 @@ def test_tma_layout_check_refuses_what_tma_cannot_read():
     assert not tma_layout_ok(1024, (4096, 128, 1024, 2), 2)     # last dim
     assert not tma_layout_ok(1024, (2 ** 40, 128, 1024, 1), 2)  # too far
     assert tma_layout_ok(1024, (4096, 4, 512, 1), 4)            # 16 B
-
-
-# ---------------------------- on the card --------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card")
-    return torch.device("cuda")
-
-
-GPU_DECODE_CASES = [(4, 4, 2, 16, 8, 64, 0.0), (3, 32, 8, 16, 24, 128, 0.0),
-                    (3, 4, 1, 8, 16, 128, 30.0), (2, 16, 2, 16, 4, 64, 0.0)]
-GPU_PREFILL_CASES = [(4, 96, 4, 2, 8, 6, 64, 0.0),
-                     (4, 256, 32, 8, 16, 24, 128, 0.0),
-                     (3, 128, 8, 8, 16, 8, 128, 30.0),
-                     (2, 200, 16, 1, 16, 4, 64, 0.0)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
-                                      ("bfloat16", "float32"),
-                                      ("bfloat16", "bfloat16")])
-@pytest.mark.parametrize("B,H,K,ps,nb,d,cap", GPU_DECODE_CASES)
-def test_decode_kernel_matches_plain_on_card(cuda, B, H, K, ps, nb, d, cap,
-                                             qdt, kvdt):
-    q, kp, vp, bt, lens = _decode_inputs(B, H, K, ps, nb, d)
-    args = (_th(q, qdt, cuda), _th(kp, kvdt, cuda), _th(vp, kvdt, cuda),
-            _th(bt, qdt, cuda), _th(lens, qdt, cuda))
-    got = paged_decode_attention(*args, cap=cap)
-    torch.cuda.synchronize()
-    want = ref.paged_decode_attention_ref(*args, cap=cap)
-    assert _err(got, want.float().cpu()) <= TOL[qdt]
-    assert float(got[0].abs().max()) == 0.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
-                                      ("bfloat16", "float32"),
-                                      ("bfloat16", "bfloat16")])
-@pytest.mark.parametrize("B,C,H,K,ps,nb,d,cap", GPU_PREFILL_CASES)
-def test_prefill_kernel_matches_plain_on_card(cuda, B, C, H, K, ps, nb, d,
-                                              cap, qdt, kvdt):
-    q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(B, C, H, K, ps, nb, d)
-    args = (_th(q, qdt, cuda), _th(k, qdt, cuda), _th(v, qdt, cuda),
-            _th(kp, kvdt, cuda), _th(vp, kvdt, cuda), _th(bt, qdt, cuda),
-            _th(offs, qdt, cuda), _th(cls, qdt, cuda))
-    got = paged_prefill_attention(*args, cap=cap)
-    torch.cuda.synchronize()
-    want = ref.paged_prefill_attention_ref(*args, cap=cap)
-    assert not torch.isnan(got.float()).any()
-    if qdt == "float32":
-        assert _err(got, want.float().cpu()) <= TOL[qdt]
-    else:                           # tensor cores: the one prefill gate
-        assert _within_prefill_gate(got.cpu(), want.float().cpu().numpy())
-    assert float(got[0].abs().max()) == 0.0
-
-
-GPU_FLASH_CASES = FLASH_CASES + [(10, 32, 8, 374, 128, True, 0, 0.0),
-                                 (2, 16, 2, 130, 128, False, 0, 0.0),
-                                 (2, 25, 5, 1152, 64, True, 1024, 0.0)]
-GPU_SLAB_CASES = SLAB_CASES + [(8, 25, 5, 1024, 64, 0, 0.0),
-                               (2, 32, 1, 96, 128, 40, 0.0)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("qdt,kvdt", [("float32", "float32"),
-                                      ("bfloat16", "float32"),
-                                      ("bfloat16", "bfloat16")])
-@pytest.mark.parametrize("B,H,K,T,d,window,cap", GPU_SLAB_CASES)
-def test_slab_decode_kernel_matches_plain_on_card(cuda, B, H, K, T, d,
-                                                  window, cap, qdt, kvdt):
-    """Head-major slabs and [B, T, K, d] rings read as views."""
-    q, k, v, lens = _slab_inputs(B, H, K, T, d)
-    lens[0] = 0
-    args = (_th(q, qdt, cuda), _th(k, kvdt, cuda), _th(v, kvdt, cuda),
-            _th(lens, qdt, cuda))
-    opts = dict(window=window, cap=cap)
-    want = ref.decode_attention_ref(*args, **opts).float().cpu()
-    got = decode_attention(*args, **opts)
-    ring = [a.transpose(1, 2).contiguous().transpose(1, 2)
-            for a in args[1:3]]
-    got2 = decode_attention(args[0], *ring, args[3], **opts)
-    torch.cuda.synchronize()
-    for g in (got, got2):
-        assert _err(g, want) <= TOL[qdt]
-        assert float(g[0].float().abs().max()) == 0.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,H,K,S,d,causal,window,cap", GPU_FLASH_CASES)
-def test_flash_kernel_matches_plain_on_card(cuda, B, H, K, S, d, causal,
-                                            window, cap, dtype):
-    """Head-major inputs and the model's [B, S, H, d] layout as views;
-    atol = rtol as the reference's test holds its kernel
-    (test_kernels.py:41): the tensor-core path rounds P to bf16, so an
-    output may land one bf16 ulp away."""
-    opts = dict(causal=causal, window=window, cap=cap)
-    args = [_th(a, dtype, cuda) for a in _flash_inputs(B, H, K, S, d)]
-    want = ref.flash_attention_ref(*args, **opts).float().cpu()
-    got = flash_attention(*args, **opts)
-    bshd = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in args]
-    got2 = flash_attention(*bshd, **opts)
-    torch.cuda.synchronize()
-    assert got2.transpose(1, 2).is_contiguous()
-    tol = FLASH_TOL[dtype]
-    for g in (got, got2):
-        assert bool(((g.float().cpu() - want).abs()
-                     <= tol + tol * want.abs()).all())

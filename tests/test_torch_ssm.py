@@ -8,8 +8,8 @@ state under 2e-5 in f32 and 4e-2 in bf16, the reference test's bounds).
 The causal conv, the one-token conv and SSD steps and both mixers are held
 against ``repro.models.ssm`` on the same weights and inputs (f32, within
 2e-5: sums in another order), including right-padded prefill through
-``seq_lens`` and the returned decode state.  Tests marked ``cuda`` hold the
-CUDA kernel against the plain version on the card and skip elsewhere.
+``seq_lens`` and the returned decode state.  The CUDA kernel is held
+against the plain version on the card in ``tests/test_torch_cuda.py``.
 """
 
 import jax
@@ -206,38 +206,3 @@ def test_init_mamba_params_matches_reference_tree():
     dt = torch.nn.functional.softplus(tp["dt_bias"])
     assert float(dt.min()) >= 1e-3 - 1e-7 and float(dt.max()) <= 1e-1 + 1e-7
     assert torch.equal(tp["D"], torch.ones_like(tp["D"]))
-
-
-# ------------------------------- on the card ------------------------------ #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card")
-    return torch.device("cuda")
-
-
-GPU_SSD_CASES = SSD_CASES + [(2, 200, 50, 1, 64, 16, 64),
-                             (1, 77, 6, 3, 32, 16, 32)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,L,H,G,P,N,chunk", GPU_SSD_CASES)
-def test_ssd_kernel_matches_plain_on_card(cuda, b, L, H, G, P, N, chunk,
-                                          dtype):
-    """Contiguous inputs and the model's strided slices of one conv
-    output, ragged L included."""
-    args = [t.to(cuda) for t in _cast(_ssd_inputs(b, L, H, G, P, N), dtype,
-                                      "torch")]
-    yr, sr = ref.ssd_scan_ref(*args)
-    y, st = ssd_scan(*args, chunk=chunk)
-    x, dt, A, B, C = args
-    xbc = torch.cat([x.reshape(b, L, H * P), B.reshape(b, L, G * N),
-                     C.reshape(b, L, G * N)], dim=-1)
-    views = (xbc[..., :H * P].reshape(b, L, H, P), dt, A,
-             xbc[..., H * P:H * P + G * N].reshape(b, L, G, N),
-             xbc[..., H * P + G * N:].reshape(b, L, G, N))
-    y2, st2 = ssd_scan(*views, chunk=chunk)
-    torch.cuda.synchronize()
-    for got, want in ((y, yr), (st, sr), (y2, yr), (st2, sr)):
-        assert _rel(got.cpu(), want.cpu()) < SSD_TOL[dtype]

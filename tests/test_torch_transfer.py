@@ -7,8 +7,8 @@ its Pallas kernel in interpret mode at the reference test's tolerance
 equal across the packages under every codec; a manifest built by either
 package assembles in the other to the other's own output (atol 1e-6); the
 codec bounds, integrity checks, history expiry and a mid-stream install
-follow ``tests/test_transfer.py``.  Tests marked ``cuda`` hold the CUDA
-``fused_dequant`` kernel against its plain version on the card.
+follow ``tests/test_transfer.py``.  The CUDA ``fused_dequant`` kernel is
+held against its plain version on the card in ``tests/test_torch_cuda.py``.
 """
 
 import jax
@@ -370,44 +370,3 @@ def test_engine_swap_weights_midstream_stamps_and_bounds():
     for vs in versions.values():
         assert vs == sorted(vs)                      # monotone versions
         assert vs[0] == 1 and (vs[-1] == 2 or len(vs) <= 4)
-
-
-# ------------------------------ on the card -------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel runs only on the card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("base", [None, "float32", "bfloat16"])
-@pytest.mark.parametrize("R,C", [(8, 16), (100, 37), (256, 128), (1, 5),
-                                 (4096, 1), (33, 12288)])
-def test_dequant_kernel_matches_plain_on_card(cuda, R, C, base):
-    q, scale, b = _dequant_inputs(R, C, base)
-    args = [torch.from_numpy(q).to(cuda), torch.from_numpy(scale).to(cuda),
-            None if b is None else
-            torch.from_numpy(b).to(cuda, getattr(torch, base))]
-    before = fused_dequant.launches
-    got = ops.fused_dequant(*args)
-    torch.cuda.synchronize()
-    assert fused_dequant.launches == before + 1
-    want = ref.dequant_ref(*args)
-    torch.testing.assert_close(got, want, **TOL)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("codec", ["int8", "delta-int8"])
-def test_install_on_card_launches_once_per_int8_leaf(cuda, codec):
-    _, store, _, (p1, _) = _stores("qwen3-8b-bf16")
-    like = jax.tree.map(lambda t: t.to(cuda), p1)
-    m = store.manifest(2, codec, base_version=1)
-    before = fused_dequant.launches
-    got = flatten_params(store.assemble(m, _pull(store, m), like=like,
-                                        base_params=like))
-    assert fused_dequant.launches - before == len(m.leaves)
-    host = flatten_params(assemble_manifest(m, _pull(store, m), like=p1,
-                                            base_params=p1))
-    for k in host:
-        torch.testing.assert_close(got[k].float(), host[k].float(), **TOL)
