@@ -124,8 +124,25 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 and decode tokens/s and peak memory; one prefill's and one
                 decode step's logits with the kernels against the plain
                 versions;
-  9. summary  — one JSON line per the kernels, the card's name and power
-                limit, and the final ``{"ok": true, ...}`` line.
+  9. rl       — ``TorchRLHarness`` on ``HybridRunner``'s real backend in
+                rlboost mode: ``qwen3-8b`` at full width, RL_LAYERS deep,
+                its vocabulary cut to the math tokenizer's 51 ids; 2
+                prompts x 4 samples a step, 16 new tokens at temperature
+                1, H=8, KV migration forced; two spot instances, one
+                reclaimed on the event clock while it holds live requests
+                (its KV pulled by the other engine through ``ChunkPull``);
+                three runs of RL_STEPS steps, with deterministic
+                algorithms: uninterrupted, crashed inside step 3 by the
+                fault plan, and resumed from the last checkpoint, whose
+                responses, params and optimizer state must equal the
+                uninterrupted run's bit for bit; chaos invariants and the
+                accounting identity; launches = layers x dispatches
+                (``[rl]`` lines: wall and event-clock seconds, response
+                tokens and launches per step, checkpoint bytes and
+                seconds, resume seconds, KV imports);
+ 10. summary  — one JSON line per the kernels (rows 1, 2 and 4 count
+                phase 9's launches too), the card's name and power limit,
+                and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
 """
@@ -135,6 +152,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import random
 import subprocess
 import sys
@@ -280,6 +298,28 @@ MIGRATE_AGENT = (1_000_000, 50.0)
 MIGRATE_PLAN = dict(seed=1, corrupt_p=0.05, prune_p=0.05)
 # the delta-int8 pull is preempted once this share of its chunks is cached
 PULL_CANCEL_SHARE = 0.5
+# phase 9: TorchRLHarness on HybridRunner's real backend, qwen3-8b at full
+# width cut to RL_LAYERS layers and to the math tokenizer's vocabulary.
+# Seed 39 (weights, prompts, sampling keys): random weights rarely emit an
+# answer's first character, and most seeds score zero in every step;
+# ``rl_seed_scan`` over seeds 0-199 on an H100 found 39 scoring in steps 1
+# and 3, so the resumed step 3 has a gradient and restores non-zero AdamW
+# moments (the full phase confirmed it: rewards 0.0625, 0, 0.1875)
+RL_LAYERS = 2
+RL_STEPS = 3
+RL_RUNNER = dict(mode="rlboost", n_prompts=2, group_size=4, m_b=4, seed=39,
+                 t_seed_init=5.0, decode_horizon=8, ckpt_keep=2,
+                 migration="kv", compression="none", kv_codec="none")
+RL_HARNESS = dict(max_new=16, temperature=1.0, chunk_bytes=1 << 20)
+# the capacity trace: two spot instances at t = 0, one reclaimed at
+# RL_REMOVE_AT on the event clock, a moment when it holds live requests:
+# ``rl_dry_run`` on an H100 found the older spot instance serving step 1's
+# 8 requests from t = 5.5 to 29.5 (5-8 of them still live at t = 21.5)
+# for seeds 1-9, as for seed 39 here (8 live at t = 20)
+RL_REMOVE_AT = 20.0
+# the crashed run dies this long after the uninterrupted run's step 2
+# ended: after the boundary-2 checkpoint, inside step 3
+RL_CRASH_AFTER = 5.0
 
 
 def fail(msg: str):
@@ -2430,7 +2470,359 @@ def serve14b_phase(torch, InferenceEngine, ops, ref):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: HybridRunner's real backend on TorchRLHarness
+# --------------------------------------------------------------------------- #
+def rl_config():
+    """qwen3-8b at full width (d 4096, 32 / 8 heads of 128, d_ff 12288,
+    tied), RL_LAYERS deep, its vocabulary cut to the math tokenizer's ids
+    as the reference's ``tiny_math_config`` cuts it: with 151,936 ids
+    random weights almost never emit a tokenizer id, so every reward, and
+    every gradient, would be zero."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokenizer as tok
+    return dataclasses.replace(get_config("qwen3-8b"), n_layers=RL_LAYERS,
+                               vocab_size=tok.VOCAB_SIZE)
+
+
+class RLRecorder:
+    """Watches one harness run from outside the runner: each step's wall
+    and event-clock seconds, response tokens and kernel launches, the
+    engines built, the train forwards, the checkpoint saves, each KV
+    import (its source NIC and bytes) and each preemption (the victim's
+    live requests at the notice)."""
+
+    def __init__(self, h, clock):
+        self.h, self.clock = h, clock
+        r, mgr = h.runner, h.runner.manager
+        self.engines, self.saves, self.kv, self.preempts = [], [], [], []
+        self.steps, self.n_train = [], 0
+        self._t0 = self._l0 = None
+
+        factory, train = mgr.engine_factory, r.train_fn
+        start, finish = r.start_step, r._finish_step
+        note, preempt = mgr.note_kv_migration, mgr.preempt
+
+        def engine_factory():
+            self.engines.append(factory())
+            return self.engines[-1]
+
+        def train_fn(mb):
+            self.n_train += 1
+            train(mb)
+
+        def start_step():
+            self._t0, self._l0 = clock(), launch_counts()
+            start()
+
+        def finish_step():
+            step_reqs = r._step_requests
+            finish()
+            m = r.metrics[-1]
+            now = launch_counts()
+            self.steps.append(dict(
+                step=int(m["step.idx"]) + 1, wall_s=clock() - self._t0,
+                event_s=m["step.time_s"], t_end=m["step.t_end"],
+                response_tokens=sum(x.n_generated for x in step_reqs),
+                launches={k: now[k] - self._l0[k] for k in now}))
+
+        def note_kv_migration(reqs, export, pull):
+            self.kv.append(dict(src=export.agent.id, n_reqs=len(reqs),
+                                bytes=pull.bytes_fetched,
+                                t=pull.finished_at))
+            note(reqs, export, pull)
+
+        def preempt_(inst, grace_s=None):
+            self.preempts.append(dict(t=r.loop.now, inst=inst.id,
+                                      nic=inst.nic.id,
+                                      live=len(inst.executing)))
+            preempt(inst, grace_s=grace_s)
+
+        mgr.engine_factory, r.train_fn = engine_factory, train_fn
+        r.start_step, r._finish_step = start_step, finish_step
+        mgr.note_kv_migration, mgr.preempt = note_kv_migration, preempt_
+        if r.recovery is not None:
+            save = r.recovery.save
+
+            def save_(step, run_state, payload):
+                t0 = clock()
+                stats = save(step, run_state, payload)
+                self.saves.append(dict(stats, seconds=clock() - t0))
+                return stats
+            r.recovery.save = save_
+
+
+def launch_counts():
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
+               resume=False, device="cuda"):
+    """One TorchRLHarness on RL_RUNNER / RL_HARNESS (a seeded FaultPlan
+    carrying the trainer crash, if any) with the capacity ``trace`` loaded;
+    returns (harness, recorder, construction seconds: the resume's load
+    and restore when ``resume``)."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.hybrid_runtime import RunnerConfig
+    from repro_torch.rl.harness import TorchRLHarness
+    rc = RunnerConfig(**RL_RUNNER, ckpt_dir=ckpt_dir,
+                      fault_plan=FaultPlan(seed=0,
+                                           trainer_crash_at=tuple(crash_at)))
+    t0 = clock()
+    h = TorchRLHarness(cfg, rc, resume=resume, device=device, **RL_HARNESS)
+    t_build = clock() - t0
+    rec = RLRecorder(h, clock)
+    h.runner.load_trace(trace)
+    return h, rec, t_build
+
+
+def rl_dry_run(clock, cfg, device="cuda", until: float = 60.0):
+    """The phase's harness with no reclaim (two spot instances throughout)
+    and a probe every 0.5 s of the event clock: [(t, {spot instance id:
+    live requests})].  The probe of the instance the reclaim would pick
+    (the oldest) says when RL_REMOVE_AT finds it holding live requests."""
+    from repro_torch.core.spot_trace import TraceEvent
+    h, rec, _ = rl_harness(clock, cfg, [TraceEvent(0.0, +2)], device=device)
+    r, probes = h.runner, []
+
+    def probe():
+        live = {i.id: len(i.executing) for i in r.manager.instances.values()
+                if i.alive and not i.local}
+        probes.append((r.loop.now, live))
+    for k in range(int(until * 2)):
+        r.loop.at(0.5 * k, probe)
+    h.run(RL_STEPS)
+    return probes, rec
+
+
+def rl_seed_scan(torch, cfg, seeds, device="cuda"):
+    """{seed: per-step rewards} of the phase's first RL_STEPS steps rolled
+    out on the harness's initial weights (its ``init_params`` draw, its
+    prompts, request ids and keys; one engine at the phase's horizon and
+    temperature).  While every reward is zero every advantage is, and the
+    weights stay the initial ones, so a seed whose first steps score zero
+    and whose step RL_STEPS does not gives the phase's step RL_STEPS a
+    gradient that is not zero.  Random weights rarely emit the answer's
+    first character, so most seeds score zero throughout."""
+    from repro_torch.data.tasks import MathTaskDataset
+    from repro_torch.models.transformer import init_params
+    from repro_torch.rl.rewards import partial_credit
+    from repro_torch.rl.sampler import request_key
+    from repro_torch.serving.engine import InferenceEngine
+    P, G = RL_RUNNER["n_prompts"], RL_RUNNER["group_size"]
+    out = {}
+    for seed in seeds:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_params(cfg, gen, device)
+        ds = MathTaskDataset(seed=seed, digits=1)
+        eng = InferenceEngine(cfg, params, max_batch=P * G, slab_len=128,
+                              temperature=RL_HARNESS["temperature"],
+                              page_size=16, prefill_chunk=256,
+                              horizon=RL_RUNNER["decode_horizon"],
+                              device=device)
+        steps = []
+        for step in range(RL_STEPS):
+            toks = {}
+            for group in range(step * P, (step + 1) * P):
+                ids = ds.sample(group).prompt_ids
+                rids = range(group * G, (group + 1) * G)
+                eng.add_group([(r, request_key(seed, r),
+                                len(ids) + RL_HARNESS["max_new"])
+                               for r in rids], ids, len(ids))
+                toks.update((r, (group, [])) for r in rids)
+            while eng.active_request_ids():
+                for ev in eng.step():
+                    toks[ev.req_id][1].append(ev.token)
+            steps.append([partial_credit(t, ds.sample(g).answer)
+                          for g, t in toks.values()])
+        out[seed] = steps
+        del eng, params
+    return out
+
+
+def rl_phase(torch, clock):
+    """TorchRLHarness on HybridRunner's real backend in rlboost mode: three
+    runs of the same config, RL_STEPS steps each, every one through the
+    paged kernels (rollout on every engine) and flash (every train
+    forward): uninterrupted, crashed inside step 3, and resumed from the
+    crashed run's last checkpoint.  Deterministic algorithms (and the
+    cuBLAS workspace set before CUDA started) so that a resumed step is
+    bit-equal to an uninterrupted one.  Gates: every step completes
+    n_prompts x group_size responses; the reclaimed spot instance held
+    live requests and shipped their KV to another engine through
+    ChunkPull (n_kv_migrations >= 1, no restart); the chaos invariants
+    and the accounting identity; the resumed run's response set equal to
+    the uninterrupted run's, one resume; its final params and optimizer
+    state bit-equal; some step-3 reward not zero; launches = layers x
+    dispatches.  Returns (launch counts, summary)."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.core.faults import TrainerCrash, check_invariants
+    from repro_torch.core.spot_trace import TraceEvent
+    from repro_torch.optim import adamw
+    t_phase = clock()
+    torch.use_deterministic_algorithms(True)
+    cfg = rl_config()
+    ckpt_dir = ROOT / "build" / "chip_runs" / "rl_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    trace = [TraceEvent(0.0, +2), TraceEvent(RL_REMOVE_AT, -1)]
+    n_rows = RL_RUNNER["n_prompts"] * RL_RUNNER["group_size"]
+    reset_launches()
+
+    def summary(tag, h, rec, metrics):
+        for st in rec.steps:
+            log(f"[rl] {tag} step {st['step']}: wall {st['wall_s']:.3f} s, "
+                f"event clock {st['event_s']:.4f} s (ends at "
+                f"{st['t_end']:.4f}), {st['response_tokens']} response "
+                f"tokens, launches {st['launches']}")
+        for sv in rec.saves:
+            log(f"[rl] {tag} checkpoint at boundary {sv['step']}: "
+                f"{sv['bytes_written']} B written in {sv['n_chunks_written']}"
+                f" chunks, {sv['n_chunks_reused']} reused, "
+                f"{sv['seconds']:.3f} s")
+        m = metrics[-1] if metrics else {}
+        log(f"[rl] {tag}: {len(rec.engines)} engines built, "
+            f"{rec.n_train} train forwards, preemptions {rec.preempts}, "
+            f"KV imports {rec.kv}; migration.n_kv_migrations "
+            f"{m.get('migration.n_kv_migrations')}, n_restarts "
+            f"{m.get('migration.n_restarts')}, kv_bytes_pulled (modeled) "
+            f"{m.get('migration.kv_bytes_pulled')}; step rewards "
+            f"{h.step_rewards}")
+
+    def check_run(tag, h, rec, metrics, n_steps):
+        r = h.runner
+        if len(metrics) != n_steps:
+            fail(f"rl {tag}: {len(metrics)} step metrics, want {n_steps}")
+        by_step = {}
+        for x in r.journal.completed.values():
+            by_step[x["step"]] = by_step.get(x["step"], 0) + 1
+        if any(by_step.get(s, 0) != n_rows for s in range(RL_STEPS)):
+            fail(f"rl {tag}: responses per step {by_step}, want {n_rows}")
+        if metrics[-1]["migration.n_restarts"] != 0:
+            fail(f"rl {tag}: a reclaim restarted requests")
+        check_invariants(r.manager, [], journal=r.journal)
+        obs.check_accounting(r.manager, now=r.loop.now)
+        # every kernel launch of the run is layers x its dispatches
+        want = dict.fromkeys(launch_counts(), 0)
+        L, H = cfg.n_layers, RL_RUNNER["decode_horizon"]
+        want["paged_decode_attention"] = L * H * sum(
+            e.n_decode_dispatches for e in rec.engines)
+        want["paged_prefill_attention"] = L * sum(
+            e.n_prefill_dispatches for e in rec.engines)
+        want["flash_attention"] = L * rec.n_train
+        got = {k: sum(st["launches"][k] for st in rec.steps)
+               for k in want}
+        log(f"[rl] {tag}: launches in its steps {got}, expected {want} "
+            f"(layers x dispatches of {len(rec.engines)} engines, "
+            f"{rec.n_train} train forwards)")
+        if got != want or not all(got[k] for k in (
+                "paged_decode_attention", "paged_prefill_attention",
+                "flash_attention")):
+            fail(f"rl {tag}: kernel launches {got} != expected {want}")
+
+    # 1. uninterrupted
+    torch.cuda.reset_peak_memory_stats()
+    h0, rec0, _ = rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir))
+    n_params = sum(t.numel() for t in adamw.tree_leaves(h0.params))
+    log(f"[rl] {cfg.name} at full width (d={cfg.d_model} H={cfg.n_heads} "
+        f"K={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff}, tied), "
+        f"{cfg.n_layers} layers, vocab cut to the math tokenizer's "
+        f"{cfg.vocab_size} ids: {n_params} params; runner {RL_RUNNER}, "
+        f"harness {RL_HARNESS}; trace +2 at 0, -1 at {RL_REMOVE_AT}")
+    m0, rw0 = h0.run(RL_STEPS)
+    summary("uninterrupted", h0, rec0, m0)
+    check_run("uninterrupted", h0, rec0, m0, RL_STEPS)
+    removed = [p for p in rec0.preempts if p["live"] > 0]
+    from_removed = [k for k in rec0.kv
+                    if removed and k["src"] == removed[0]["nic"]]
+    if len(rec0.preempts) != 1 or not removed:
+        fail(f"rl: the reclaim at {RL_REMOVE_AT} found no live requests on "
+             f"its victim ({rec0.preempts})")
+    if m0[-1]["migration.n_kv_migrations"] < 1 or not from_removed:
+        fail(f"rl: no KV migration from the reclaimed instance "
+             f"({rec0.kv})")
+    if not rw0[RL_STEPS - 1] > 0:
+        fail(f"rl: step {RL_STEPS} rewards are all zero ({rw0})")
+    peak0 = torch.cuda.max_memory_allocated() / 1e9
+
+    # 2. crashed inside step 3
+    crash_t = m0[RL_STEPS - 2]["step.t_end"] + RL_CRASH_AFTER
+    h1, rec1, _ = rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir),
+                             crash_at=(crash_t,))
+    t0 = clock()
+    try:
+        h1.run(RL_STEPS)
+    except TrainerCrash as crash:
+        log(f"[rl] crashed run: {crash} after {clock() - t0:.3f} s; "
+            f"checkpoints at boundaries {[s['step'] for s in rec1.saves]}")
+    else:
+        fail("rl: the crashed run did not crash")
+    summary("crashed", h1, rec1, h1.runner.metrics)
+    if h1.runner.step_idx != RL_STEPS - 1:
+        fail(f"rl: the crash at {crash_t:.4f} did not land in step "
+             f"{RL_STEPS} (step_idx {h1.runner.step_idx})")
+    del h1, rec1
+    torch.cuda.empty_cache()
+
+    # 3. resumed from the crashed run's last checkpoint
+    h2, rec2, t_resume = rl_harness(clock, cfg, trace,
+                                    ckpt_dir=str(ckpt_dir),
+                                    crash_at=(crash_t,), resume=True)
+    log(f"[rl] resumed at step {h2.runner.step_idx + 1} (t = "
+        f"{h2.runner.loop.now:.4f}) in {t_resume:.3f} s (load and restore)")
+    m2, rw2 = h2.run(RL_STEPS)
+    summary("resumed", h2, rec2, m2)
+    check_run("resumed", h2, rec2, m2, 1)
+    if h2.runner.registry.counters.get("recovery.n_resumes") != 1:
+        fail("rl: the resumed run did not count one resume")
+    if h2.runner.journal.response_set() != h0.runner.journal.response_set():
+        fail("rl: the resumed run's responses differ from the "
+             "uninterrupted run's")
+    diff = [k for (k, a), (_, b) in zip(
+        _items(h0.params) + _items(h0.opt), _items(h2.params)
+        + _items(h2.opt)) if not torch.equal(a, b)]
+    if diff:
+        fail(f"rl: {len(diff)} leaves of the resumed run's params and "
+             f"optimizer state differ from the uninterrupted run's, first "
+             f"{diff[0]}")
+    if rw2 != rw0:
+        fail(f"rl: step rewards {rw2} != uninterrupted {rw0}")
+    launches = launch_counts()
+    torch.use_deterministic_algorithms(False)
+    ckpt_bytes = h0.runner.registry.counters.get("ckpt.bytes_written", 0)
+    t_phase = clock() - t_phase
+    log(f"[rl] resumed run: same {len(h2.runner.journal.response_set())} "
+        f"responses as the uninterrupted run, params and optimizer state "
+        f"bit-equal ({len(_items(h2.params)) + len(_items(h2.opt))} leaves),"
+        f" step rewards {rw2}; checkpoint bytes written "
+        f"(uninterrupted run, ckpt.bytes_written) {ckpt_bytes}; phase "
+        f"{t_phase:.1f} s, peak memory {peak0:.2f} GB (uninterrupted run)")
+    out = dict(n_params=n_params, phase_s=t_phase, peak_gb=peak0,
+               crash_t=crash_t, resume_s=t_resume, ckpt_bytes=ckpt_bytes,
+               rewards=rw0, launches=launches,
+               runs={tag: dict(steps=rec.steps, saves=rec.saves, kv=rec.kv,
+                               preempts=rec.preempts,
+                               engines=len(rec.engines))
+                     for tag, rec in (("uninterrupted", rec0),
+                                      ("resumed", rec2))})
+    del h0, h2
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _items(tree):
+    from repro_torch.transfer.chunkstore import tree_items
+    return list(tree_items(tree))
+
+
 def main():
+    # phase 9 runs with deterministic algorithms, which need cuBLAS's
+    # workspace fixed before CUDA starts (32 MiB, its default size here)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2585,7 +2977,11 @@ def main():
     torch.cuda.empty_cache()
     serve14b = serve14b_phase(torch, InferenceEngine, ops, ref)
 
-    # ---- 9. summary ----
+    # ---- 9. HybridRunner's real backend on TorchRLHarness ----
+    torch.cuda.empty_cache()
+    rl_launches, rl = rl_phase(torch, clock)
+
+    # ---- 10. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -2605,8 +3001,10 @@ def main():
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
+        # phase 9 runs the paged kernels and flash too: its launches add
         rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=n[name], **r))
+                         replaces=replaces,
+                         launches=n[name] + rl_launches[name], **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2618,7 +3016,7 @@ def main():
         {"kernels": rows, "installs": installs, "flash_cases": fla_cases,
          "decode_cases": dec_cases, "prefill_cases": pre_cases,
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
-         "serve14b": serve14b,
+         "serve14b": serve14b, "rl": rl,
          "nvidia_smi": smi.stdout.strip()}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])

@@ -95,6 +95,33 @@ class ModelConfig:
         """Mixer kind for every layer, in order."""
         return self.pattern * (self.n_layers // len(self.pattern))
 
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings included once if tied),
+        by the reference's formula for these families."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        total = V * D  # embeddings
+        if not self.tie_embeddings:
+            total += V * D
+        for mix in self.layer_mixers():
+            if mix in ("global", "hybrid"):
+                H, K, dh = self.n_heads, self.n_kv_heads, self.head_dim
+                total += D * (H + 2 * K) * dh + H * dh * D
+            if mix in ("mamba", "hybrid"):
+                din = self.d_inner
+                d_in_proj = (2 * din + 2 * self.ssm_groups * self.ssm_state
+                             + self.ssm_nheads)
+                total += D * d_in_proj + din * D
+                total += self.ssm_conv * self.conv_dim + self.conv_dim
+                total += 3 * self.ssm_nheads + din
+            if self.mlp_kind == "dense":
+                total += 3 * D * F
+            total += 2 * D  # norms
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token: every parameter (no MoE here)."""
+        return self.param_count()
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
         ``reduced`` for these families)."""

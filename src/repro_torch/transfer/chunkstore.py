@@ -106,12 +106,12 @@ def flatten_params(tree) -> "OrderedDict[str, torch.Tensor]":
                        for k, v in tree_items(tree))
 
 
-def _unflatten_like(like, flat: Mapping[str, torch.Tensor], path: str = ""):
+def unflatten_like(like, flat: Mapping[str, torch.Tensor], path: str = ""):
     """``like``'s nested dict with each leaf replaced by ``flat[key]``."""
     out = {}
     for k, v in like.items():
         key = f"{path}[{k!r}]"
-        out[k] = (_unflatten_like(v, flat, key) if isinstance(v, dict)
+        out[k] = (unflatten_like(v, flat, key) if isinstance(v, dict)
                   else flat[key])
     return out
 
@@ -295,7 +295,7 @@ def assemble_manifest(manifest: Manifest, chunks: Mapping[str, bytes], *,
                                               device=device, tracer=tracer)
     if like is None:
         return out
-    return _unflatten_like(like, out)
+    return unflatten_like(like, out)
 
 
 # --------------------------------------------------------------------------- #
