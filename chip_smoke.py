@@ -44,9 +44,21 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 generator) served through ``InferenceEngine``: 2 GRPO groups
                 of 4 plus 2 single requests, ~300-token prompts,
                 prefill_chunk 256, 64 new tokens, H=8 greedy (launch counts
-                read from this run), then H=1 greedy (must emit the same
-                tokens) and H=8 at temperature 1; one prefill's logits with
-                the kernels against the plain attention;
+                read from this run; each decode horizon one CUDA graph
+                replay after the key's eager first horizon and capture),
+                the same eagerly (tokens and logprobs bit-equal, decode
+                tok/s of both), then H=1 greedy (must emit the same
+                tokens) and H=8 at temperature 1 with graphs and eagerly
+                (bit-equal); one steady horizon of 10 rows under
+                torch.profiler with graphs and eagerly (wall, device busy,
+                idle share, host launch calls: one ``cudaGraphLaunch`` and
+                no kernel launch with graphs; each decode kernel's
+                profiler count equal to its wrapper's launches); one
+                prefill dispatch of the 4 prompts profiled (``[profile]
+                qwen3-8b prefill``); one prefill's logits with the kernels
+                against the plain attention; a ``[graph]`` line for this
+                and each later phase (captures, replays, invalidations,
+                padded reuse, capture seconds, graph-pool bytes);
   4. install  — the trainer side publishes v0 (the serving weights) and v1
                 (v0 x 1.01 plus seeded noise) into a ``WeightStore``; while
                 the same mix is in flight, a ``delta-int8`` manifest of v1
@@ -100,7 +112,10 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 in one dispatch, 64 new tokens greedy at H=8 (launches:
                 layers x decode steps for ``decode_attention``, layers x
                 prefill dispatches for ``ssd_scan`` and
-                ``flash_attention``), then H=1 (same tokens); one
+                ``flash_attention``), then H=1 (same tokens) and H=8
+                eagerly (tokens and logprobs bit-equal to the graph
+                run's); one steady horizon profiled with graphs and
+                eagerly, as in phase 3; one
                 prefill's and one decode step's logits with the kernels
                 against the plain versions, and the prefill's once more
                 with flash on its f32 path (which separates flash's bf16
@@ -136,10 +151,14 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 fault plan, and resumed from the last checkpoint, whose
                 responses, params and optimizer state must equal the
                 uninterrupted run's bit for bit; chaos invariants and the
-                accounting identity; launches = layers x dispatches
-                (``[rl]`` lines: wall and event-clock seconds, response
-                tokens and launches per step, checkpoint bytes and
-                seconds, resume seconds, KV imports);
+                accounting identity; launches = layers x dispatches;
+                then a fourth run with streamed collection, whose
+                responses, staleness, rewards, params and optimizer state
+                must equal the uninterrupted (batch) run's, with overlap
+                credited, every row preprocessed and the reward cache
+                empty (``[rl]`` lines: wall and event-clock seconds,
+                response tokens and launches per step, checkpoint bytes
+                and seconds, resume seconds, KV imports);
  10. summary  — one JSON line per the kernels (rows 1, 2 and 4 count
                 phase 9's launches too), the card's name and power limit,
                 and the final ``{"ok": true, ...}`` line.
@@ -161,6 +180,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = []        # the kernel wrappers, each with its ``launches`` count
+GRAPHS = {}         # phase -> its horizon-cache row (``graph_phase``)
 # time_ms: clock cycles the card spins before each timed call, ~0.1 ms at
 # the H100's ~1.8 GHz, more than a wrapper's host time
 SPIN_CYCLES = 200_000
@@ -1068,11 +1088,12 @@ def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
 
 
 def make_engine(InferenceEngine, cfg, params, *, horizon=8, temperature=0.0,
-                tracer=None):
+                tracer=None, cuda_graphs=True, prefill_chunk=256):
     return InferenceEngine(cfg, params, max_batch=10, slab_len=512,
-                           page_size=16, prefill_chunk=256, horizon=horizon,
-                           temperature=temperature, tracer=tracer,
-                           device="cuda")
+                           page_size=16, prefill_chunk=prefill_chunk,
+                           horizon=horizon, temperature=temperature,
+                           tracer=tracer, device="cuda",
+                           cuda_graphs=cuda_graphs)
 
 
 def admit(eng, prompts, rid0: int = 0):
@@ -1117,11 +1138,13 @@ def drive(eng, rids):
 
 
 def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
-          temperature, tracer=None):
+          temperature, tracer=None, cuda_graphs=True):
     """The smoke mix to completion; every kernel's launch count is zeroed
-    before the run and checked after."""
+    before the run and checked after.  ``cuda_graphs=False``: every
+    horizon eagerly (the yardstick the graph path is held to)."""
     eng = make_engine(InferenceEngine, cfg, params, horizon=horizon,
-                      temperature=temperature, tracer=tracer)
+                      temperature=temperature, tracer=tracer,
+                      cuda_graphs=cuda_graphs)
     rids = admit(eng, prompts)
     reset_launches()
     t0 = time.perf_counter()
@@ -1130,29 +1153,71 @@ def serve(torch, InferenceEngine, cfg, params, prompts, *, horizon,
     wall = time.perf_counter() - t0
     launches = check_launches(
         cfg, eng, f"{'greedy' if temperature <= 0 else f'T={temperature}'} "
-        f"H={horizon}", eng.n_decode_dispatches, eng.n_prefill_dispatches)
+        f"H={horizon}{'' if cuda_graphs else ' eager'}",
+        eng.n_decode_dispatches, eng.n_prefill_dispatches)
     for r, evs in out.items():
         if not all(math.isfinite(lp) for _, lp in evs):
             fail(f"engine: request {r} has a non-finite logprob")
     return eng, out, wall, launches
 
 
+def serve_eager(torch, cfg, graph_out, eager, graph_tok_s: float,
+                tag: str = "[engine]"):
+    """Hold an eager serve (``serve`` / ``serve_hybrid`` with
+    ``cuda_graphs=False`` and a tracer) to the graph run's output: tokens
+    and logprobs bit-equal.  Logs both decode rates; returns the eager
+    run's."""
+    eng, out, wall, _ = eager
+    if out != graph_out:
+        bad = [r for r in graph_out if out.get(r) != graph_out[r]]
+        fail(f"{cfg.name}: graph-replayed tokens / logprobs differ from "
+             f"eager ones for requests {bad}")
+    spans = eng.tracer.spans()
+    t_dec = sum(sp.duration for sp in spans if sp.name == "engine.decode")
+    n_dec = sum(len(v) for v in out.values()) - len(out)
+    tok_s = n_dec / t_dec
+    log(f"{tag} {cfg.name} eager H={eng.horizon}: tokens and logprobs "
+        f"bit-equal to the graph run's; decode {tok_s:.1f} tok/s eager "
+        f"against {graph_tok_s:.1f} with graphs ({t_dec:.3f} s, wall "
+        f"{wall:.3f} s)")
+    del eng
+    return dict(decode_tok_s=tok_s, decode_s=t_dec, wall_s=wall)
+
+
+# host-side launch calls in a profile: one graph launch against a kernel
+# launch per op
+GRAPH_LAUNCH_API = "cudaGraphLaunch"
+KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx")
+# each decode wrapper's first kernel (one launch of it a wrapper call)
+DECODE_KERNEL_NAMES = {"paged_decode_attention": "paged_decode_split_kernel",
+                       "decode_attention": "slab_decode_split_kernel"}
+
+
 def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
                    tag: str = "[profile]"):
     """Where one steady decode horizon's time goes: torch.profiler over one
     ``step()`` of ``eng`` after every prefill is done (``n_rows`` single
-    requests cycling over ``prompts``)."""
+    requests cycling over ``prompts``) and two more horizons (with graphs:
+    the key's capture, then a replay), so that the profiled step is a pure
+    replay, which is gated.  Host launch calls counted (one
+    ``cudaGraphLaunch`` and no kernel launch with graphs); each decode
+    wrapper's launch count gated against the profiler's count of its
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.rl.sampler import request_key
+    from repro_torch.serving.engine import graph_cache_stats
     for i in range(n_rows):
         p = prompts[i % len(prompts)]
         eng.add_request(i, p, request_key(1, i), len(p) + 64, len(p))
     while eng.waiting:
         eng.step()
-    eng.step()                                  # warm: first full horizon
+    for _ in range(2):                          # warm: capture, replay
+        eng.step()
     torch.cuda.synchronize()
     n_dec, n_pre = eng.n_decode_dispatches, eng.n_prefill_dispatches
+    s0 = graph_cache_stats()
     reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1160,17 +1225,42 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    check_launches(cfg, eng, f"{cfg.name} profiled horizon",
-                   eng.n_decode_dispatches - n_dec,
-                   eng.n_prefill_dispatches - n_pre)
+    s1 = graph_cache_stats()
+    mode = "graph" if eng.cuda_graphs else "eager"
+    launches = check_launches(cfg, eng, f"{cfg.name} profiled horizon "
+                              f"({mode})", eng.n_decode_dispatches - n_dec,
+                              eng.n_prefill_dispatches - n_pre)
+    if eng.cuda_graphs and (s1["captures"] != s0["captures"]
+                            or s1["replays"] != s0["replays"] + 1):
+        fail(f"{cfg.name}: the profiled horizon was not one replay of a "
+             f"captured graph ({s0} -> {s1})")
+    api = {k: 0 for k in (GRAPH_LAUNCH_API,) + KERNEL_LAUNCH_APIS}
+    for e in prof.key_averages():
+        if e.key in api:
+            api[e.key] += e.count
+    n_kernel_api = sum(api[k] for k in KERNEL_LAUNCH_APIS)
     rows = device_rows(prof)
+    for wrapper, kname in DECODE_KERNEL_NAMES.items():
+        seen = sum(c for _, c, n in rows if kname in n)
+        if launches[wrapper] and seen != launches[wrapper]:
+            fail(f"{cfg.name} profiled horizon ({mode}): {wrapper} counted "
+                 f"{launches[wrapper]} launches, the profiler {seen} "
+                 f"{kname}")
     busy_ms = sum(r[0] for r in rows)
+    log(f"{tag} one decode horizon ({what}, {mode}): host launch calls "
+        f"{api}; decode kernels in the profile equal the wrappers' "
+        f"launch counts")
+    if eng.cuda_graphs and (api[GRAPH_LAUNCH_API] != 1 or n_kernel_api):
+        fail(f"{cfg.name}: the profiled graph horizon made "
+             f"{api[GRAPH_LAUNCH_API]} graph launches and {n_kernel_api} "
+             f"kernel launches (want 1 and 0)")
     if busy_ms <= 0:
         log(f"{tag} wall {wall_ms:.2f} ms; device time not measured "
             f"(the profiler reported no CUDA kernels)")
         return None
-    log(f"{tag} one decode horizon ({what}): wall {wall_ms:.2f} ms, device "
-        f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    log(f"{tag} one decode horizon ({what}, {mode}): wall {wall_ms:.2f} ms, "
+        f"device busy {busy_ms:.2f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
     ranked = sorted(rows, reverse=True)
     # the top eight rows, and every decode kernel's row (the split
     # decodes' merge may rank below them)
@@ -1178,7 +1268,57 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
         if k < 8 or "decode" in name or "split_merge" in name:
             log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms)
+                idle_share=1 - busy_ms / wall_ms, api=api,
+                kernels=sum(c for _, c, _ in rows))
+
+
+def profile_decode_pair(torch, cfg, make, prompts, n_rows: int, what: str,
+                        tag: str = "[profile]"):
+    """``profile_decode`` on a graph engine and on an eager one built
+    alike (the same engine state at the profiled step)."""
+    out = {}
+    for graphs in (True, False):
+        out["graph" if graphs else "eager"] = profile_decode(
+            torch, cfg, make(graphs), prompts, n_rows, what, tag)
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def graph_phase(tag: str):
+    """The horizon cache over one phase, as a ``[graph]`` line and a GRAPHS
+    row: captures, replays, padded reuse and invalidations (deltas of
+    ``graph_cache_stats()``), each capture's seconds and its engine's
+    graph-pool bytes just after it (read by wrapping
+    ``InferenceEngine._capture``: a yardstick for this script only)."""
+    from repro_torch.serving import engine as engine_mod
+    cls = engine_mod.InferenceEngine
+    capture, caps = cls._capture, []
+
+    def _capture(self, entry, bt):
+        capture(self, entry, bt)
+        caps.append((self.graph_capture_s[-1], self.graph_pool_bytes()))
+    s0 = engine_mod.graph_cache_stats()
+    cls._capture = _capture
+    try:
+        yield
+    finally:
+        cls._capture = capture
+    s1 = engine_mod.graph_cache_stats()
+    row = {k: s1[k] - s0[k] for k in s1}
+    row.update(widths_registered=s1["entries"],
+               capture_s=[c for c, _ in caps],
+               pool_bytes=[b for _, b in caps])
+    secs = row["capture_s"]
+    log(f"[graph] {tag}: captures {row['captures']}, replays "
+        f"{row['replays']}, invalidations {row['invalidations']}, padded "
+        f"reuse {row['padded_reuse']}, widths registered "
+        f"{row['widths_registered']}; capture s "
+        + (f"mean {sum(secs) / len(secs):.4f} max {max(secs):.4f}"
+           if secs else "none")
+        + f"; graph pool bytes after each capture, max "
+        f"{max(row['pool_bytes'], default=0)}")
+    GRAPHS[tag] = row
 
 
 def device_rows(prof):
@@ -2029,14 +2169,14 @@ def profile_train(prof, wall_ms: float):
 # phase 7: the hybrid and SSM families at full width
 # --------------------------------------------------------------------------- #
 def make_hybrid_engine(InferenceEngine, cfg, params, *, horizon=8,
-                       tracer=None):
+                       tracer=None, cuda_graphs=True):
     """8 slots; slab_len 1024 makes Hymba's ring its whole window; the
     prefill budget takes every prompt of the mix in one dispatch."""
     return InferenceEngine(cfg, params, max_batch=8, slab_len=HYBRID_SLAB,
                            page_size=16,
                            prefill_chunk=sum(HYBRID_PROMPT_LENS),
                            horizon=horizon, temperature=0.0, tracer=tracer,
-                           device="cuda")
+                           device="cuda", cuda_graphs=cuda_graphs)
 
 
 def admit_singles(eng, prompts):
@@ -2050,18 +2190,19 @@ def admit_singles(eng, prompts):
 
 
 def serve_hybrid(torch, InferenceEngine, cfg, params, prompts, *, horizon,
-                 tracer=None):
+                 tracer=None, cuda_graphs=True):
     """The phase-7 mix to completion, greedy; launch counts zeroed before
     the run and checked after; the whole mix prefills in one dispatch."""
     eng = make_hybrid_engine(InferenceEngine, cfg, params, horizon=horizon,
-                             tracer=tracer)
+                             tracer=tracer, cuda_graphs=cuda_graphs)
     rids = admit_singles(eng, prompts)
     reset_launches()
     t0 = time.perf_counter()
     out, _ = drive(eng, rids)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = check_launches(cfg, eng, f"{cfg.name} greedy H={horizon}",
+    launches = check_launches(cfg, eng, f"{cfg.name} greedy H={horizon}"
+                              f"{'' if cuda_graphs else ' eager'}",
                               eng.n_decode_dispatches,
                               eng.n_prefill_dispatches)
     if eng.n_prefill_dispatches != 1 or eng.supports_prefix_sharing:
@@ -2078,7 +2219,8 @@ def profile_prefill(torch, cfg, eng, prompts):
     """Where one prefill dispatch's time goes: torch.profiler over the
     ``step()`` of a fresh engine that prefills the whole mix in one
     dispatch (untimed, like the train profile): wall and device busy time,
-    the ``ssd_scan`` kernels' device time and share, the top five rows."""
+    the device time and share of the prefill's attention kernel (the
+    dense family) or of the ``ssd_scan`` kernels, the top five rows."""
     from torch.profiler import ProfilerActivity, profile
     admit_singles(eng, prompts)
     torch.cuda.synchronize()
@@ -2102,20 +2244,23 @@ def profile_prefill(torch, cfg, eng, prompts):
         log(f"{tag}: wall {wall_ms:.2f} ms; device time not measured (the "
             f"profiler reported no CUDA kernels)")
         return None
-    scan = [r for r in rows if "ssd_" in r[2]]
+    wrapper, key = (("ssd_scan", "ssd_") if cfg.has_ssm else
+                    ("paged_prefill_attention", "paged_prefill"))
+    scan = [r for r in rows if key in r[2]]
     scan_ms, scan_n = sum(r[0] for r in scan), sum(r[1] for r in scan)
     log(f"{tag} (one dispatch of {eng.n_prefill_tokens} tokens in "
         f"{len(prompts)} rows, profiler on, not timed elsewhere): wall "
         f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; ssd_scan kernels {scan_ms:.3f} ms "
-        f"in {scan_n} kernels ({launches['ssd_scan']} launches), "
+        f"{1 - busy_ms / wall_ms:.3f}; {wrapper} kernels {scan_ms:.3f} ms "
+        f"in {scan_n} kernels ({launches[wrapper]} launches), "
         f"{scan_ms / busy_ms:.3f} of device busy")
     top = sorted(rows, reverse=True)[:5]
     for ms, count, name in top:
         log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms, ssd_ms=scan_ms,
-                ssd_kernels=scan_n, ssd_share=scan_ms / busy_ms,
+                idle_share=1 - busy_ms / wall_ms, kernel=wrapper,
+                kernel_ms=scan_ms, kernel_count=scan_n,
+                kernel_share=scan_ms / busy_ms,
                 top=[dict(ms=ms, count=c, name=n) for ms, c, n in top])
 
 
@@ -2316,6 +2461,11 @@ def hybrid_phase(torch, InferenceEngine, clock, ops, ref):
             hymba_launches = launches
         del eng
         torch.cuda.empty_cache()
+        row["eager"] = serve_eager(torch, cfg, greedy8, serve_hybrid(
+            torch, InferenceEngine, cfg, params, prompts, horizon=8,
+            tracer=Tracer(clock), cuda_graphs=False), row["decode_tok_s"],
+            "[hybrid]")
+        torch.cuda.empty_cache()
         eng1, greedy1, wall1, _ = serve_hybrid(
             torch, InferenceEngine, cfg, params, prompts, horizon=1)
         if {r: [t for t, _ in v] for r, v in greedy1.items()} != \
@@ -2330,8 +2480,9 @@ def hybrid_phase(torch, InferenceEngine, clock, ops, ref):
             torch, cfg, make_hybrid_engine(InferenceEngine, cfg, params),
             prompts)
         torch.cuda.empty_cache()
-        row["profile"] = profile_decode(
-            torch, cfg, make_hybrid_engine(InferenceEngine, cfg, params),
+        row["profile"] = profile_decode_pair(
+            torch, cfg, lambda graphs: make_hybrid_engine(
+                InferenceEngine, cfg, params, cuda_graphs=graphs),
             prompts, len(prompts), f"{cfg.name}, H=8, {len(prompts)} rows, "
             f"contexts {min(HYBRID_PROMPT_LENS)}-{max(HYBRID_PROMPT_LENS)}",
             "[hybrid]")
@@ -2559,7 +2710,7 @@ def launch_counts():
 
 
 def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
-               resume=False, device="cuda"):
+               resume=False, device="cuda", collection="batch"):
     """One TorchRLHarness on RL_RUNNER / RL_HARNESS (a seeded FaultPlan
     carrying the trainer crash, if any) with the capacity ``trace`` loaded;
     returns (harness, recorder, construction seconds: the resume's load
@@ -2567,7 +2718,7 @@ def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.hybrid_runtime import RunnerConfig
     from repro_torch.rl.harness import TorchRLHarness
-    rc = RunnerConfig(**RL_RUNNER, ckpt_dir=ckpt_dir,
+    rc = RunnerConfig(**RL_RUNNER, ckpt_dir=ckpt_dir, collection=collection,
                       fault_plan=FaultPlan(seed=0,
                                            trainer_crash_at=tuple(crash_at)))
     t0 = clock()
@@ -2790,6 +2941,14 @@ def rl_phase(torch, clock):
              f"{diff[0]}")
     if rw2 != rw0:
         fail(f"rl: step rewards {rw2} != uninterrupted {rw0}")
+
+    # 4. streamed collection, against the uninterrupted (batch) run
+    h3, rec3, _ = rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir),
+                             collection="streamed")
+    m3, rw3 = h3.run(RL_STEPS)
+    summary("streamed", h3, rec3, m3)
+    check_run("streamed", h3, rec3, m3, RL_STEPS)
+    streamed = streamed_gates(torch, h0, rw0, h3, m3, rw3, n_rows)
     launches = launch_counts()
     torch.use_deterministic_algorithms(False)
     ckpt_bytes = h0.runner.registry.counters.get("ckpt.bytes_written", 0)
@@ -2802,16 +2961,52 @@ def rl_phase(torch, clock):
         f"{t_phase:.1f} s, peak memory {peak0:.2f} GB (uninterrupted run)")
     out = dict(n_params=n_params, phase_s=t_phase, peak_gb=peak0,
                crash_t=crash_t, resume_s=t_resume, ckpt_bytes=ckpt_bytes,
-               rewards=rw0, launches=launches,
+               rewards=rw0, launches=launches, streamed=streamed,
                runs={tag: dict(steps=rec.steps, saves=rec.saves, kv=rec.kv,
                                preempts=rec.preempts,
                                engines=len(rec.engines))
                      for tag, rec in (("uninterrupted", rec0),
-                                      ("resumed", rec2))})
-    del h0, h2
+                                      ("resumed", rec2),
+                                      ("streamed", rec3))})
+    del h0, h2, h3
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches, out
+
+
+def streamed_gates(torch, hb, rwb, hs, ms, rws, n_rows: int):
+    """The streamed run held to the batch run as the CPU test holds it:
+    the same responses, staleness and rewards, params and optimizer state
+    bit-equal, overlap credited, every row preprocessed and the reward
+    cache empty.  Returns its summary."""
+    if hs.runner.journal.response_set() != hb.runner.journal.response_set():
+        fail("rl streamed: responses differ from the batch run's")
+    st_s = [x["n"] for x in hs.staleness]
+    st_b = [x["n"] for x in hb.staleness]
+    if st_s != st_b:
+        fail(f"rl streamed: staleness {st_s} != batch {st_b}")
+    if rws != rwb:
+        fail(f"rl streamed: step rewards {rws} != batch {rwb}")
+    diff = [k for (k, a), (_, b) in zip(
+        _items(hb.params) + _items(hb.opt), _items(hs.params)
+        + _items(hs.opt)) if not torch.equal(a, b)]
+    if diff:
+        fail(f"rl streamed: {len(diff)} leaves of params and optimizer "
+             f"state differ from the batch run's, first {diff[0]}")
+    overlap = ms[-1]["rollout.overlap_s"]
+    pre = hs.runner.collector.n_rows_preprocessed
+    if not overlap > 0.0 or pre != n_rows * RL_STEPS or hs._reward_cache:
+        fail(f"rl streamed: rollout.overlap_s {overlap}, rows preprocessed "
+             f"{pre} (want {n_rows * RL_STEPS}), reward cache "
+             f"{len(hs._reward_cache)}")
+    log(f"[rl] streamed run: same {len(hs.runner.journal.response_set())} "
+        f"responses, staleness {st_s} and step rewards {rws} as the batch "
+        f"run, params and optimizer state bit-equal; rollout.overlap_s "
+        f"{overlap:.4f} (event clock), {pre} rows preprocessed, "
+        f"{hs.runner.collector.n_stream_tokens} stream tokens")
+    return dict(overlap_s=overlap, rows_preprocessed=pre, staleness=st_s,
+                stream_tokens=hs.runner.collector.n_stream_tokens,
+                t_end=ms[-1]["step.t_end"])
 
 
 def _items(tree):
@@ -2903,45 +3098,71 @@ def main():
 
     tracer = Tracer(clock)
     torch.cuda.reset_peak_memory_stats()
-    # the main path: its launch counts go into the kernel summary
-    eng, greedy8, wall, launches = serve(
-        torch, InferenceEngine, cfg, params, prompts, horizon=8,
-        temperature=0.0, tracer=tracer)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    spans = tracer.spans()
-    t_pre = sum(s.duration for s in spans if s.name == "engine.prefill")
-    t_dec = sum(s.duration for s in spans if s.name == "engine.decode")
-    n_out = sum(len(v) for v in greedy8.values())
-    n_dec = n_out - len(greedy8)        # first tokens come from prefill
-    log(f"[engine] greedy H=8: {len(greedy8)} requests, {n_out} tokens, "
-        f"{eng.n_prefills} prefills ({eng.n_prefill_tokens} prefill tokens, "
-        f"{eng.n_shared_prompt_tokens} shared) in {wall:.3f} s; prefill "
-        f"{eng.n_prefill_tokens / t_pre:.1f} tok/s ({t_pre:.3f} s), decode "
-        f"{n_dec / t_dec:.1f} tok/s ({t_dec:.3f} s); peak memory "
-        f"{peak_gb:.2f} GB")
-    if eng.n_prefills != 4 or eng.n_shared_prompt_tokens != 3 * (300 + 310):
-        fail("engine: GRPO prompt sharing did not prefill each prompt once")
-    del eng
-    torch.cuda.empty_cache()
+    with graph_phase("3 engine"):
+        # the main path: its launch counts go into the kernel summary
+        eng, greedy8, wall, launches = serve(
+            torch, InferenceEngine, cfg, params, prompts, horizon=8,
+            temperature=0.0, tracer=tracer)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        spans = tracer.spans()
+        t_pre = sum(s.duration for s in spans if s.name == "engine.prefill")
+        t_dec = sum(s.duration for s in spans if s.name == "engine.decode")
+        n_out = sum(len(v) for v in greedy8.values())
+        n_dec = n_out - len(greedy8)        # first tokens come from prefill
+        log(f"[engine] greedy H=8: {len(greedy8)} requests, {n_out} tokens, "
+            f"{eng.n_prefills} prefills ({eng.n_prefill_tokens} prefill tokens, "
+            f"{eng.n_shared_prompt_tokens} shared) in {wall:.3f} s; prefill "
+            f"{eng.n_prefill_tokens / t_pre:.1f} tok/s ({t_pre:.3f} s), decode "
+            f"{n_dec / t_dec:.1f} tok/s ({t_dec:.3f} s); peak memory "
+            f"{peak_gb:.2f} GB")
+        if eng.n_prefills != 4 or eng.n_shared_prompt_tokens != 3 * (300 + 310):
+            fail("engine: GRPO prompt sharing did not prefill each prompt once")
+        eng_graphs = dict(captures=len(eng.graph_capture_s),
+                          capture_s=eng.graph_capture_s,
+                          pool_bytes=eng.graph_pool_bytes(),
+                          entries=len(eng._graphs))
+        log(f"[graph] greedy H=8 engine: {eng_graphs}")
+        del eng
+        torch.cuda.empty_cache()
+        serve_eager(torch, cfg, greedy8, serve(
+            torch, InferenceEngine, cfg, params, prompts, horizon=8,
+            temperature=0.0, tracer=Tracer(clock), cuda_graphs=False),
+            n_dec / t_dec)
+        torch.cuda.empty_cache()
 
-    eng1, greedy1, wall1, _ = serve(torch, InferenceEngine, cfg, params,
-                                    prompts, horizon=1, temperature=0.0)
-    if {r: [t for t, _ in v] for r, v in greedy1.items()} != \
-            {r: [t for t, _ in v] for r, v in greedy8.items()}:
-        fail("greedy tokens with H=8 differ from H=1")
-    log(f"[engine] greedy H=1: same tokens as H=8 ({wall1:.3f} s, "
-        f"{eng1.n_decode_dispatches} decode dispatches)")
-    del eng1
-    torch.cuda.empty_cache()
+        eng1, greedy1, wall1, _ = serve(torch, InferenceEngine, cfg, params,
+                                        prompts, horizon=1, temperature=0.0)
+        if {r: [t for t, _ in v] for r, v in greedy1.items()} != \
+                {r: [t for t, _ in v] for r, v in greedy8.items()}:
+            fail("greedy tokens with H=8 differ from H=1")
+        log(f"[engine] greedy H=1: same tokens as H=8 ({wall1:.3f} s, "
+            f"{eng1.n_decode_dispatches} decode dispatches)")
+        del eng1
+        torch.cuda.empty_cache()
 
-    eng_t, sampled, wall_t, _ = serve(torch, InferenceEngine, cfg, params,
-                                      prompts, horizon=8, temperature=1.0)
-    log(f"[engine] temperature 1.0 H=8: {sum(map(len, sampled.values()))} "
-        f"tokens, logprobs finite ({wall_t:.3f} s)")
-    del eng_t
-    torch.cuda.empty_cache()
-    profile_decode(torch, cfg, make_engine(InferenceEngine, cfg, params),
-                   prompts, 10, "H=8, 10 rows, contexts ~300-370")
+        eng_t, sampled, wall_t, _ = serve(torch, InferenceEngine, cfg, params,
+                                          prompts, horizon=8, temperature=1.0)
+        log(f"[engine] temperature 1.0 H=8: {sum(map(len, sampled.values()))} "
+            f"tokens, logprobs finite ({wall_t:.3f} s)")
+        del eng_t
+        torch.cuda.empty_cache()
+        _, sampled_eager, _, _ = serve(torch, InferenceEngine, cfg, params,
+                                       prompts, horizon=8, temperature=1.0,
+                                       cuda_graphs=False)
+        if sampled_eager != sampled:
+            fail("temperature 1.0 H=8: graph-replayed tokens / logprobs differ "
+                 "from eager ones")
+        log("[engine] temperature 1.0 H=8 eager: tokens and logprobs "
+            "bit-equal to the graph run's")
+        del sampled_eager
+        torch.cuda.empty_cache()
+        decode_profile = profile_decode_pair(
+            torch, cfg, lambda graphs: make_engine(InferenceEngine, cfg, params,
+                                                   cuda_graphs=graphs),
+            prompts, 10, "H=8, 10 rows, contexts ~300-370")
+        prefill_profile = profile_prefill(
+            torch, cfg, make_engine(InferenceEngine, cfg, params,
+                                    prefill_chunk=sum(PROMPT_LENS)), prompts)
     torch.cuda.empty_cache()
 
     got, step, step_plain = model_logits(torch, cfg, params, prompts[0],
@@ -2954,32 +3175,40 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 4. pulled weight versions installed mid-generation ----
-    installs, inst_launches = install_phase(
-        torch, InferenceEngine, cfg, params, prompts, clock, fused_dequant)
+    with graph_phase("4 install"):
+        installs, inst_launches = install_phase(
+            torch, InferenceEngine, cfg, params, prompts, clock,
+            fused_dequant)
 
     # ---- 5. KV migration at full width ----
-    for codec in ("none", "int8"):
-        migrate_phase(torch, InferenceEngine, cfg, params, prompts, clock,
-                      greedy8, codec)
+    with graph_phase("5 migrate"):
+        for codec in ("none", "int8"):
+            migrate_phase(torch, InferenceEngine, cfg, params, prompts,
+                          clock, greedy8, codec)
 
     # ---- 6. training after serving ----
     del params
     torch.cuda.empty_cache()
-    train_launches, train = train_phase(torch, InferenceEngine, cfg, prompts,
-                                        clock, ops, ref, flash_attention)
+    with graph_phase("6 train"):
+        train_launches, train = train_phase(torch, InferenceEngine, cfg,
+                                            prompts, clock, ops, ref,
+                                            flash_attention)
     torch.cuda.empty_cache()
 
     # ---- 7. the hybrid and SSM families at full width ----
-    hyb_launches, hybrid = hybrid_phase(torch, InferenceEngine, clock, ops,
-                                        ref)
+    with graph_phase("7 hybrid"):
+        hyb_launches, hybrid = hybrid_phase(torch, InferenceEngine, clock,
+                                            ops, ref)
 
     # ---- 8. qwen3-14b (G = 6) at full width ----
     torch.cuda.empty_cache()
-    serve14b = serve14b_phase(torch, InferenceEngine, ops, ref)
+    with graph_phase("8 serve14b"):
+        serve14b = serve14b_phase(torch, InferenceEngine, ops, ref)
 
     # ---- 9. HybridRunner's real backend on TorchRLHarness ----
     torch.cuda.empty_cache()
-    rl_launches, rl = rl_phase(torch, clock)
+    with graph_phase("9 rl"):
+        rl_launches, rl = rl_phase(torch, clock)
 
     # ---- 10. summary ----
     rows = []
@@ -3016,7 +3245,9 @@ def main():
         {"kernels": rows, "installs": installs, "flash_cases": fla_cases,
          "decode_cases": dec_cases, "prefill_cases": pre_cases,
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
-         "serve14b": serve14b, "rl": rl,
+         "serve14b": serve14b, "rl": rl, "graphs": GRAPHS,
+         "serve_graph_engine": eng_graphs, "decode_profile": decode_profile,
+         "prefill_profile": prefill_profile,
          "nvidia_smi": smi.stdout.strip()}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])

@@ -19,6 +19,10 @@ from repro_torch.kernels.paged_prefill import paged_prefill_attention as \
     _prefill_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
+# every kernel wrapper; each counts its launches in ``.launches``
+KERNEL_WRAPPERS = (_decode_kernel, _prefill_kernel, _dequant_kernel,
+                   _flash_kernel, _slab_decode_kernel, _ssd_kernel)
+
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            cap: float = 0.0, scale=None):

@@ -8,11 +8,13 @@ in per-slot rows; decode concurrency is bounded by ``max_batch`` slots.
 The scheduler keeps the reference's contracts:
 
   * ``step()`` decodes ``horizon`` tokens per active request in one
-    dispatch: a Python loop of H model steps with sampling, EOS /
-    ``max_total`` stopping and token feedback all on the device, and ONE
-    host sync after the loop (the reference's ``lax.scan``);
+    dispatch: H model steps with sampling, EOS / ``max_total`` stopping
+    and token feedback all on the device, and ONE host sync after them
+    (the reference's ``lax.scan``).  On the card the H steps are one
+    CUDA graph replay (the reference's compiled-closure cache, below);
   * scheduler state (last tokens, keys, active mask, max totals, block
-    table) is device-resident and re-uploaded only when the host changed it;
+    table) is device-resident in buffers allocated once per engine, and
+    re-uploaded into them only when the host changed it;
   * before each horizon the host reserves every active slot's write window
     [ctx_len, ctx_len + H) (``reserve_decode``: capacity, pool growth and
     COW copies up front), so nothing in the loop touches the allocator;
@@ -35,11 +37,28 @@ The scheduler keeps the reference's contracts:
 Attention runs through ``kernels.ops``: the hand-written CUDA kernels on the
 card, their plain versions on the CPU.  Sampling keys are (request,
 position)-addressed, so H > 1 emits exactly the tokens of H = 1.
+
+The horizon cache (the reference's ``_get_decode_fn`` closures): a process-
+wide registry of the block-table widths seen per closure family
+(``_decode_family``), from which ``_padded_width`` pads a narrower table up
+to a width already in use, and per engine one entry per (family,
+max_batch, width).  The first horizon at an entry runs the body eagerly
+(on the card this is its warm-up, on the capture stream); on the card the
+second captures it into a ``torch.cuda.CUDAGraph`` and every later one
+replays that graph.  A graph binds the addresses of the params, the cache
+leaves and the static buffers, so ``swap_weights`` / ``load_weights`` and
+pool growth (which replace tensors) drop the engine's entries; in-place
+writes (page copies, prefill, imports) keep them.  A capture that fails
+raises.  On the CPU, or with ``cuda_graphs=False``, an entry holds no
+graph and every horizon runs the body eagerly.  ``graph_cache_stats()``
+counts captures, replays, padded reuse, registered widths and
+invalidations.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +67,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, PAD
+from repro_torch.kernels.ops import KERNEL_WRAPPERS
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.kv_cache import (GARBAGE_PAGE, OutOfPages,
                                          PagedKVAllocator)
@@ -77,6 +97,60 @@ def _bucket(n: int, minimum: int = 16) -> int:
 def _tile_bucket(n: int, tile: int = PREFILL_TILE) -> int:
     """Round ``n`` up to a multiple of ``tile``."""
     return max(tile, -(-n // tile) * tile)
+
+
+# --------------------------------------------------------------------------- #
+# the horizon cache: every (family, width) key a decode horizon ran at, in
+# this process (the reference's ``_JIT_CACHE`` decode keys), and counters
+# --------------------------------------------------------------------------- #
+_DECODE_KEYS: set = set()
+_GRAPH_STATS = {"captures": 0, "replays": 0, "padded_reuse": 0,
+                "invalidations": 0}
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def graph_cache_stats() -> Dict[str, int]:
+    """Horizon-cache counters (the reference's ``jit_cache_stats``):
+    CUDA graphs captured, horizons run at an existing entry (graph
+    replays; on the CPU eager runs), block-table widths served by a
+    wider one already in use (``padded_reuse``), (family, width) keys
+    registered (``entries``) and engine-wide drops of graphs
+    (``invalidations``)."""
+    return dict(_GRAPH_STATS, entries=len(_DECODE_KEYS))
+
+
+def _decode_family(cfg: ModelConfig, temperature: float,
+                   horizon: int) -> Tuple:
+    return ("decode", cfg.name, cfg.d_model, temperature, horizon)
+
+
+def _padded_width(family: Tuple, needed: int) -> Optional[int]:
+    """Smallest block-table width >= ``needed`` already in use for this
+    family.  Block tables pad with the garbage page, so any wider entry
+    computes the identical result — reusing it avoids an entry for every
+    power-of-two width as requests grow and shrink."""
+    best = None
+    for k in _DECODE_KEYS:
+        if k[:-1] == family and k[-1] >= needed:
+            if best is None or k[-1] < best:
+                best = k[-1]
+    return best
+
+
+def _capture_stream(device: torch.device):
+    """The side stream every horizon graph on ``device`` is captured on
+    (and warmed up on), made once."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+@dataclass
+class _HorizonEntry:
+    """One key of an engine's horizon cache: its CUDA graph once captured
+    (never on the CPU), and each kernel wrapper's launches per replay."""
+    graph: Optional[object] = None
+    launches: Dict = field(default_factory=dict)
 
 
 @dataclass
@@ -117,14 +191,17 @@ class InferenceEngine:
                  weight_version: int = 0, page_size: int = 16,
                  prefill_chunk: int = 256, max_context: Optional[int] = None,
                  horizon: int = 1, max_pool_pages: Optional[int] = None,
-                 tracer=None, device=None):
+                 tracer=None, device=None, cuda_graphs: bool = True):
         """``slab_len`` sizes the initial pool (2 * max_batch * slab_len
         tokens) and the sliding-window ring (min(window, slab_len) slots
         per slot); pages are allocated, and the pool grown, on demand, bounded
         by ``max_context`` and ``max_pool_pages`` when set.  ``horizon`` is
         the number of tokens one ``step()`` decodes per active request.
         ``device=None`` means CUDA (raises when absent); tests pass "cpu".
-        ``params`` must already be on that device."""
+        ``params`` must already be on that device; change them only
+        through ``swap_weights`` or in place.  ``cuda_graphs=False`` runs
+        every horizon eagerly on the card too (a yardstick for tests and
+        measurements)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -160,14 +237,27 @@ class InferenceEngine:
         self.tokens_buf = np.full((max_batch,), TOKEN_SENTINEL, np.int32)
         self.keys_buf = np.zeros((max_batch, 2), np.uint32)
         self.maxtot_buf = np.zeros((max_batch,), np.int32)
-        self._dev_tokens = None
-        self._dev_keys = None
-        self._dev_active = None
-        self._dev_maxtot = None
+        # the static device buffers a horizon reads and writes in place
+        # (a captured graph binds their addresses)
+        dev, B, H = self.device, max_batch, self.horizon
+        self._dev_tokens = torch.full((B,), TOKEN_SENTINEL, dtype=torch.int32,
+                                      device=dev)
+        self._dev_keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+        self._dev_active = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._dev_maxtot = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._out_tokens = torch.zeros((B, H), dtype=torch.int32, device=dev)
+        self._out_logprobs = torch.zeros((B, H), dtype=torch.float32,
+                                         device=dev)
+        self._out_emit = torch.zeros((B, H), dtype=torch.bool, device=dev)
         self._state_dirty = True
-        self._bt_dev = None                     # cached device block table
-        self._bt_width = 0
+        self._bt_bufs: Dict[int, torch.Tensor] = {}     # width -> table
+        self._bt_width = 0                      # 0: no table uploaded yet
         self._bt_dirty = True
+        # the horizon cache's entries of this engine, and their graph pool
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self._graphs: Dict[Tuple, _HorizonEntry] = {}
+        self._graph_pool = None
+        self.graph_capture_s: List[float] = []  # seconds of each capture
         self.n_prefills = 0                     # context prefills (rows)
         self.n_prefill_tokens = 0
         self.n_prefill_dispatches = 0           # batched chunk forwards
@@ -189,6 +279,7 @@ class InferenceEngine:
         under the new params; their later tokens carry ``version``."""
         self.params = params
         self.weight_version = version
+        self._drop_graphs()
         self.tracer.event("engine.swap_weights", self.trace_lane,
                           version=version)
 
@@ -276,6 +367,7 @@ class InferenceEngine:
         except OutOfPages as e:
             raise AdmissionError(str(e)) from e
         self.cache = kvc.grow_pool(self.cache, new_num)
+        self._drop_graphs()
 
     def _free_slot(self, slot: int):
         st = self.slots[slot]
@@ -354,65 +446,159 @@ class InferenceEngine:
     # ---------------- device-resident state ---------------- #
     def _sync_device_state(self):
         """Upload the decode-state buffers iff the host changed them."""
-        if self._state_dirty or self._dev_tokens is None:
+        if self._state_dirty:
             active = np.array([s is not None for s in self.slots])
-            self._dev_tokens = self._to_dev(self.tokens_buf)
-            self._dev_keys = self._to_dev(self.keys_buf.astype(np.int64))
-            self._dev_active = self._to_dev(active)
-            self._dev_maxtot = self._to_dev(self.maxtot_buf)
+            for buf, host in ((self._dev_tokens, self.tokens_buf),
+                              (self._dev_keys,
+                               self.keys_buf.astype(np.int64)),
+                              (self._dev_active, active),
+                              (self._dev_maxtot, self.maxtot_buf)):
+                buf.copy_(torch.from_numpy(host))
             self._state_dirty = False
             self.n_state_uploads += 1
 
     def _device_block_tables(self):
-        """Cached device block table, rebuilt only when a table changed;
-        its width is a power of two (>= 8) that covers every table."""
+        """The device block table, rebuilt only when a table changed, in
+        the static buffer of its width.  The width is the smallest one
+        already in use for this engine's family that covers every table
+        (pad up), else a power of two (>= 8)."""
         needed = max((len(s.table) for s in self.slots if s is not None),
                      default=1)
-        if self._bt_dirty or self._bt_dev is None or self._bt_width < needed:
-            nb = _bucket(needed, minimum=8)
+        if self._bt_dirty or self._bt_width < needed:
+            nb = _padded_width(self._family(), needed)
+            if nb is None:
+                nb = _bucket(needed, minimum=8)
+            else:
+                _GRAPH_STATS["padded_reuse"] += 1
             bt = np.full((self.max_batch, nb), GARBAGE_PAGE, np.int32)
             for i, st in enumerate(self.slots):
                 if st is not None:
                     bt[i, :len(st.table)] = st.table
-            self._bt_dev = self._to_dev(bt)
+            if nb not in self._bt_bufs:
+                self._bt_bufs[nb] = torch.empty(
+                    (self.max_batch, nb), dtype=torch.int32,
+                    device=self.device)
+            self._bt_bufs[nb].copy_(torch.from_numpy(bt))
             self._bt_width = nb
             self._bt_dirty = False
             self.n_bt_uploads += 1
-        return self._bt_dev
+        return self._bt_bufs[self._bt_width]
+
+    # ---------------- the horizon cache ---------------- #
+    def _family(self) -> Tuple:
+        return _decode_family(self.cfg, self.temperature, self.horizon)
+
+    def _drop_graphs(self):
+        """Drop (and free) every entry: what the graphs bind changed."""
+        if self._graphs:
+            self._graphs.clear()
+            _GRAPH_STATS["invalidations"] += 1
+        # a fresh pool for later captures: the dropped graphs' pool is
+        # released once their memory is
+        self._graph_pool = None
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes held by the segments of this engine's graph pool
+        (0 before any capture)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def _run_horizon(self, bt):
+        """One decode horizon through the cache.  The first horizon at a
+        key runs the body eagerly: on the card, on the capture stream, so
+        that it warms up what capture needs (cuBLAS's handle and workspace
+        on that stream, the RoPE table, the kernels' libraries) on live
+        state.  The next one captures the body (capture executes nothing)
+        and replays it; later ones replay."""
+        key = (self._family(), self.max_batch, bt.shape[1])
+        first = key not in self._graphs
+        if first:
+            _DECODE_KEYS.add(key[0] + (key[2],))
+            self._graphs[key] = _HorizonEntry()
+        else:
+            _GRAPH_STATS["replays"] += 1
+        entry = self._graphs[key]
+        if not self.cuda_graphs:
+            self._decode_horizon(bt)
+        elif first:
+            cur, side = (torch.cuda.current_stream(self.device),
+                         _capture_stream(self.device))
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._decode_horizon(bt)
+            cur.wait_stream(side)
+        else:
+            if entry.graph is None:
+                self._capture(entry, bt)
+            entry.graph.replay()
+            for kernel, n in entry.launches.items():
+                kernel.launches += n
+
+    def _capture(self, entry: _HorizonEntry, bt):
+        """Capture the horizon body into ``entry``'s graph, in the
+        engine's pool.  The wrappers' launch counters run only now; their
+        deltas are taken back and re-added on every replay.  Raises if the
+        capture fails (no eager fallback)."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = [k.launches for k in KERNEL_WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  stream=_capture_stream(self.device)):
+                self._decode_horizon(bt)
+        finally:
+            counted = [k.launches - n for k, n in zip(KERNEL_WRAPPERS,
+                                                      before)]
+            for k, n in zip(KERNEL_WRAPPERS, before):
+                k.launches = n
+        self.graph_capture_s.append(time.perf_counter() - t0)
+        _GRAPH_STATS["captures"] += 1
+        entry.launches = {k: n for k, n in zip(KERNEL_WRAPPERS, counted)
+                          if n}
+        entry.graph = graph
 
     # ---------------- decode ---------------- #
+    @torch.no_grad()
     def _decode_horizon(self, bt):
         """H decode steps on the device: each is the single-step decode
         (forward, logits, keyed sampling, logprob).  Rows that hit EOS or
         max_total drop out of the active mask: their ``pos`` freezes, their
         block-table row is masked to the garbage page, and their carried
-        token parks at the sentinel.  Returns [B, H] tokens, logprobs and
-        emission mask, still on the device."""
+        token parks at the sentinel.  Reads and writes only the engine's
+        static buffers, in place (state, ``cache``, the [B, H] token /
+        logprob / emission outputs), so it runs eagerly or captured."""
         cache = self.cache
+        pos = cache["pos"]
         tokens, active = self._dev_tokens, self._dev_active
         garbage = torch.full_like(bt, GARBAGE_PAGE)
         sentinel = torch.full_like(tokens, TOKEN_SENTINEL)
         toks, lps, ems = [], [], []
         for _ in range(self.horizon):
-            old_pos = cache["pos"]
             bt_step = torch.where(active[:, None], bt, garbage)
             out = forward(self.params, self.cfg, tokens=tokens, cache=cache,
                           mode="decode", paged={"block_tables": bt_step})
             logits = logits_from_hidden(self.params, self.cfg,
                                         out["hidden"][:, 0])
-            nxt = sample_token(logits, self._dev_keys, old_pos,
+            nxt = sample_token(logits, self._dev_keys, pos,
                                self.temperature)
             lps.append(token_logprob(logits, nxt, self.temperature))
             toks.append(nxt)
             ems.append(active)
-            cache["pos"] = torch.where(active, out["pos"], old_pos)
-            # after this token the request holds old_pos + 2 tokens
-            done = (nxt == EOS) | (old_pos + 2 >= self._dev_maxtot)
+            # after this token the request holds pos + 2 tokens
+            done = (nxt == EOS) | (pos + 2 >= self._dev_maxtot)
+            pos.copy_(torch.where(active, out["pos"], pos))
             active = active & ~done
             tokens = torch.where(active, nxt, sentinel)
-        self._dev_tokens, self._dev_active = tokens, active
-        return (torch.stack(toks, 1), torch.stack(lps, 1),
-                torch.stack(ems, 1))
+        self._out_tokens.copy_(torch.stack(toks, 1))
+        self._out_logprobs.copy_(torch.stack(lps, 1))
+        self._out_emit.copy_(torch.stack(ems, 1))
+        self._dev_tokens.copy_(tokens)
+        self._dev_active.copy_(active)
 
     def _decode_phase(self) -> List[StepEvent]:
         if self.n_active == 0:
@@ -430,11 +616,12 @@ class InferenceEngine:
                                 self._to_dev([c[1] for c in copies]))
         bt = self._device_block_tables()
         self._sync_device_state()
-        toks, lps, em = self._decode_horizon(bt)
+        self._run_horizon(bt)
         self.n_decode_dispatches += 1
-        # ONE host sync per horizon: the first copy waits for the loop, the
-        # other two find the device idle
-        toks, lps, em = (t.cpu().numpy() for t in (toks, lps, em))
+        # ONE host sync per horizon: the first copy waits for the horizon,
+        # the other two find the device idle
+        toks, lps, em = (t.cpu().numpy() for t in (
+            self._out_tokens, self._out_logprobs, self._out_emit))
         events: List[StepEvent] = []
         for h in range(H):
             for i, st in enumerate(self.slots):

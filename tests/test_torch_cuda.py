@@ -23,8 +23,14 @@ live slots, and the SSD scan at both served prefills (8 ragged rows of
 the unpadded row's bit for bit; it checks that repeated launches are
 bit-identical, and
 that the paged decode's outputs do not move by a bit when the table
-doubles or rows are added.  Whether a card exists is decided in a fixture, so every
-process collects the same tests; without one they skip.
+doubles or rows are added.  The engine's decode horizon as a CUDA graph,
+on a tiny dense and a tiny hybrid config: replayed tokens and logprobs
+bit-equal to eager H=8 and to eager H=1 at temperature 0 and 1, and
+across a ``swap_weights`` mid-stream; the decode kernels' launch counters
+equal layers x H x horizons with replays; a capture that fails raises
+(last in the file: a failed capture may leave the capture stream's
+allocator state behind).  Whether a card exists is decided in a fixture,
+so every process collects the same tests; without one they skip.
 """
 
 import numpy as np
@@ -41,6 +47,9 @@ from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.transformer import init_params
+from repro_torch.rl.sampler import request_key
+from repro_torch.serving import engine as engine_mod
+from repro_torch.serving.engine import InferenceEngine
 from repro_torch.transfer.chunkstore import (ChunkStore, assemble_manifest,
                                              flatten_params)
 
@@ -442,3 +451,113 @@ def test_install_on_card_launches_once_per_int8_leaf(cuda, codec):
     for k in host:
         torch.testing.assert_close(got[k].float().cpu(), host[k].float(),
                                    **DEQUANT_TOL)
+
+
+# ----------------------- the decode horizon as a graph ----------------------- #
+def _graph_cfg(family):
+    """Tiny f32 configs whose head dim the decode kernels take (64)."""
+    kw = dict(vocab_size=tok.VOCAB_SIZE, d_model=128, n_heads=4,
+              n_kv_heads=2, head_dim=64, d_ff=256)
+    if family == "dense":
+        return get_config("qwen3-8b").reduced(name="tiny-graph-dense", **kw)
+    return get_config("hymba-1.5b").reduced(name="tiny-graph-hybrid", **kw)
+
+
+def _graph_params(cfg, seed, device):
+    return init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                       device)
+
+
+def _graph_prompts(seed=4):
+    rs = np.random.RandomState(seed)
+    return [[tok.BOS] + rs.randint(3, tok.VOCAB_SIZE, n - 1).tolist()
+            for n in (20, 37, 11)]
+
+
+def _graph_serve(cfg, params, *, horizon, temperature, graphs, swap=None):
+    """Three singles to completion; ``swap`` = (after this many steps,
+    params) installs version 1 mid-stream.  Returns ({rid: [(token,
+    logprob, version)]}, engine)."""
+    eng = InferenceEngine(cfg, params, max_batch=4, slab_len=64,
+                          page_size=16, temperature=temperature,
+                          horizon=horizon, device="cuda", cuda_graphs=graphs)
+    prompts = _graph_prompts()
+    for rid, p in enumerate(prompts):
+        eng.add_request(rid, p, request_key(3, rid), len(p) + 30, len(p))
+    out = {rid: [] for rid in range(len(prompts))}
+    done, n = set(), 0
+    while len(done) < len(prompts):
+        for e in eng.step():
+            out[e.req_id].append((e.token, e.logprob, e.weight_version))
+            if e.finished:
+                done.add(e.req_id)
+        n += 1
+        assert n < 200, "requests did not finish"
+        if swap is not None and n == swap[0]:
+            eng.swap_weights(swap[1], 1)
+    return out, eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
+def test_graph_horizon_bit_equal_to_eager_on_card(cuda, family, temperature):
+    cfg = _graph_cfg(family)
+    params = _graph_params(cfg, 0, cuda)
+    got, eng = _graph_serve(cfg, params, horizon=8, temperature=temperature,
+                            graphs=True)
+    assert eng.graph_capture_s, "no horizon was captured"
+    assert all(e.graph is not None for e in eng._graphs.values())
+    eager8, _ = _graph_serve(cfg, params, horizon=8, temperature=temperature,
+                             graphs=False)
+    eager1, _ = _graph_serve(cfg, params, horizon=1, temperature=temperature,
+                             graphs=False)
+    assert got == eager8
+    assert got == eager1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
+def test_graph_horizon_across_a_swap_on_card(cuda, family):
+    cfg = _graph_cfg(family)
+    p0, p1 = _graph_params(cfg, 0, cuda), _graph_params(cfg, 1, cuda)
+    inv = engine_mod.graph_cache_stats()["invalidations"]
+    got, eng = _graph_serve(cfg, p0, horizon=8, temperature=1.0, graphs=True,
+                            swap=(3, p1))
+    assert engine_mod.graph_cache_stats()["invalidations"] == inv + 1
+    want, _ = _graph_serve(cfg, p0, horizon=8, temperature=1.0,
+                           graphs=False, swap=(3, p1))
+    assert got == want
+    assert {v for evs in got.values() for *_, v in evs} == {0, 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
+def test_graph_launch_counters_count_replays_on_card(cuda, family):
+    cfg = _graph_cfg(family)
+    kernel = (paged_decode_attention if family == "dense"
+              else decode_attention)
+    before = kernel.launches
+    s0 = engine_mod.graph_cache_stats()
+    _, eng = _graph_serve(cfg, _graph_params(cfg, 0, cuda), horizon=8,
+                          temperature=0.0, graphs=True)
+    s1 = engine_mod.graph_cache_stats()
+    assert s1["replays"] > s0["replays"] and s1["captures"] > s0["captures"]
+    assert kernel.launches - before == \
+        cfg.n_layers * eng.horizon * eng.n_decode_dispatches
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(cuda, monkeypatch):
+    """A body that syncs with the host cannot be captured: the capture
+    raises and nothing falls back to the eager horizon."""
+    token_logprob = engine_mod.token_logprob
+
+    def syncing(logits, tokens, temperature):
+        logits.sum().item()
+        return token_logprob(logits, tokens, temperature)
+    monkeypatch.setattr(engine_mod, "token_logprob", syncing)
+    cfg = _graph_cfg("dense")
+    with pytest.raises(RuntimeError):
+        _graph_serve(cfg, _graph_params(cfg, 0, cuda), horizon=4,
+                     temperature=0.0, graphs=True)
