@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 kernels at Qwen3-8B shapes (H=32, K=8, d=128, page 16; bf16
                 q, f32 pools) with ragged lengths / offsets / chunk lengths,
                 the paged decode and prefill also at the G = 5, 6, 7 of
-                qwen3-32b, qwen3-14b and qwen2-7b, the prefill also at C = 1
+                qwen3-32b, qwen3-14b and qwen2-7b and the G = 1 of the MoE
+                configs (H = K = 16), the prefill also at C = 1
                 and a ragged C = 130, all under one gate (2e-2 or one bf16
                 ulp of |want|); the paged decode's outputs bit-identical
                 with its table padded to 2 nb and rows appended (splits
@@ -23,8 +24,9 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 embed, wq rows at C=128, a 1-D leaf at C=1) with base none,
                 f32 and bf16; ``flash_attention`` in bf16 at the train
                 phase's shape, at S=4096, on the reference test's feature
-                cases (window, softcap, MQA, bidirectional, a ragged S) and
-                at Hymba's prefill (G=5, d=64, window 1024);
+                cases (window, softcap, MQA, bidirectional, a ragged S), at
+                Hymba's prefill (G=5, d=64, window 1024) and at phase 10's
+                train shape (G=1, 16 heads);
                 ``decode_attention`` at Hymba's ring (B=8, H=25, K=5, d=64,
                 T=1024, bf16 q over f32 K/V read as views of the [B, T, K,
                 d] ring, ragged lengths 1..T; again with an empty row and
@@ -159,9 +161,32 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 empty (``[rl]`` lines: wall and event-clock seconds,
                 response tokens and launches per step, checkpoint bytes
                 and seconds, resume seconds, KV imports);
- 10. summary  — one JSON line per the kernels (rows 1, 2 and 4 count
-                phase 9's launches too), the card's name and power limit,
-                and the final ``{"ok": true, ...}`` line.
+ 10. moe      — ``qwen2-moe-a2.7b`` (24 layers, 60 experts stored as 64,
+                top-4, 4 shared experts behind a sigmoid gate) and then
+                ``deepseek-moe-16b`` (28 layers, a dense first layer, 64
+                experts, top-6, 2 shared) at full width (random weights
+                from seed 0, each freed before the next), both 16 / 16
+                heads (G = 1): the phase-3 mix greedy at H=8 with graphs
+                (launches = layers x dispatches, the prefix layer
+                included), eagerly (tokens and logprobs bit-equal), H=1
+                (same tokens); one steady horizon profiled with graphs and
+                eagerly, the eager one split into expert bmm, router and
+                paged decode attention; one prefill's and one decode
+                step's logits against the plain attention (``[moe]``
+                lines: prefill and decode tok/s, capture seconds, graph-
+                pool bytes, peak memory); qwen2-moe-a2.7b's batch migrated
+                mid-generation through a codec-none KV manifest (as phase
+                5) with the same tokens and zero prefill, and its layer 0
+                MoE run twice at a prefill dispatch's T = 1536 (drops):
+                bit-identical, and in f32 the CPU's drop set, combine
+                weights and output; then 3 GRPO steps on qwen2-moe-a2.7b
+                at full width cut to 3 layers, carrying the router's aux
+                loss (``[train]`` lines with ``moe_aux``: finite losses, a
+                positive aux, every leaf moved but the padded experts,
+                flash launches = layers x forwards);
+ 11. summary  — one JSON line per the kernels (rows 1, 2 and 4 count
+                phases 9 and 10's launches too), the card's name and power
+                limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
 """
@@ -169,6 +194,7 @@ The script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -251,7 +277,9 @@ FLASH_CASES = (("train", (10, 32, 8, TRAIN_SEQ, 128, True, 0, 0.0)),
                ("bidirectional", (1, 8, 2, 256, 128, False, 0, 0.0)),
                ("window-softcap", (1, 2, 2, 512, 64, True, 128, 30.0)),
                ("ragged", (2, 4, 2, 200, 64, True, 48, 20.0)),
-               ("hymba", (8, 25, 5, 1152, 64, True, 1024, 0.0)))
+               ("hymba", (8, 25, 5, 1152, 64, True, 1024, 0.0)),
+               # phase 10's train forward: qwen2-moe-a2.7b's 16 / 16 heads
+               ("moe-train", (10, 16, 16, TRAIN_SEQ, 128, True, 0, 0.0)))
 # slab decode: the reference test's cases, tests/test_kernels.py:42-45,
 # (B, H, K, T, d, window, cap); its tolerance (:16) is atol = rtol = 2e-5
 # in f32 and 2e-2 in bf16
@@ -263,9 +291,11 @@ SLAB_RING_LENS = (1, 1024, 17, 200, 513, 800, 1000, 1023)
 # the ring again with an empty row, and with a window of 256 slots
 SLAB_RING_EDGE = (("zero length", (0, 1024, 17, 0, 513, 800, 1000, 1023), 0),
                   ("window 256", SLAB_RING_LENS, 256))
-# paged decode at every GQA geometry the port registers, (name, H, K)
+# paged decode at every GQA geometry the port registers, (name, H, K): G =
+# 4, 5, 6, 7 and the MoE configs' G = 1
 DECODE_CASES = (("qwen3-8b", 32, 8), ("qwen3-32b", 40, 8),
-                ("qwen3-14b", 48, 8), ("qwen2-7b", 28, 4))
+                ("qwen3-14b", 48, 8), ("qwen2-7b", 28, 4),
+                ("qwen2-moe", 16, 16))
 # the fixed-split property: the same rows with their table padded to 2 nb
 # with page 0 and three rows appended (a full doubled table, one position,
 # a ragged length); the original rows' outputs must not change by a bit
@@ -276,8 +306,8 @@ SPLIT_SWEEP = (32, 64, 128)
 # then a single-query chunk and a ragged one at Qwen3-8B's
 PREFILL_CASES = (("qwen3-8b", 32, 8, 128), ("qwen3-8b", 32, 8, 256),
                  ("qwen3-32b", 40, 8, 256), ("qwen3-14b", 48, 8, 256),
-                 ("qwen2-7b", 28, 4, 256), ("qwen3-8b", 32, 8, 1),
-                 ("qwen3-8b", 32, 8, 130))
+                 ("qwen2-7b", 28, 4, 256), ("qwen2-moe", 16, 16, 256),
+                 ("qwen3-8b", 32, 8, 1), ("qwen3-8b", 32, 8, 130))
 # ssd_scan, (b, L, H, G, P, N, chunk): Hymba's prefill (8 rows of 1152,
 # ragged true lengths) and tests/test_kernels.py:184 (Mamba2-130m); the
 # reference test's bound (:196) is a relative error of 2e-5 in f32 and
@@ -300,6 +330,21 @@ SCAN_PERTURBATION = 3e-6
 # first prompt, single requests on the others
 SERVE14B_PROMPT_LENS = (300, 310, 290)
 SERVE14B_NEW_TOKENS = 16
+# phase 10: the MoE family at full width, served one after the other (each
+# freed before the next), then trained at full width cut to
+# MOE_TRAIN_LAYERS: 2.44 G stored parameters (embed and lm_head are 0.62 G
+# of them) x 16 bytes of trainer state = 39 GB, near phase 6's 34.7 GB
+MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
+MOE_TRAIN_LAYERS = 3
+# one MoE layer repeated at a prefill dispatch of the mix (4 rows of 384,
+# T = 1536 > DROPLESS_THRESHOLD, so capacity applies and entries drop)
+MOE_REPEAT_SHAPE = (4, 384)
+# the layer in f32 on the card against the CPU: combine weights are
+# softmax outputs of f32 router logits summed over d = 2048 in another
+# order (a few f32 ulps of values < 1); outputs of order 1 after f32
+# products over d = 2048 and d_ff = 1408 summed in another order
+MOE_WEIGHT_TOL = 1e-6
+MOE_LAYER_TOL = 1e-4
 # phases 4-5: the pull plane's network, modeled on the event clock (rates
 # of the reference's runtime, not measurements): two reserved-node
 # transfer agents (hybrid_runtime.py:161), a spot instance's receiving NIC,
@@ -389,7 +434,8 @@ def bound(nbytes: float, work):
 # --------------------------------------------------------------------------- #
 def check_decode(torch, F, ref, kern):
     """``paged_decode_attention`` against its plain version at every GQA
-    geometry the port registers (DECODE_CASES: G = 4, then G = 5, 6, 7),
+    geometry the port registers (DECODE_CASES: G = 4, then G = 5, 6, 7
+    and 1),
     bf16 q over f32 pools, ragged lengths with an empty row, held at
     KERNEL_TOL; then in the model's regime at KERNEL_REL_TOL; each timed
     against one SDPA call and the bound.  At each geometry the same rows
@@ -558,9 +604,10 @@ def sweep_decode_split(torch, ref, kern):
 def check_prefill(torch, F, ref, kern):
     """``paged_prefill_attention`` against its plain version at every GQA
     geometry the port registers (PREFILL_CASES: G = 4 at C = 128 and 256,
-    then G = 5, 6, 7 at C = 256, then C = 1 and a ragged C = 130), bf16 q
-    over f32 pools, ragged offsets and chunk lengths, every case held to
-    one gate (KERNEL_TOL or one bf16 ulp of |want|, whichever is larger); a
+    then G = 5, 6, 7 and 1 at C = 256, then C = 1 and a ragged C = 130),
+    bf16 q over f32 pools, ragged offsets and chunk lengths, every case
+    held to one gate (KERNEL_TOL or one bf16 ulp of |want|, whichever is
+    larger); a
     second launch bit-identical; times against one SDPA call and the
     bound.  Returns the summary row (Qwen3-8B at C = 256, the worst error
     of all cases) and every case's row."""
@@ -760,7 +807,7 @@ def check_flash(torch, F, ref, kern):
             del again
         del out, want
         err32 = None
-        if name not in ("train", "long"):
+        if name not in ("train", "long", "moe-train"):
             q32, k32, v32 = (x.float() for x in (q, k, v))
             out = kern(q32, k32, v32, **opts)
             torch.cuda.synchronize()
@@ -1195,7 +1242,7 @@ DECODE_KERNEL_NAMES = {"paged_decode_attention": "paged_decode_split_kernel",
 
 
 def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
-                   tag: str = "[profile]"):
+                   tag: str = "[profile]", breakdown=None):
     """Where one steady decode horizon's time goes: torch.profiler over one
     ``step()`` of ``eng`` after every prefill is done (``n_rows`` single
     requests cycling over ``prompts``) and two more horizons (with graphs:
@@ -1203,7 +1250,8 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     replay, which is gated.  Host launch calls counted (one
     ``cudaGraphLaunch`` and no kernel launch with graphs); each decode
     wrapper's launch count gated against the profiler's count of its
-    kernel."""
+    kernel.  ``breakdown(prof, rows, busy_ms, tag)``, when given, returns
+    a dict of named device times, logged by it and kept in the result."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.rl.sampler import request_key
@@ -1267,9 +1315,12 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     for k, (ms, count, name) in enumerate(ranked):
         if k < 8 or "decode" in name or "split_merge" in name:
             log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms, api=api,
-                kernels=sum(c for _, c, _ in rows))
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+               idle_share=1 - busy_ms / wall_ms, api=api,
+               kernels=sum(c for _, c, _ in rows))
+    if breakdown is not None:
+        out["breakdown"] = breakdown(prof, rows, busy_ms, tag)
+    return out
 
 
 def profile_decode_pair(torch, cfg, make, prompts, n_rows: int, what: str,
@@ -3009,6 +3060,345 @@ def streamed_gates(torch, hb, rwb, hs, ms, rws, n_rows: int):
                 t_end=ms[-1]["step.t_end"])
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the MoE family at full width
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def moe_ranges(moe):
+    """Name the MoE layer's router (``moe.router``) and its batched expert
+    products (``moe.experts``) in a profile; a yardstick for this script
+    only."""
+    from torch.profiler import record_function
+    route, ffn = moe._route, moe._expert_ffn
+
+    def router(*args, **kw):
+        with record_function("moe.router"):
+            return route(*args, **kw)
+
+    def experts(*args, **kw):
+        with record_function("moe.experts"):
+            return ffn(*args, **kw)
+
+    moe._route, moe._expert_ffn = router, experts
+    try:
+        yield
+    finally:
+        moe._route, moe._expert_ffn = route, ffn
+
+
+def moe_breakdown(prof, rows, busy_ms: float, tag: str):
+    """An eager MoE horizon's device time by part: the expert products and
+    the router (their host ranges, ``moe_ranges``), the paged decode
+    attention (its kernels by name: they launch through ctypes, which the
+    profiler does not tie to a range), and the rest."""
+    experts_ms, n_exp = range_device_ms(prof, "moe.experts")
+    router_ms, n_rt = range_device_ms(prof, "moe.router")
+    attn = [(ms, c) for ms, c, name in rows
+            if "paged_decode" in name or "split_merge" in name]
+    attn_ms, n_attn = sum(r[0] for r in attn), sum(r[1] for r in attn)
+    rest = busy_ms - experts_ms - router_ms - attn_ms
+    log(f"{tag} device time by part: expert bmm {experts_ms:.3f} ms "
+        f"({n_exp} calls, {experts_ms / busy_ms:.3f} of busy), router "
+        f"{router_ms:.3f} ms ({n_rt} calls, {router_ms / busy_ms:.3f}), "
+        f"paged decode attention {attn_ms:.3f} ms ({n_attn} kernels, "
+        f"{attn_ms / busy_ms:.3f}), the rest {rest:.3f} ms "
+        f"({rest / busy_ms:.3f})")
+    return dict(experts_ms=experts_ms, router_ms=router_ms,
+                attention_ms=attn_ms, rest_ms=rest)
+
+
+def serve_rates(eng, out):
+    """(prefill tok/s, decode tok/s, prefill s, decode s) of a traced
+    serve: prefill tokens over the prefill spans, tokens after each
+    request's first over the decode spans."""
+    spans = eng.tracer.spans()
+    t_pre = sum(sp.duration for sp in spans if sp.name == "engine.prefill")
+    t_dec = sum(sp.duration for sp in spans if sp.name == "engine.decode")
+    n_dec = sum(len(v) for v in out.values()) - len(out)
+    return eng.n_prefill_tokens / t_pre, n_dec / t_dec, t_pre, t_dec
+
+
+def moe_serve(torch, InferenceEngine, cfg, params, prompts, clock, ops,
+              ref):
+    """The phase-3 mix on a MoE config: H=8 with graphs (its launches, the
+    main path's), eagerly (tokens and logprobs bit-equal), H=1 (the same
+    tokens); one steady horizon profiled with graphs and eagerly (the
+    eager one by part); one prefill's and one decode step's logits
+    against the plain attention.  Returns (summary, launches, greedy
+    tokens)."""
+    from repro_torch.models import moe
+    from repro_torch.obs.tracer import Tracer
+    torch.cuda.reset_peak_memory_stats()
+    eng, greedy8, wall, launches = serve(
+        torch, InferenceEngine, cfg, params, prompts, horizon=8,
+        temperature=0.0, tracer=Tracer(clock))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pre_s, dec_s, t_pre, t_dec = serve_rates(eng, greedy8)
+    if eng.n_prefills != 4 or eng.n_shared_prompt_tokens != 3 * sum(
+            len(p) for p in prompts[:2]):
+        fail(f"{cfg.name}: GRPO prompt sharing did not prefill each prompt "
+             f"once")
+    graphs = dict(captures=len(eng.graph_capture_s),
+                  capture_s=eng.graph_capture_s,
+                  pool_bytes=eng.graph_pool_bytes())
+    row = dict(prefill_tokens=eng.n_prefill_tokens,
+               prefill_dispatches=eng.n_prefill_dispatches,
+               decode_horizons=eng.n_decode_dispatches, prefill_tok_s=pre_s,
+               decode_tok_s=dec_s, wall_s=wall, peak_gb=peak_gb,
+               launches=launches, graphs=graphs)
+    log(f"[moe] {cfg.name} greedy H=8 with graphs: {len(greedy8)} requests, "
+        f"{eng.n_prefill_tokens} prefill tokens in "
+        f"{eng.n_prefill_dispatches} dispatches, "
+        f"{sum(map(len, greedy8.values())) - len(greedy8)} decoded in "
+        f"{eng.n_decode_dispatches} horizons; prefill {pre_s:.1f} tok/s "
+        f"({t_pre:.3f} s), decode {dec_s:.1f} tok/s ({t_dec:.3f} s); wall "
+        f"{wall:.3f} s; captures {graphs['captures']} "
+        f"({', '.join(f'{c:.3f}' for c in graphs['capture_s'])} s), graph "
+        f"pool {graphs['pool_bytes']} B; peak memory {peak_gb:.2f} GB")
+    del eng
+    torch.cuda.empty_cache()
+    eager = serve(torch, InferenceEngine, cfg, params, prompts, horizon=8,
+                  temperature=0.0, tracer=Tracer(clock), cuda_graphs=False)
+    e_pre, e_dec, _, _ = serve_rates(eager[0], eager[1])
+    row["eager"] = dict(serve_eager(torch, cfg, greedy8, eager, dec_s,
+                                    "[moe]"), prefill_tok_s=e_pre)
+    log(f"[moe] {cfg.name} eager H=8: prefill {e_pre:.1f} tok/s, decode "
+        f"{e_dec:.1f} tok/s")
+    del eager
+    torch.cuda.empty_cache()
+    eng1, greedy1, wall1, _ = serve(torch, InferenceEngine, cfg, params,
+                                    prompts, horizon=1, temperature=0.0)
+    if {r: [t for t, _ in v] for r, v in greedy1.items()} != \
+            {r: [t for t, _ in v] for r, v in greedy8.items()}:
+        fail(f"{cfg.name}: greedy tokens with H=8 differ from H=1")
+    log(f"[moe] {cfg.name} greedy H=1: same tokens as H=8 ({wall1:.3f} s, "
+        f"{eng1.n_decode_dispatches} decode dispatches)")
+    del eng1
+    torch.cuda.empty_cache()
+    what = f"{cfg.name}, H=8, 10 rows, contexts ~300-370"
+    row["profile"] = {"graph": profile_decode(
+        torch, cfg, make_engine(InferenceEngine, cfg, params), prompts, 10,
+        what, "[moe]")}
+    torch.cuda.empty_cache()
+    with moe_ranges(moe):
+        row["profile"]["eager"] = profile_decode(
+            torch, cfg, make_engine(InferenceEngine, cfg, params,
+                                    cuda_graphs=False), prompts, 10, what,
+            "[moe]", breakdown=moe_breakdown)
+    torch.cuda.empty_cache()
+    got, step, step_plain = model_logits(torch, cfg, params, prompts[0],
+                                         ops, ref)
+    with plain_attention(ops, ref):
+        plain, _, _ = model_logits(torch, cfg, params, prompts[0], ops, ref)
+    row["logit_rel_diff"] = dict(
+        prefill=compare_logits(torch, cfg, f"{cfg.name} prefill "
+                               f"({len(prompts[0])} tokens)", got, plain),
+        decode=compare_logits(torch, cfg, f"{cfg.name} decode step", step,
+                              step_plain))
+    del got, step, step_plain, plain
+    torch.cuda.empty_cache()
+    return row, launches, greedy8
+
+
+def moe_layer_repeat(torch, cfg, params):
+    """Layer 0's MoE MLP on MOE_REPEAT_SHAPE tokens with a shared offset
+    (a prefill dispatch of the mix, T past DROPLESS_THRESHOLD, routing
+    skewed so that some experts overflow): twice in bf16 on the card, the
+    same bits; then in f32 on the card and on the CPU on the same inputs:
+    the same drop set, combine weights within MOE_WEIGHT_TOL, output
+    within MOE_LAYER_TOL."""
+    from repro_torch.models import moe
+    B, S = MOE_REPEAT_SHAPE
+    T, D, k, Ep = B * S, cfg.d_model, cfg.top_k, cfg.n_experts_padded
+    C = moe._capacity(T, cfg.n_experts, k, cfg.capacity_factor)
+    p = map_tree(params["groups"]["sub0"]["mlp"], lambda t: t[0])
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn(B, S, D, generator=g, device="cuda")
+         + torch.randn(D, generator=g, device="cuda"))
+    xb = x.bfloat16()
+    out, aux = moe.moe_layer(p, xb, cfg)
+    again, aux2 = moe.moe_layer(p, xb, cfg)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again) and torch.equal(aux, aux2)):
+        fail(f"{cfg.name}: a second launch of the MoE layer is not "
+             f"bit-identical")
+    ms = time_ms(lambda: moe.moe_layer(p, xb, cfg), torch, iters=5)
+    p32 = map_tree(p, lambda t: t.float())
+    xf = x.reshape(T, D)
+    vals, ids, _ = moe._route(xf, p32["router"], k, Ep)
+    slot = moe._slots(ids, Ep, C)
+    _, w = moe._tables(vals, slot, Ep, C)
+    out_g, aux_g = moe.moe_layer(p32, x, cfg)
+    del p32
+    pc = map_tree(p, lambda t: t.float().cpu())
+    xc = xf.cpu()
+    t0 = time.perf_counter()
+    vals_c, ids_c, _ = moe._route(xc, pc["router"], k, Ep)
+    slot_c = moe._slots(ids_c, Ep, C)
+    _, w_c = moe._tables(vals_c, slot_c, Ep, C)
+    out_c, aux_c = moe.moe_layer(pc, xc.reshape(B, S, D), cfg)
+    cpu_s = time.perf_counter() - t0
+    dropped = int((slot_c == Ep * C).sum())
+    w_err = float((w.cpu() - w_c).abs().max())
+    err = float((out_g.cpu() - out_c).abs().max())
+    mag = float(out_c.abs().max())
+    log(f"[moe] {cfg.name} layer 0 MoE on [{B}, {S}, {D}] (T = {T}, "
+        f"capacity {C} of {Ep} stored experts, top-{k}): bf16 twice "
+        f"bit-identical, {ms:.3f} ms a call; f32 on the card against the "
+        f"CPU ({cpu_s:.1f} s there): {dropped} of {T * k} entries dropped "
+        f"on both, drop sets equal: {torch.equal(slot.cpu(), slot_c)}, "
+        f"combine weights max diff {w_err:.3e} (tol {MOE_WEIGHT_TOL}), "
+        f"output max diff {err:.3e} of max |out| {mag:.3e} (tol "
+        f"{MOE_LAYER_TOL}), aux {float(aux_g):.6f} vs {float(aux_c):.6f}")
+    if not dropped:
+        fail(f"{cfg.name}: the MoE layer at T = {T} dropped no entry")
+    if not torch.equal(slot.cpu(), slot_c):
+        fail(f"{cfg.name}: the card's MoE drop set differs from the CPU's")
+    if w_err > MOE_WEIGHT_TOL or err > MOE_LAYER_TOL \
+            or abs(float(aux_g) - float(aux_c)) > MOE_WEIGHT_TOL:
+        fail(f"{cfg.name}: the card's MoE layer disagrees with the CPU's")
+    return dict(T=T, capacity=C, dropped=dropped, bf16_ms=ms,
+                weight_err=w_err, out_err=err, out_max=mag, cpu_s=cpu_s)
+
+
+def moe_train(torch, InferenceEngine, cfg_full, prompts, clock):
+    """``cfg_full`` at full width cut to MOE_TRAIN_LAYERS layers: an engine
+    on the trainer's weights rolls the mix out at temperature 1, then
+    TRAIN_STEPS GRPO steps with the router's aux loss.  Gates: finite
+    losses, a finite positive ``moe_aux``, every leaf changed except the
+    padded experts (never routed to, so never moved), flash launches =
+    layers x train-mode forwards.  Returns (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.rl import grpo
+    cfg = dataclasses.replace(cfg_full, n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    state = grpo.init_train_state(params, "cuda")
+    n_params = sum(t.numel() for t in adamw.tree_leaves(params))
+    log(f"[train] {cfg.name} at full width, depth cut to {cfg.n_layers} of "
+        f"{cfg_full.n_layers} layers ({n_params} stored params: "
+        f"{n_params * 16 / 1e9:.1f} GB of trainer state); state "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    eng = make_engine(InferenceEngine, cfg, state["params"], temperature=1.0)
+    rids = admit(eng, prompts)
+    reset_launches()
+    t0 = clock()
+    out, _ = drive(eng, rids)
+    t_roll = clock() - t0
+    check_launches(cfg, eng, f"{cfg.name} rollout T=1",
+                   eng.n_decode_dispatches, eng.n_prefill_dispatches)
+    batch, rewards = rollout_batch(torch, grpo, prompts, rids, out)
+    B, S = batch["tokens"].shape
+    log(f"[train] {cfg.name} rollout: {len(rids)} requests, "
+        f"{int(batch['response_mask'].sum())} response tokens at "
+        f"temperature 1 in {t_roll:.3f} s; batch B={B} S={S}")
+    step_fn = grpo.make_train_step(cfg, lr=TRAIN_LR, remat=True)
+    reset_launches()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        t0 = clock()
+        state, m = step_fn(state, batch)
+        dt = clock() - t0
+        m = {k: float(v) for k, v in m.items()}
+        m.update(seconds=dt, tokens_per_s=B * S / dt,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        steps.append(m)
+        log(f"[train] {cfg.name} step {i + 1}: {dt:.3f} s, "
+            f"{B * S / dt:.1f} tokens/s, loss {m['loss']:.6f}, pg_loss "
+            f"{m['pg_loss']:.6f}, moe_aux {m['moe_aux']:.6f} (x "
+            f"{cfg.router_aux_coef} / {cfg.n_layers} in the loss), "
+            f"ratio_mean {m['ratio_mean']:.6f}, grad_norm "
+            f"{m['grad_norm']:.6f}, peak memory {m['peak_gb']:.2f} GB")
+    # each step runs the forward and its recompute (remat)
+    launches = check_launches(cfg, eng, f"{cfg.name} train", 0, 0,
+                              n_train_fwd=2 * TRAIN_STEPS)
+    for i, m in enumerate(steps):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["moe_aux"])
+                and m["moe_aux"] > 0):
+            fail(f"{cfg.name} train: step {i + 1} loss {m['loss']} moe_aux "
+                 f"{m['moe_aux']}")
+    E = cfg.n_experts
+    moved = []
+    for (key, a), (_, b) in zip(_items(params), _items(state["params"])):
+        if key.endswith("['experts']['wi']"):
+            if not torch.equal(a[:, E:], b[:, E:]):
+                fail(f"{cfg.name} train: a padded expert moved")
+            a, b = a[:, :E], b[:, :E]
+        moved.append(not torch.equal(a, b))
+    if not all(moved):
+        fail(f"{cfg.name} train: {moved.count(False)} parameter leaves did "
+             f"not change")
+    log(f"[train] {cfg.name}: every leaf changed, the padded experts "
+        f"(never routed to) did not; rewards (share of even token ids) "
+        f"{[round(float(r), 3) for r in rewards]}")
+    del eng, state, params, batch
+    torch.cuda.empty_cache()
+    return launches, dict(steps=steps, rollout_s=t_roll, n_params=n_params,
+                          layers=cfg.n_layers)
+
+
+def moe_phase(torch, InferenceEngine, clock, ops, ref):
+    """qwen2-moe-a2.7b, then deepseek-moe-16b, served as configured (each
+    freed before the next); qwen2-moe-a2.7b's batch migrated through a
+    codec-none KV manifest and its layer 0 repeated; then GRPO steps on
+    qwen2-moe-a2.7b cut to MOE_TRAIN_LAYERS.  Returns the launches of the
+    main path (both H=8 serves and the train steps) and a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    total = {k.__name__: 0 for k in KERNELS}
+    summary = {}
+    for arch in MOE_ARCHS:
+        # earlier phases leave engines and harnesses in reference cycles
+        # (~36 GB of them still allocated here in one run): collect them
+        # so that each ~30 GB model finds the card empty
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"[moe] {cfg.name}: {cfg.n_layers} layers ({cfg.first_k_dense} "
+            f"dense prefix) d={cfg.d_model} H={cfg.n_heads} "
+            f"K={cfg.n_kv_heads} dh={cfg.head_dim} experts {cfg.n_experts} "
+            f"(stored {cfg.n_experts_padded}) top-{cfg.top_k} d_ff_expert "
+            f"{cfg.d_ff_expert} shared {cfg.n_shared_experts} vocab "
+            f"{cfg.vocab_size}; {n_params} stored params "
+            f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), "
+            f"{cfg.active_param_count()} active a token; initialised in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rs = torch.Generator().manual_seed(0)
+        prompts = [[1] + torch.randint(3, cfg.vocab_size, (n - 1,),
+                                       generator=rs).tolist()
+                   for n in PROMPT_LENS]
+        row, launches, greedy8 = moe_serve(torch, InferenceEngine, cfg,
+                                           params, prompts, clock, ops, ref)
+        row["params"] = n_params
+        for k, n in launches.items():
+            total[k] += n
+        if arch == "qwen2-moe-a2.7b":
+            log(f"[moe] {cfg.name}: the batch migrates to a second engine "
+                f"on the same params (codec none)")
+            migrate_phase(torch, InferenceEngine, cfg, params, prompts,
+                          clock, greedy8, "none")
+            row["layer_repeat"] = moe_layer_repeat(torch, cfg, params)
+            train_prompts, train_cfg = prompts, cfg
+        summary[arch] = row
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, summary["train"] = moe_train(torch, InferenceEngine, train_cfg,
+                                           train_prompts, clock)
+    for k, n in launches.items():
+        total[k] += n
+    return total, summary
+
+
 def _items(tree):
     from repro_torch.transfer.chunkstore import tree_items
     return list(tree_items(tree))
@@ -3210,7 +3600,13 @@ def main():
     with graph_phase("9 rl"):
         rl_launches, rl = rl_phase(torch, clock)
 
-    # ---- 10. summary ----
+    # ---- 10. the MoE family at full width ----
+    torch.cuda.empty_cache()
+    with graph_phase("10 moe"):
+        moe_launches, moe_summary = moe_phase(torch, InferenceEngine, clock,
+                                              ops, ref)
+
+    # ---- 11. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -3230,10 +3626,12 @@ def main():
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
-        # phase 9 runs the paged kernels and flash too: its launches add
+        # phases 9 and 10 run the paged kernels and flash too: their
+        # launches add
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces,
-                         launches=n[name] + rl_launches[name], **r))
+                         launches=(n[name] + rl_launches[name]
+                                   + moe_launches[name]), **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -3245,7 +3643,8 @@ def main():
         {"kernels": rows, "installs": installs, "flash_cases": fla_cases,
          "decode_cases": dec_cases, "prefill_cases": pre_cases,
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
-         "serve14b": serve14b, "rl": rl, "graphs": GRAPHS,
+         "serve14b": serve14b, "rl": rl, "moe": moe_summary,
+         "graphs": GRAPHS,
          "serve_graph_engine": eng_graphs, "decode_profile": decode_profile,
          "prefill_profile": prefill_profile,
          "nvidia_smi": smi.stdout.strip()}, indent=1))

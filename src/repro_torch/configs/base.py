@@ -1,13 +1,15 @@
 """Model configuration for the port: the decoder families whose every
 layer has the same mixer, which the serving engine runs: dense all-global
-attention (Qwen), hybrid sliding-window attention beside a Mamba-2 mixer
+attention (Qwen), mixture-of-experts all-global attention (Qwen1.5-MoE,
+DeepSeekMoE), hybrid sliding-window attention beside a Mamba-2 mixer
 (Hymba) and pure Mamba-2 (SSD).
 
 A copy of ``repro.configs.base`` trimmed to the fields these families
-read.  Parameter trees keep the reference's scan-stacked layout (one
-``groups/sub0`` entry whose leaves carry a leading layer axis), so a
-config here and its counterpart in the reference describe the same
-weights.
+read.  Parameter trees keep the reference's layout: ``first_k_dense``
+prefix layers (DeepSeekMoE's dense first layer) under ``prefix/{i}``,
+then one scan-stacked ``groups/sub0`` entry whose leaves carry a leading
+layer axis, so a config here and its counterpart in the reference
+describe the same weights.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Callable, Dict, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | hybrid | ssm
+    family: str  # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,7 +42,19 @@ class ModelConfig:
     embed_scale: bool = False
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
-    mlp_kind: str = "dense"         # dense | none
+    mlp_kind: str = "dense"         # dense | moe | none
+    # prefix layers (moe family only) keep a dense MLP of their own width
+    first_k_dense: int = 0
+    d_ff_dense_prefix: int = 0
+
+    # --- moe ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 1.0e-2
+    shared_expert_gate: bool = False  # qwen2-moe sigmoid gate on shared
 
     # --- ssm (mamba-2 / SSD) ---
     ssm_state: int = 0
@@ -55,9 +69,25 @@ class ModelConfig:
                 f"{self.name}: the port serves {sorted(FAMILIES)} with one "
                 f"mixer in every layer (family={self.family!r}, "
                 f"pattern={self.pattern!r})")
-        if self.mlp_kind not in ("dense", "none"):
+        if self.mlp_kind not in ("dense", "moe", "none"):
             raise ValueError(f"{self.name}: mlp_kind {self.mlp_kind!r} is "
                              f"not ported")
+        if (self.mlp_kind == "moe") != (self.family == "moe"):
+            raise ValueError(f"{self.name}: mlp_kind 'moe' is the moe "
+                             f"family's, and only its")
+        if self.mlp_kind == "moe" and not (self.n_experts > 0
+                                           and 0 < self.top_k
+                                           <= self.n_experts
+                                           and self.d_ff_expert > 0):
+            raise ValueError(f"{self.name}: a MoE MLP needs n_experts, "
+                             f"top_k <= n_experts and d_ff_expert")
+        if self.first_k_dense and self.family != "moe":
+            raise ValueError(f"{self.name}: dense prefix layers are ported "
+                             f"for the moe family only")
+        if (self.n_layers - self.first_k_dense) % len(self.pattern):
+            raise ValueError(f"{self.name}: {self.n_layers} layers less "
+                             f"{self.first_k_dense} prefix layers do not "
+                             f"fill whole pattern groups")
         if self.has_attention and (self.n_kv_heads <= 0
                                    or self.n_heads % self.n_kv_heads):
             raise ValueError(f"{self.name}: n_heads must be a multiple of "
@@ -91,9 +121,27 @@ class ModelConfig:
     def has_ssm(self) -> bool:
         return any(m in ("mamba", "hybrid") for m in self.pattern)
 
+    @property
+    def n_groups(self) -> int:
+        return (self.n_layers - self.first_k_dense) // len(self.pattern)
+
+    @property
+    def n_experts_padded(self) -> int:
+        """Experts padded to a multiple of 16, as the reference stores them
+        (padded experts get no router column and are never selected)."""
+        if self.n_experts == 0:
+            return 0
+        return ((self.n_experts + 15) // 16) * 16
+
     def layer_mixers(self) -> Tuple[str, ...]:
-        """Mixer kind for every layer, in order."""
-        return self.pattern * (self.n_layers // len(self.pattern))
+        """Mixer kind for every layer, in order (prefix layers first)."""
+        base = "global" if self.has_attention else self.pattern[0]
+        return (base,) * self.first_k_dense + self.pattern * self.n_groups
+
+    def mlp_kind_for_layer(self, layer_idx: int) -> str:
+        if layer_idx < self.first_k_dense:
+            return "dense"
+        return self.mlp_kind
 
     def param_count(self) -> int:
         """Approximate parameter count (embeddings included once if tied),
@@ -102,7 +150,7 @@ class ModelConfig:
         total = V * D  # embeddings
         if not self.tie_embeddings:
             total += V * D
-        for mix in self.layer_mixers():
+        for li, mix in enumerate(self.layer_mixers()):
             if mix in ("global", "hybrid"):
                 H, K, dh = self.n_heads, self.n_kv_heads, self.head_dim
                 total += D * (H + 2 * K) * dh + H * dh * D
@@ -113,25 +161,43 @@ class ModelConfig:
                 total += D * d_in_proj + din * D
                 total += self.ssm_conv * self.conv_dim + self.conv_dim
                 total += 3 * self.ssm_nheads + din
-            if self.mlp_kind == "dense":
-                total += 3 * D * F
+            kind = self.mlp_kind_for_layer(li)
+            if kind == "dense":
+                f = self.d_ff_dense_prefix if li < self.first_k_dense else F
+                total += 3 * D * f
+            elif kind == "moe":
+                total += self.n_experts * 3 * D * self.d_ff_expert
+                total += self.n_shared_experts * 3 * D * self.d_ff_expert
+                total += D * self.n_experts
             total += 2 * D  # norms
         return total
 
     def active_param_count(self) -> int:
-        """Active params per token: every parameter (no MoE here)."""
-        return self.param_count()
+        """Active params per token (MoE counts top_k + shared experts
+        only)."""
+        if self.mlp_kind != "moe":
+            return self.param_count()
+        n_moe_layers = self.n_layers - self.first_k_dense
+        inactive = ((self.n_experts - self.top_k) * 3 * self.d_model
+                    * self.d_ff_expert)
+        return self.param_count() - n_moe_layers * inactive
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
         ``reduced`` for these families)."""
-        small: Dict = dict(n_layers=2 * len(self.pattern), d_model=64,
-                           n_heads=4,
+        small: Dict = dict(n_layers=self.first_k_dense + 2 * len(self.pattern),
+                           d_model=64, n_heads=4,
                            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
                            head_dim=16, d_ff=128 if self.d_ff else 0,
                            vocab_size=128,
                            window=min(self.window, 16) if self.window else 0,
+                           d_ff_dense_prefix=128 if self.first_k_dense
+                           else 0,
                            dtype="float32")
+        if self.mlp_kind == "moe":
+            small.update(n_experts=8, top_k=min(self.top_k, 2),
+                         d_ff_expert=32,
+                         n_shared_experts=min(self.n_shared_experts, 1))
         if self.has_ssm:
             small.update(ssm_state=16, ssm_headdim=16, ssm_expand=2,
                          ssm_groups=1)
@@ -141,8 +207,8 @@ class ModelConfig:
 
 
 # family -> the layer patterns the port runs for it
-FAMILIES = {"dense": (("global",),), "hybrid": (("hybrid",),),
-            "ssm": (("mamba",),)}
+FAMILIES = {"dense": (("global",),), "moe": (("global",),),
+            "hybrid": (("hybrid",),), "ssm": (("mamba",),)}
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 

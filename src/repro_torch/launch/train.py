@@ -4,7 +4,9 @@ resume (port of ``python -m repro.launch.train``).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
       [--reduced] [--device cpu] --steps 20 --ckpt-dir /tmp/rl_ckpt
 
-Runs on the GPU unless ``--device cpu``.  Weights are random, drawn from
+``--arch`` is any registered config of the dense or moe family (the moe
+steps carry the router's aux loss, printed as ``moe_aux``).  Runs on the
+GPU unless ``--device cpu``.  Weights are random, drawn from
 ``--seed``; the batch of step i is drawn from a generator seeded with
 (seed, i), so a resumed run sees the batches the uninterrupted one would.
 One card, no mesh: the reference's ``--data`` / ``--model`` / ``--recipe``
@@ -91,8 +93,10 @@ def main(argv=None):
         loss = float(metrics["loss"])
         if not math.isfinite(loss):
             raise RuntimeError(f"step {i}: training diverged (loss {loss})")
+        aux = (f"moe_aux={float(metrics['moe_aux']):.4f} "
+               if "moe_aux" in metrics else "")
         print(f"step {i:4d} loss={loss:.4f} "
-              f"grad_norm={float(metrics['grad_norm']):.3f} "
+              f"grad_norm={float(metrics['grad_norm']):.3f} {aux}"
               f"({time.perf_counter() - t0:.2f}s)", flush=True)
         if saver and (i + 1) % args.ckpt_every == 0:
             saver.save(state, step=i + 1)

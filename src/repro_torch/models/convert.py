@@ -23,7 +23,8 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
     """Same nested dict and key strings, leaves as tensors on ``device``
     (``None`` means CUDA).  The stacked ``groups/sub0`` leaves keep their
-    leading layer axis."""
+    leading layer axis; ``prefix/{i}`` layers have none.  Raises
+    ``ValueError`` when a checked leaf's shape does not fit the config."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -31,18 +32,40 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
                 for k, v in t.items()}
 
     params = conv(tree)
-    layer = params["groups"]["sub0"]
-    got = {"embed": tuple(params["embed"].shape)}
-    want = {"embed": (cfg.vocab_size, cfg.d_model)}
+    D, G = cfg.d_model, cfg.n_groups
+
+    def shape(*path):
+        t = params
+        for k in path:
+            if not isinstance(t, dict) or k not in t:
+                return None
+            t = t[k]
+        return tuple(t.shape)
+
+    layer = ("groups", "sub0")
+    got = {"embed": shape("embed"),
+           "prefix layers": len(params.get("prefix") or {})}
+    want = {"embed": (cfg.vocab_size, D),
+            "prefix layers": cfg.first_k_dense}
     if cfg.has_attention:
-        got["attn.wq"] = tuple(layer["attn"]["wq"].shape)
-        want["attn.wq"] = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                           cfg.head_dim)
+        got["attn.wq"] = shape(*layer, "attn", "wq")
+        want["attn.wq"] = (G, D, cfg.n_heads, cfg.head_dim)
     if cfg.has_ssm:
-        got["mamba.in_proj"] = tuple(layer["mamba"]["in_proj"].shape)
-        want["mamba.in_proj"] = (cfg.n_layers, cfg.d_model,
-                                 2 * cfg.d_inner + 2 * cfg.ssm_groups
+        got["mamba.in_proj"] = shape(*layer, "mamba", "in_proj")
+        want["mamba.in_proj"] = (G, D, 2 * cfg.d_inner + 2 * cfg.ssm_groups
                                  * cfg.ssm_state + cfg.ssm_nheads)
+    if cfg.mlp_kind == "moe":
+        Fe, Fs = cfg.d_ff_expert, cfg.n_shared_experts * cfg.d_ff_expert
+        got.update({k: shape(*layer, "mlp", *k.split(".")) for k in (
+            "router", "experts.wo", "shared.wi", "shared_gate")})
+        want.update({"router": (G, D, cfg.n_experts),
+                     "experts.wo": (G, cfg.n_experts_padded, Fe, D),
+                     "shared.wi": (G, D, Fs) if Fs else None,
+                     "shared_gate": (G, D, 1) if Fs and
+                     cfg.shared_expert_gate else None})
+    for i in range(cfg.first_k_dense):
+        got[f"prefix.{i}.mlp.wi"] = shape("prefix", str(i), "mlp", "wi")
+        want[f"prefix.{i}.mlp.wi"] = (D, cfg.d_ff_dense_prefix)
     if got != want:
         raise ValueError(f"{cfg.name}: tree does not match the config "
                          f"(got {got}, want {want})")

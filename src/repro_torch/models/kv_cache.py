@@ -7,7 +7,7 @@ under ``groups/sub0`` do):
 
   cache = {
     "pos":     [B] int32 — tokens already in the cache per decode slot,
-    # global attention (dense family): shared page pools
+    # global attention (dense and moe families): shared page pools
     "k_pages": [L, P, page_size, K, dh],
     "v_pages": same,
     # hybrid sliding-window attention: a per-slot ring of W = min(window,
@@ -18,6 +18,10 @@ under ``groups/sub0`` do):
     "conv":    [L, B, ssm_conv - 1, conv_dim],
     "ssm":     [L, B, H_ssm, P_ssm, N],
   }
+
+The prefix layers of a config with ``first_k_dense`` (DeepSeekMoE's dense
+first layer, global attention like the rest) are the first entries of the
+layer axis; only their export keys differ (``pool_keys``).
 
 Position p of a request lives at (table[p // page_size], p % page_size)
 of its block table.  Page 0 is the reserved garbage page: padded and
@@ -228,11 +232,24 @@ def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
 # leaf -> its key string in the reference's cache tree, where every leaf of
 # a single-mixer config sits group-stacked under groups/sub0 with the same
 # shape as here; KV exports use these keys so that an export from either
-# package imports into the other
+# package imports into the other.  A config's first_k_dense prefix layers
+# sit under prefix/{i} there, unstacked: ``pool_keys`` names them.
 POOL_KEYS = {"k_pages": "['groups']['sub0']['k_pages']",
              "v_pages": "['groups']['sub0']['v_pages']"}
 SLOT_KEYS = {name: f"['groups']['sub0']['{name}']"
              for name in ("k", "v", "conv", "ssm")}
+
+
+def pool_keys(n_prefix: int = 0) -> list:
+    """Every pool's export key, with ``n_prefix`` prefix layers: (key, leaf
+    name, the layers of the port's [L, ...] pool it holds, whether the
+    reference stacks it on a layer axis)."""
+    out = []
+    for name, stacked in POOL_KEYS.items():
+        out += [(f"['prefix']['{i}']['{name}']", name, slice(i, i + 1),
+                 False) for i in range(n_prefix)]
+        out.append((stacked, name, slice(n_prefix, None), True))
+    return out
 
 
 def copy_pool_pages(cache, src, dst):
@@ -260,19 +277,25 @@ def grow_pool(cache, new_num_pages: int):
     return out
 
 
-def gather_pages(cache, page_ids) -> Dict[str, torch.Tensor]:
+def gather_pages(cache, page_ids, n_prefix: int = 0
+                 ) -> Dict[str, torch.Tensor]:
     """Host copies of the pool pages at ``page_ids`` from both pools
-    (KV-migration export): ``{POOL_KEYS[k]: [L, n, ps, K, dh]}`` CPU
-    tensors; empty for a cache without pools."""
+    (KV-migration export), keyed as the reference's cache tree keys them
+    (:func:`pool_keys`): ``[L, n, ps, K, dh]`` CPU tensors for the stacked
+    layers, ``[n, ps, K, dh]`` for each of ``n_prefix`` prefix layers;
+    empty for a cache without pools."""
     if "k_pages" not in cache:
         return {}
     k0 = cache["k_pages"]
     ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
-    return {POOL_KEYS[k]: cache[k].index_select(1, ids).cpu()
-            for k in POOL_KEYS}
+    out = {}
+    for key, name, layers, stacked in pool_keys(n_prefix):
+        got = cache[name][layers].index_select(1, ids).cpu()
+        out[key] = got if stacked else got[0]
+    return out
 
 
-def scatter_pages(cache, pages: Dict, page_ids):
+def scatter_pages(cache, pages: Dict, page_ids, n_prefix: int = 0):
     """Write exported page payloads (tensors or numpy arrays keyed as
     :func:`gather_pages` keys them) into both pools at ``page_ids``, in
     place (KV-migration import; inverse of :func:`gather_pages` up to page
@@ -281,10 +304,10 @@ def scatter_pages(cache, pages: Dict, page_ids):
         return cache
     k0 = cache["k_pages"]
     ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
-    for k, key in POOL_KEYS.items():
-        pool = cache[k]
-        pool[:, ids] = torch.as_tensor(pages[key]).to(pool.device,
-                                                       pool.dtype)
+    for key, name, layers, stacked in pool_keys(n_prefix):
+        pool = cache[name][layers]
+        val = torch.as_tensor(pages[key]).to(pool.device, pool.dtype)
+        pool[:, ids] = val if stacked else val[None]
     return cache
 
 

@@ -1,13 +1,16 @@
 """Decoder backbone (port of ``repro.models.transformer``) for the
-single-mixer families: dense all-global attention (the full-sequence
-``train`` mode and the paged ``prefill`` / ``decode`` modes), and the
-hybrid (sliding-window attention beside a Mamba-2 mixer, Hymba) and SSM
-(Mamba-2) families in the ``prefill`` / ``decode`` modes.
+single-mixer families: dense and mixture-of-experts all-global attention
+(the full-sequence ``train`` mode and the paged ``prefill`` / ``decode``
+modes), and the hybrid (sliding-window attention beside a Mamba-2 mixer,
+Hymba) and SSM (Mamba-2) families in the ``prefill`` / ``decode`` modes.
 
 Parameters are the reference's nested dict with the same key strings:
 ``embed`` [V, D], ``lm_head`` [D, V] (untied configs only),
-``final_norm/scale``, and ``groups/sub0/...`` whose leaves carry a leading
-layer axis (the reference's scan stack).  Order of operations follows the
+``final_norm/scale``, ``prefix/{i}/...`` for the ``first_k_dense`` dense
+prefix layers (DeepSeekMoE's first layer), and ``groups/sub0/...`` whose
+leaves carry a leading layer axis (the reference's scan stack).  A MoE
+layer's MLP is ``models.moe``; ``forward`` sums its aux losses over the
+layers as the reference does.  Order of operations follows the
 reference: qk-norm before RoPE; in the paged modes q is pre-scaled by
 dh**-0.5 so the paged kernels get ``scale=1.0``, and a prefill chunk
 attends to its own K/V before that K/V is written to the pool; in train
@@ -22,7 +25,6 @@ Mamba mixers scan through ``ops.ssd`` in prefill (``models.ssm``).
 from __future__ import annotations
 
 import functools
-import math
 from typing import Dict, Optional
 
 import torch
@@ -35,8 +37,9 @@ from repro_torch.models import kv_cache as kvc
 from repro_torch.models.attention import (apply_rope, paged_write,
                                           rope_inv_freq)
 from repro_torch.models.kv_cache import GARBAGE_PAGE
-from repro_torch.models.layers import (embed_tokens, rms_norm, softcap,
-                                       swiglu)
+from repro_torch.models.layers import (dense_init, embed_tokens, rms_norm,
+                                       softcap, swiglu)
+from repro_torch.models.moe import init_moe_params, moe_layer
 from repro_torch.models.ssm import (init_mamba_params, mamba_mixer_decode,
                                     mamba_mixer_fwd)
 
@@ -48,66 +51,72 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
-def _dense(gen, shape, fan_in, dtype, device, layers=None):
-    """Normal(0, 1/sqrt(fan_in)) drawn in f32 and cast, as the reference's
-    ``dense_init``; with ``layers`` a stacked [layers, *shape] tensor,
-    drawn one layer at a time so the f32 draw never holds the stack."""
-    std = 1.0 / math.sqrt(max(fan_in, 1))
-    if layers is None:
-        return (torch.randn(shape, generator=gen, device=device)
-                * std).to(dtype)
-    out = torch.empty((layers,) + tuple(shape), dtype=dtype, device=device)
-    for i in range(layers):
-        out[i] = torch.randn(shape, generator=gen, device=device).mul_(std)
-    return out
+def _init_layers(cfg: ModelConfig, g, dt, device, L, mlp_kind: str,
+                 d_ff: int) -> Dict:
+    """The params of ``L`` layers stacked on a leading axis (``L=None``:
+    one layer, no axis), with the config's mixer and ``mlp_kind``."""
+    D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lead = () if L is None else (L,)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    mixer = cfg.pattern[0]
+    layer = {"ln1": {"scale": zeros(D)}}
+    if cfg.has_attention:
+        attn = {"wq": dense_init(g, (D, H, dh), D, dt, device, L),
+                "wk": dense_init(g, (D, K, dh), D, dt, device, L),
+                "wv": dense_init(g, (D, K, dh), D, dt, device, L),
+                "wo": dense_init(g, (H, dh, D), H * dh, dt, device, L)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(H, dh, dtype=dt), bk=zeros(K, dh, dtype=dt),
+                        bv=zeros(K, dh, dtype=dt))
+        if cfg.qk_norm:
+            attn.update(q_norm=zeros(dh), k_norm=zeros(dh))
+        layer["attn"] = attn
+    if cfg.has_ssm:
+        per_layer = [init_mamba_params(cfg, g, dt, device)
+                     for _ in range(L or 1)]
+        layer["mamba"] = per_layer[0] if L is None else _stack(per_layer)
+    if mixer == "hybrid":
+        layer["attn_norm"] = {"scale": zeros(D)}
+        layer["ssm_norm"] = {"scale": zeros(D)}
+    if mlp_kind != "none":
+        layer["ln2"] = {"scale": zeros(D)}
+        if mlp_kind == "moe":
+            layer["mlp"] = init_moe_params(cfg, g, dt, device, L)
+        else:
+            layer["mlp"] = {"wi": dense_init(g, (D, d_ff), D, dt, device, L),
+                            "wg": dense_init(g, (D, d_ff), D, dt, device, L),
+                            "wo": dense_init(g, (d_ff, D), d_ff, dt, device,
+                                             L)}
+    return layer
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Random weights with the reference's tree, shapes and distributions
-    (its bits differ: the draws come from ``generator``).  Norm scales are
-    zero (weight 1 under the zero-centred RMSNorm).  ``device=None`` means
-    CUDA (raises when absent); ``generator`` must live on that device."""
+    (its bits differ: the draws come from ``generator``): ``prefix/{i}``
+    for the dense prefix layers, then the stacked ``groups/sub0``.  Norm
+    scales are zero (weight 1 under the zero-centred RMSNorm).
+    ``device=None`` means CUDA (raises when absent); ``generator`` must
+    live on that device."""
     device = resolve_device(device)
     dt = dtype_of(cfg)
-    D, H, K, dh, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                            cfg.head_dim, cfg.d_ff, cfg.vocab_size,
-                            cfg.n_layers)
+    D, V = cfg.d_model, cfg.vocab_size
     g = generator
-
-    def zeros(*shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    mixer = cfg.pattern[0]
-    layer = {"ln1": {"scale": zeros(L, D)}}
-    if cfg.has_attention:
-        attn = {"wq": _dense(g, (D, H, dh), D, dt, device, L),
-                "wk": _dense(g, (D, K, dh), D, dt, device, L),
-                "wv": _dense(g, (D, K, dh), D, dt, device, L),
-                "wo": _dense(g, (H, dh, D), H * dh, dt, device, L)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(L, H, dh, dtype=dt),
-                        bk=zeros(L, K, dh, dtype=dt),
-                        bv=zeros(L, K, dh, dtype=dt))
-        if cfg.qk_norm:
-            attn.update(q_norm=zeros(L, dh), k_norm=zeros(L, dh))
-        layer["attn"] = attn
-    if cfg.has_ssm:
-        per_layer = [init_mamba_params(cfg, g, dt, device) for _ in range(L)]
-        layer["mamba"] = _stack(per_layer)
-    if mixer == "hybrid":
-        layer["attn_norm"] = {"scale": zeros(L, D)}
-        layer["ssm_norm"] = {"scale": zeros(L, D)}
-    if cfg.mlp_kind != "none":
-        layer["ln2"] = {"scale": zeros(L, D)}
-        layer["mlp"] = {"wi": _dense(g, (D, F), D, dt, device, L),
-                        "wg": _dense(g, (D, F), D, dt, device, L),
-                        "wo": _dense(g, (F, D), F, dt, device, L)}
-    params = {"final_norm": {"scale": zeros(D)},
-              "embed": _dense(g, (V, D), D, dt, device),
-              "groups": {"sub0": layer}}
+    prefix = {str(i): _init_layers(cfg, g, dt, device, None, "dense",
+                                   cfg.d_ff_dense_prefix)
+              for i in range(cfg.first_k_dense)}
+    stack = _init_layers(cfg, g, dt, device, cfg.n_groups, cfg.mlp_kind,
+                         cfg.d_ff)
+    params = {"final_norm": {"scale": torch.zeros((D,), device=device)},
+              "embed": dense_init(g, (V, D), D, dt, device),
+              "groups": {"sub0": stack}}
+    if prefix:
+        params["prefix"] = prefix
     if not cfg.tie_embeddings:
-        params["lm_head"] = _dense(g, (D, V), D, dt, device)
+        params["lm_head"] = dense_init(g, (D, V), D, dt, device)
     return params
 
 
@@ -221,8 +230,9 @@ def _mamba_apply(p, h, cfg: ModelConfig, mode: str, lc, lens, seq_mask):
     return out
 
 
-def _apply_layer(p, x, cfg: ModelConfig, mode: str, lc, positions, lens,
-                 paged, seq_mask):
+def _apply_layer(p, x, cfg: ModelConfig, mlp_kind: str, mode: str, lc,
+                 positions, lens, paged, seq_mask):
+    """One layer: (x, the MoE aux loss, or None for a dense or no MLP)."""
     mixer = cfg.pattern[0]
     h = rms_norm(x, p["ln1"]["scale"])
     if mixer == "global":
@@ -237,10 +247,14 @@ def _apply_layer(p, x, cfg: ModelConfig, mode: str, lc, positions, lens,
         mix = 0.5 * (rms_norm(attn_out, p["attn_norm"]["scale"])
                      + rms_norm(m_out, p["ssm_norm"]["scale"]))
     x = x + mix
-    if cfg.mlp_kind == "none":
-        return x
+    if mlp_kind == "none":
+        return x, None
     h2 = rms_norm(x, p["ln2"]["scale"])
-    return x + swiglu(h2, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
+    if mlp_kind == "moe":
+        out, aux = moe_layer(p["mlp"], h2, cfg)
+        return x + out, aux
+    return x + swiglu(h2, p["mlp"]["wi"], p["mlp"]["wg"],
+                      p["mlp"]["wo"]), None
 
 
 # --------------------------------------------------------------------------- #
@@ -249,8 +263,10 @@ def _apply_layer(p, x, cfg: ModelConfig, mode: str, lc, positions, lens,
 def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
             paged=None, seq_mask: Optional[torch.Tensor] = None,
             remat: bool = False) -> Dict:
-    """Returns {"hidden": [B, S, D] after the final norm} and, in the paged
-    modes, "pos": [B] int32 tokens in the pool afterwards.
+    """Returns {"hidden": [B, S, D] after the final norm, "aux": the MoE
+    layers' load-balance aux losses summed (f32 scalar, 0 without MoE)}
+    and, in the paged modes, "pos": [B] int32 tokens in the pool
+    afterwards.
 
     train:   tokens [B, S]; the whole sequence at positions 0..S-1, no
              cache; differentiable.  ``remat`` recomputes each layer in the
@@ -274,7 +290,8 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
                          f"{mode!r}")
     if mode == "train" and cfg.pattern != ("global",):
         raise NotImplementedError(
-            f"{cfg.name}: train mode is ported for the dense family only")
+            f"{cfg.name}: train mode is ported for the dense and moe "
+            f"families only")
     lens = None
     if mode == "decode":
         x = embed_tokens(params["embed"], tokens[:, None], cfg.embed_scale,
@@ -296,23 +313,29 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
                               device=tokens.device)
         else:
             lens = seq_mask.to(torch.int32).sum(-1, dtype=torch.int32)
-    stack = params["groups"]["sub0"]
+    stack, n_pre = params["groups"]["sub0"], cfg.first_k_dense
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
+        p = params["prefix"][str(i)] if i < n_pre else _layer(stack,
+                                                              i - n_pre)
+        kind = cfg.mlp_kind_for_layer(i)
         if mode == "train":
-            def layer(x, i=i):
-                return _apply_layer(_layer(stack, i), x, cfg, mode, None,
-                                    positions, None, None, None)
-            x = checkpoint(layer, x, use_reentrant=False) if remat \
+            def layer(x, p=p, kind=kind):
+                return _apply_layer(p, x, cfg, kind, mode, None, positions,
+                                    None, None, None)
+            x, a = checkpoint(layer, x, use_reentrant=False) if remat \
                 else layer(x)
         else:
             lc = {k: v[i] for k, v in cache.items() if k != "pos"}
-            x = _apply_layer(_layer(stack, i), x, cfg, mode, lc, positions,
-                             lens, paged, seq_mask)
+            x, a = _apply_layer(p, x, cfg, kind, mode, lc, positions, lens,
+                                paged, seq_mask)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"]["scale"])
     if mode == "train":
-        return {"hidden": x}
+        return {"hidden": x, "aux": aux}
     pos = cache["pos"] + 1 if mode == "decode" else offs + lens
-    return {"hidden": x, "pos": pos}
+    return {"hidden": x, "pos": pos, "aux": aux}
 
 
 def unembed_matrix(params, cfg: ModelConfig):

@@ -1,9 +1,11 @@
 """GRPO: group-relative policy optimization (port of ``repro.rl.grpo``).
 
 Group-normalized advantages, the clipped-surrogate loss with an optional
-k3 KL to a reference policy, and ``make_train_step`` = loss -> grads ->
-AdamW.  The port's family is dense, so there is no MoE aux loss; the
-supervised (encoder) loss waits for an encoder config.
+k3 KL to a reference policy, the MoE router's load-balance aux loss
+(``aux_coef`` x the aux summed over layers / n_layers, on by default for
+the moe family at ``cfg.router_aux_coef``), and ``make_train_step`` =
+loss -> grads -> AdamW.  The supervised (encoder) loss waits for an
+encoder config.
 
 Batch layout (one microbatch), tensors on the params' device:
   tokens            [B, S] int32   prompt + response, right-padded
@@ -18,7 +20,7 @@ masks are expected to be 0 at slot 0.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,22 +55,22 @@ def group_normalized_advantages(rewards: np.ndarray,
 
 
 def policy_logprobs(params, cfg, tokens, *, remat: bool = False):
-    """[B, S]: slot t = log p(tokens[t] | tokens[<t]) under ``params``;
-    slot 0 is 0."""
-    hidden = forward(params, cfg, tokens=tokens, mode="train",
-                     remat=remat)["hidden"]
-    lp = token_logprobs(params, cfg, hidden[:, :-1], tokens[:, 1:])
-    return F.pad(lp, (1, 0))
+    """(lp [B, S], aux): slot t = log p(tokens[t] | tokens[<t]) under
+    ``params``, slot 0 is 0; aux the MoE layers' aux losses summed (0
+    without MoE)."""
+    out = forward(params, cfg, tokens=tokens, mode="train", remat=remat)
+    lp = token_logprobs(params, cfg, out["hidden"][:, :-1], tokens[:, 1:])
+    return F.pad(lp, (1, 0)), out["aux"]
 
 
 def grpo_loss(params, cfg, batch: Dict, *, clip_eps: float = 0.2,
-              kl_coef: float = 0.0, remat: bool = False
-              ) -> Tuple[torch.Tensor, Dict]:
+              kl_coef: float = 0.0, aux_coef: Optional[float] = None,
+              remat: bool = False) -> Tuple[torch.Tensor, Dict]:
     mask = batch["response_mask"].float()
     adv = batch["advantages"].float()[:, None]
     beh = batch["behavior_logprobs"].float()
 
-    lp = policy_logprobs(params, cfg, batch["tokens"], remat=remat)
+    lp, aux = policy_logprobs(params, cfg, batch["tokens"], remat=remat)
     ratio = torch.exp(lp - beh)
     surr = torch.minimum(ratio * adv,
                          torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
@@ -84,6 +86,11 @@ def grpo_loss(params, cfg, batch: Dict, *, clip_eps: float = 0.2,
         kl_loss = ((torch.exp(d) - d - 1.0) * mask).sum() / denom
         loss = loss + kl_coef * kl_loss
         metrics["kl"] = kl_loss
+    if aux_coef is None:
+        aux_coef = cfg.router_aux_coef if cfg.mlp_kind == "moe" else 0.0
+    if aux_coef:
+        loss = loss + aux_coef * aux / max(cfg.n_layers, 1)
+        metrics["moe_aux"] = aux
     metrics["loss"] = loss
     metrics["ratio_mean"] = (ratio * mask).sum() / denom
     return loss, {k: v.detach() for k, v in metrics.items()}

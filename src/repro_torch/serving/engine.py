@@ -806,7 +806,8 @@ class InferenceEngine:
                 slot_state[rid] = kvc.gather_slot_rows(self.cache, slot)
         span = self.tracer.begin("engine.kv_export", self.trace_lane,
                                  n_reqs=len(req_ids), n_pages=len(unique))
-        pages = kvc.gather_pages(self.cache, unique) if unique else {}
+        pages = (kvc.gather_pages(self.cache, unique, self.cfg.first_k_dense)
+                 if unique else {})
         self.tracer.end(span)
         self.n_kv_export_pages += len(unique)
         return dict(page_size=self.page_size, n_pages=len(unique),
@@ -860,7 +861,8 @@ class InferenceEngine:
                 sel[k] = v.index_select(v.ndim - 4,
                                         torch.as_tensor(used,
                                                         dtype=torch.long))
-            kvc.scatter_pages(self.cache, sel, fresh)
+            kvc.scatter_pages(self.cache, sel, fresh,
+                              self.cfg.first_k_dense)
         slots = []
         referenced: Dict[int, int] = {}
         for r in reqs:

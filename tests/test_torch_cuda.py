@@ -23,8 +23,10 @@ live slots, and the SSD scan at both served prefills (8 ragged rows of
 the unpadded row's bit for bit; it checks that repeated launches are
 bit-identical, and
 that the paged decode's outputs do not move by a bit when the table
-doubles or rows are added.  The engine's decode horizon as a CUDA graph,
-on a tiny dense and a tiny hybrid config: replayed tokens and logprobs
+doubles or rows are added; the paged decode also at G = 1 (the MoE
+configs' 16 / 16 heads).  The MoE layer with drops gives the same bits on
+a second launch and the CPU's drop set.  The engine's decode horizon as a
+CUDA graph, on a tiny dense, a tiny MoE and a tiny hybrid config: replayed tokens and logprobs
 bit-equal to eager H=8 and to eager H=1 at temperature 0 and 1, and
 across a ``swap_weights`` mid-stream; the decode kernels' launch counters
 equal layers x H x horizons with replays; a capture that fails raises
@@ -46,6 +48,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import moe
 from repro_torch.models.transformer import init_params
 from repro_torch.rl.sampler import request_key
 from repro_torch.serving import engine as engine_mod
@@ -102,7 +105,9 @@ DECODE_CASES = [(4, 4, 2, 16, 8, 64, 0.0), (3, 32, 8, 16, 24, 128, 0.0),
                 (3, 4, 1, 8, 16, 128, 30.0), (2, 16, 2, 16, 4, 64, 0.0),
                 # G = 5, 6, 7: qwen3-32b, qwen3-14b and qwen2-7b's groups
                 (4, 40, 8, 16, 24, 128, 0.0), (4, 48, 8, 16, 24, 128, 0.0),
-                (4, 28, 4, 16, 24, 128, 0.0)]
+                (4, 28, 4, 16, 24, 128, 0.0),
+                # G = 1: qwen2-moe-a2.7b and deepseek-moe-16b (16 / 16)
+                (4, 16, 16, 16, 24, 128, 0.0)]
 
 
 @pytest.mark.cuda
@@ -455,11 +460,16 @@ def test_install_on_card_launches_once_per_int8_leaf(cuda, codec):
 
 # ----------------------- the decode horizon as a graph ----------------------- #
 def _graph_cfg(family):
-    """Tiny f32 configs whose head dim the decode kernels take (64)."""
+    """Tiny f32 configs whose head dim the decode kernels take (64); the
+    MoE one is DeepSeekMoE's (a dense prefix layer, 16 stored experts) at
+    its G = 1."""
     kw = dict(vocab_size=tok.VOCAB_SIZE, d_model=128, n_heads=4,
               n_kv_heads=2, head_dim=64, d_ff=256)
     if family == "dense":
         return get_config("qwen3-8b").reduced(name="tiny-graph-dense", **kw)
+    if family == "moe":
+        return get_config("deepseek-moe-16b").reduced(
+            name="tiny-graph-moe", **dict(kw, n_kv_heads=4))
     return get_config("hymba-1.5b").reduced(name="tiny-graph-hybrid", **kw)
 
 
@@ -500,7 +510,7 @@ def _graph_serve(cfg, params, *, horizon, temperature, graphs, swap=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("temperature", [0.0, 1.0])
-@pytest.mark.parametrize("family", ["dense", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid"])
 def test_graph_horizon_bit_equal_to_eager_on_card(cuda, family, temperature):
     cfg = _graph_cfg(family)
     params = _graph_params(cfg, 0, cuda)
@@ -517,7 +527,7 @@ def test_graph_horizon_bit_equal_to_eager_on_card(cuda, family, temperature):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["dense", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid"])
 def test_graph_horizon_across_a_swap_on_card(cuda, family):
     cfg = _graph_cfg(family)
     p0, p1 = _graph_params(cfg, 0, cuda), _graph_params(cfg, 1, cuda)
@@ -532,11 +542,11 @@ def test_graph_horizon_across_a_swap_on_card(cuda, family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["dense", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid"])
 def test_graph_launch_counters_count_replays_on_card(cuda, family):
     cfg = _graph_cfg(family)
-    kernel = (paged_decode_attention if family == "dense"
-              else decode_attention)
+    kernel = (decode_attention if family == "hybrid"
+              else paged_decode_attention)
     before = kernel.launches
     s0 = engine_mod.graph_cache_stats()
     _, eng = _graph_serve(cfg, _graph_params(cfg, 0, cuda), horizon=8,
@@ -545,6 +555,43 @@ def test_graph_launch_counters_count_replays_on_card(cuda, family):
     assert s1["replays"] > s0["replays"] and s1["captures"] > s0["captures"]
     assert kernel.launches - before == \
         cfg.n_layers * eng.horizon * eng.n_decode_dispatches
+
+
+# --------------------------- the MoE layer on the card --------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_bit_repeatable_on_card(cuda, dtype):
+    """DeepSeekMoE's layer (reduced to d 64, 8 experts stored as 16) on
+    T = 1100 tokens with a shared offset, so that some experts overflow
+    their capacity: two launches give the same bits (the combine sums each
+    token's k slots in a fixed order, no atomics), the drop set equals the
+    CPU's on the same f32 inputs, and the f32 output is within 1e-5 of
+    the CPU's (bf16: 2e-2, the inputs and weights rounded)."""
+    cfg = get_config("deepseek-moe-16b").reduced(dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    stack = init_params(cfg, gen, "cpu")["groups"]["sub0"]["mlp"]
+    cpu_p = _tree_map(stack, lambda t: t[0])
+    rs = np.random.RandomState(3)
+    x = (rs.randn(4, 275, cfg.d_model) + rs.randn(cfg.d_model)) \
+        .astype(np.float32)
+    xc = torch.from_numpy(x).to(getattr(torch, dtype))
+    p = _tree_map(cpu_p, lambda t: t.to(cuda))
+    out, aux = moe.moe_layer(p, xc.to(cuda), cfg)
+    again, aux2 = moe.moe_layer(p, xc.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(aux, aux2)
+    T, k, Ep = 1100, cfg.top_k, cfg.n_experts_padded
+    C = moe._capacity(T, cfg.n_experts, k, cfg.capacity_factor)
+    xf = xc.float().reshape(T, -1)
+    _, ids_c, _ = moe._route(xf, cpu_p["router"], k, Ep)
+    _, ids_g, _ = moe._route(xf.to(cuda), p["router"], k, Ep)
+    slot_c = moe._slots(ids_c, Ep, C)
+    assert (slot_c == Ep * C).any()                  # entries were dropped
+    assert torch.equal(moe._slots(ids_g, Ep, C).cpu(), slot_c)
+    if dtype == "float32":
+        want, want_aux = moe.moe_layer(cpu_p, xc, cfg)
+        assert _err(out, want) <= 1e-5
+        assert abs(float(aux) - float(want_aux)) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -306,7 +306,7 @@ def test_on_policy_identity_on_engine_rollouts():
     assert mask.sum() == sum(map(len, out.values())) > 6   # EOS may end one
     _, metrics = grpo.grpo_loss(params, cfg, batch)
     assert abs(float(metrics["ratio_mean"]) - 1.0) <= 1e-4
-    lp = grpo.policy_logprobs(params, cfg, batch["tokens"])
+    lp, _ = grpo.policy_logprobs(params, cfg, batch["tokens"])
     assert float(((lp - batch["behavior_logprobs"]).abs()
                   * batch["response_mask"]).max()) <= 1e-4
 
