@@ -13,26 +13,37 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 q, f32 pools) with ragged lengths / offsets / chunk lengths,
                 the paged decode and prefill also at the G = 5, 6, 7 of
                 qwen3-32b, qwen3-14b and qwen2-7b and the G = 1 of the MoE
-                configs (H = K = 16), the prefill also at C = 1
+                configs (H = K = 16) and the gemma family's G = 2
+                (gemma3-4b's d = 256; gemma2-27b's d = 128 with a softcap
+                of 50), the prefill also at C = 1
                 and a ragged C = 130, all under one gate (2e-2 or one bf16
                 ulp of |want|); the paged decode's outputs bit-identical
                 with its table padded to 2 nb and rows appended (splits
                 fixed in position space), and both paged kernels on a
                 second launch; the paged decode timed at split lengths
-                of 32, 64 and 128 positions (SPLIT_SWEEP);
+                of 32, 64 and 128 positions (SPLIT_SWEEP); both paged
+                kernels again at the shapes phase 11 serves
+                (SERVED_PAGED: decode tables as wide as the rows' last
+                positions, up to 4232; the whole mix prefilled in one
+                chunk, C = 1152 and 4224, offsets 0), launched twice;
                 ``fused_dequant`` at the full-width leaf shapes (mlp.wi,
                 embed, wq rows at C=128, a 1-D leaf at C=1) with base none,
                 f32 and bf16; ``flash_attention`` in bf16 at the train
                 phase's shape, at S=4096, on the reference test's feature
                 cases (window, softcap, MQA, bidirectional, a ragged S), at
-                Hymba's prefill (G=5, d=64, window 1024) and at phase 10's
-                train shape (G=1, 16 heads);
+                Hymba's prefill (G=5, d=64, window 1024), at phase 10's
+                train shape (G=1, 16 heads) and at phase 11's local
+                layers (gemma3-4b: d=256, window 1024; gemma2-27b: window
+                4096, softcap 50), those launched twice (bit-identical);
                 ``decode_attention`` at Hymba's ring (B=8, H=25, K=5, d=64,
                 T=1024, bf16 q over f32 K/V read as views of the [B, T, K,
                 d] ring, ragged lengths 1..T; again with an empty row and
-                with a window of 256) and on the reference test's cases in
-                f32 and bf16; a second launch of the flash and slab decode
-                kernels bit-identical to the first; ``ssd_scan`` at Hymba's
+                with a window of 256), on the gemma family's rings
+                (gemma3-4b: W=1024, d=256; gemma2-27b: W=4096, softcap 50;
+                each launched twice, bit-identical) and on the reference
+                test's cases in f32 and bf16; a second launch of the flash
+                and slab decode kernels bit-identical to the first;
+                ``ssd_scan`` at Hymba's
                 prefill
                 (b=8, L=1152, H=50, P=64, N=16, strided slices of one conv
                 output, dt = 0 past each row's length), at Mamba2-130m's
@@ -55,13 +66,19 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 torch.profiler with graphs and eagerly (wall, device busy,
                 idle share, host launch calls: one ``cudaGraphLaunch`` and
                 no kernel launch with graphs; each decode kernel's
-                profiler count equal to its wrapper's launches); one
+                profiler count equal to its wrapper's launches; the
+                window opened by PROBE_BURST spin kernels, which
+                take the profiler's loss of a window's first records,
+                and the step PROFILE_PAD_S inside both of its ends); one
                 prefill dispatch of the 4 prompts profiled (``[profile]
                 qwen3-8b prefill``); one prefill's logits with the kernels
                 against the plain attention; a ``[graph]`` line for this
                 and each later phase (captures, replays, invalidations,
                 padded reuse, capture seconds, graph-pool bytes);
-  4. install  — the trainer side publishes v0 (the serving weights) and v1
+  4. install  — on qwen3-8b cut to its first INSTALL_LAYERS (8) layers
+                (the host's int8 encode of the whole model's manifests
+                would take most of the time limit), the trainer side
+                publishes v0 (the serving weights) and v1
                 (v0 x 1.01 plus seeded noise) into a ``WeightStore``; while
                 the same mix is in flight, a ``delta-int8`` manifest of v1
                 (base v0, the engine's resident weights) and then an
@@ -184,9 +201,32 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 loss (``[train]`` lines with ``moe_aux``: finite losses, a
                 positive aux, every leaf moved but the padded experts,
                 flash launches = layers x forwards);
- 11. summary  — one JSON line per the kernels (rows 1, 2 and 4 count
-                phases 9 and 10's launches too), the card's name and power
-                limit, and the final ``{"ok": true, ...}`` line.
+ 11. gemma    — ``gemma3-4b`` (34 layers: 29 local with a window of 1024,
+                5 global; d = 256, QK-norm) and then ``gemma2-27b`` (46
+                layers alternating local, window 4096, and global; post
+                norms, attention softcap 50) at full width (random
+                weights from seed 0, each freed before the next), the
+                rings their whole window, global layers on the paged pools
+                (GEMMA_MIX: gemma3-4b phase 7's 8 singles, gemma2-27b two
+                rows of ~4200 tokens and two of ~300 on 4 slots with the
+                pool capped): greedy at H=8 with graphs (launches: global
+                layers x dispatches for the paged kernels, local layers x
+                dispatches for ``decode_attention`` and
+                ``flash_attention``), eagerly (tokens and logprobs
+                bit-equal) and at H=1 (same tokens); one steady horizon
+                profiled with graphs and eagerly, and one prefill
+                dispatch (``[profile] <arch> prefill``: the paged
+                prefill's and flash's shares); the longest prompt's
+                prefill and one decode step's logits against the plain
+                attention; gemma3-4b's batch migrated mid-generation
+                through a codec-none KV manifest of pages and ring rows
+                keyed as the reference's cache tree (same tokens, zero
+                prefill) (``[gemma]`` lines: prefill and decode tok/s with
+                graphs and eagerly, capture seconds, graph-pool bytes,
+                peak memory);
+ 12. summary  — one JSON line per the kernels (rows 1, 2, 4 and 5 count
+                phases 9, 10 and 11's launches too), the card's name and
+                power limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
 """
@@ -194,6 +234,7 @@ The script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -247,6 +288,12 @@ DEQUANT_SHAPES = (("mlp.wi", 32 * 4096, 12288), ("embed", 151936, 4096),
                   ("attn.wq", 32 * 4096 * 32, 128), ("final_norm", 4096, 1))
 NEW_TOKENS = 64
 PROMPT_LENS = (300, 310, 290, 305)
+# phase 4 installs versions of the served qwen3-8b cut to its first
+# INSTALL_LAYERS layers: the host's int8 encode of the whole model's 6.8 GB
+# manifest took 61-92 s a version on the H100 machine's host, and at 8
+# layers (2.17 G params) the two installs leave the script room in its
+# time limit
+INSTALL_LAYERS = 8
 # phase 6: the trainer on Qwen3-8B's width, 8 of its 32 layers: 2.17 G
 # parameters x 16 bytes of trainer state = 34.7 GB; all 32 would need
 # ~109 GB on an 80 GB card
@@ -279,7 +326,13 @@ FLASH_CASES = (("train", (10, 32, 8, TRAIN_SEQ, 128, True, 0, 0.0)),
                ("ragged", (2, 4, 2, 200, 64, True, 48, 20.0)),
                ("hymba", (8, 25, 5, 1152, 64, True, 1024, 0.0)),
                # phase 10's train forward: qwen2-moe-a2.7b's 16 / 16 heads
-               ("moe-train", (10, 16, 16, TRAIN_SEQ, 128, True, 0, 0.0)))
+               ("moe-train", (10, 16, 16, TRAIN_SEQ, 128, True, 0, 0.0)),
+               # phase 11's local layers: gemma3-4b's longest prefill (d =
+               # 256, window 1024) and gemma2-27b's (window 4096, cap 50)
+               ("gemma3-local", (1, 8, 4, 1152, 256, True, 1024, 0.0)),
+               ("gemma2-local", (1, 32, 16, 4224, 128, True, 4096, 50.0)))
+# flash cases launched twice, the second launch bit-identical to the first
+FLASH_REPEAT = ("train", "gemma3-local", "gemma2-local")
 # slab decode: the reference test's cases, tests/test_kernels.py:42-45,
 # (B, H, K, T, d, window, cap); its tolerance (:16) is atol = rtol = 2e-5
 # in f32 and 2e-2 in bf16
@@ -291,23 +344,38 @@ SLAB_RING_LENS = (1, 1024, 17, 200, 513, 800, 1000, 1023)
 # the ring again with an empty row, and with a window of 256 slots
 SLAB_RING_EDGE = (("zero length", (0, 1024, 17, 0, 513, 800, 1000, 1023), 0),
                   ("window 256", SLAB_RING_LENS, 256))
-# paged decode at every GQA geometry the port registers, (name, H, K): G =
-# 4, 5, 6, 7 and the MoE configs' G = 1
-DECODE_CASES = (("qwen3-8b", 32, 8), ("qwen3-32b", 40, 8),
-                ("qwen3-14b", 48, 8), ("qwen2-7b", 28, 4),
-                ("qwen2-moe", 16, 16))
+# the gemma family's rings as phase 11 decodes them, (name, B, H, K, W, d,
+# cap, lengths): gemma3-4b's window of 1024 at d = 256, gemma2-27b's of
+# 4096 with its softcap of 50
+GEMMA_RINGS = (("gemma3-4b", 8, 8, 4, 1024, 256, 0.0, SLAB_RING_LENS),
+               ("gemma2-27b", 4, 32, 16, 4096, 128, 50.0,
+                (4096, 1, 333, 2900)))
+# paged decode at every GQA geometry the port registers, (name, H, K, d,
+# cap): G = 4, 5, 6, 7, the MoE configs' G = 1, and the gemma family's G =
+# 2: gemma3-4b at d = 256, gemma2-27b with its softcap of 50
+DECODE_CASES = (("qwen3-8b", 32, 8, 128, 0.0), ("qwen3-32b", 40, 8, 128, 0.0),
+                ("qwen3-14b", 48, 8, 128, 0.0), ("qwen2-7b", 28, 4, 128, 0.0),
+                ("qwen2-moe", 16, 16, 128, 0.0),
+                ("gemma3-4b", 8, 4, 256, 0.0),
+                ("gemma2-27b", 32, 16, 128, 50.0))
 # the fixed-split property: the same rows with their table padded to 2 nb
 # with page 0 and three rows appended (a full doubled table, one position,
 # a ragged length); the original rows' outputs must not change by a bit
 DECODE_EXTRA_LENS = (1024, 1, 100)
 # split lengths of the paged decode timed against each other
 SPLIT_SWEEP = (32, 64, 128)
-# paged prefill at every GQA geometry the port registers, (name, H, K, C),
-# then a single-query chunk and a ragged one at Qwen3-8B's
-PREFILL_CASES = (("qwen3-8b", 32, 8, 128), ("qwen3-8b", 32, 8, 256),
-                 ("qwen3-32b", 40, 8, 256), ("qwen3-14b", 48, 8, 256),
-                 ("qwen2-7b", 28, 4, 256), ("qwen2-moe", 16, 16, 256),
-                 ("qwen3-8b", 32, 8, 1), ("qwen3-8b", 32, 8, 130))
+# paged prefill at every GQA geometry the port registers, (name, H, K, C,
+# d, cap), then a single-query chunk and a ragged one at Qwen3-8B's
+PREFILL_CASES = (("qwen3-8b", 32, 8, 128, 128, 0.0),
+                 ("qwen3-8b", 32, 8, 256, 128, 0.0),
+                 ("qwen3-32b", 40, 8, 256, 128, 0.0),
+                 ("qwen3-14b", 48, 8, 256, 128, 0.0),
+                 ("qwen2-7b", 28, 4, 256, 128, 0.0),
+                 ("qwen2-moe", 16, 16, 256, 128, 0.0),
+                 ("qwen3-8b", 32, 8, 1, 128, 0.0),
+                 ("qwen3-8b", 32, 8, 130, 128, 0.0),
+                 ("gemma3-4b", 8, 4, 256, 256, 0.0),
+                 ("gemma2-27b", 32, 16, 256, 128, 50.0))
 # ssd_scan, (b, L, H, G, P, N, chunk): Hymba's prefill (8 rows of 1152,
 # ragged true lengths) and tests/test_kernels.py:184 (Mamba2-130m); the
 # reference test's bound (:196) is a relative error of 2e-5 in f32 and
@@ -345,6 +413,24 @@ MOE_REPEAT_SHAPE = (4, 384)
 # products over d = 2048 and d_ff = 1408 summed in another order
 MOE_WEIGHT_TOL = 1e-6
 MOE_LAYER_TOL = 1e-4
+# phase 11: the gemma family at full width, served one after the other
+# (each freed before the next).  gemma3-4b (d = 256, window 1024) takes
+# phase 7's mix (1090 and 1150 pass the window in prefill, 1000 + 64
+# crosses it in decode) with the ring its whole window; gemma2-27b (54.4
+# GB of bf16 weights, window 4096, softcap 50) takes two rows past its
+# window and two short ones on 4 slots: its 23 rings of 4096 f32
+# positions are 6.2 GB at 4 slots (12.3 at 8), and its pool is capped at
+# GEMMA2_POOL_PAGES (3.9 GB) against the 2049 pages (12.4 GB) the engine
+# would size from max_batch x slab_len
+GEMMA_MIX = {"gemma3-4b": dict(lens=HYBRID_PROMPT_LENS, new=NEW_TOKENS,
+                               max_batch=8, ring=1024, pool_pages=None),
+             "gemma2-27b": dict(lens=(4200, 4150, 300, 290), new=32,
+                                max_batch=4, ring=4096, pool_pages=640)}
+# the paged kernels at the shapes phase 11 gives them, (name, H, K, d, cap)
+# over GEMMA_MIX[name]'s rows: decoded to their last position, and
+# prefilled in one chunk
+SERVED_PAGED = (("gemma3-4b", 8, 4, 256, 0.0),
+                ("gemma2-27b", 32, 16, 128, 50.0))
 # phases 4-5: the pull plane's network, modeled on the event clock (rates
 # of the reference's runtime, not measurements): two reserved-node
 # transfer agents (hybrid_runtime.py:161), a spot instance's receiving NIC,
@@ -435,20 +521,20 @@ def bound(nbytes: float, work):
 def check_decode(torch, F, ref, kern):
     """``paged_decode_attention`` against its plain version at every GQA
     geometry the port registers (DECODE_CASES: G = 4, then G = 5, 6, 7
-    and 1),
+    and 1, then the gemma family's G = 2 at d = 256 and with a softcap),
     bf16 q over f32 pools, ragged lengths with an empty row, held at
     KERNEL_TOL; then in the model's regime at KERNEL_REL_TOL; each timed
-    against one SDPA call and the bound.  At each geometry the same rows
-    with the table padded to 2 nb and three rows appended
+    against one SDPA call (none with a softcap, which SDPA lacks) and the
+    bound.  At each geometry the same rows with the table padded to 2 nb and three rows appended
     (DECODE_EXTRA_LENS) must give bit-identical outputs (the split
     boundaries are fixed in position space), and so must a second launch.
     Returns the summary row (Qwen3-8B, the worst error of all cases) and
     every case's row."""
     from repro_torch.kernels.paged_attention import SPLIT
-    B, d, ps, nb = 10, 128, 16, 32
+    B, ps, nb = 10, 16, 32
     lens_l = [0, 16, 17, 32, 300, 317, 350, 372, 511, 512]
     rows = {}
-    for name, H, K in DECODE_CASES:
+    for name, H, K, d, cap in DECODE_CASES:
         # Qwen3-8B keeps the seed it always had
         g = torch.Generator(device="cuda").manual_seed(
             1 if name == "qwen3-8b" else 1 + H)
@@ -459,9 +545,10 @@ def check_decode(torch, F, ref, kern):
         bt = (torch.randperm(P - 1, generator=g, device="cuda")[:B * nb] + 1) \
             .reshape(B, nb).to(torch.int32)
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        out = kern(q, kp, vp, bt, lens, scale=1.0)
+        out = kern(q, kp, vp, bt, lens, scale=1.0, cap=cap)
         torch.cuda.synchronize()
-        want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens, scale=1.0)
+        want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens, scale=1.0,
+                                              cap=cap)
         err = float((out.float() - want.float()).abs().max())
         if not torch.isfinite(out.float()).all() or err > KERNEL_TOL:
             fail(f"paged_decode_attention {name} max err {err} > "
@@ -480,8 +567,8 @@ def check_decode(torch, F, ref, kern):
         lens_x = torch.cat([lens, torch.tensor(DECODE_EXTRA_LENS,
                                                dtype=torch.int32,
                                                device="cuda")])
-        out_x = kern(q_x, kp, vp, bt_x, lens_x, scale=1.0)
-        again = kern(q, kp, vp, bt, lens, scale=1.0)
+        out_x = kern(q_x, kp, vp, bt_x, lens_x, scale=1.0, cap=cap)
+        again = kern(q, kp, vp, bt, lens, scale=1.0, cap=cap)
         torch.cuda.synchronize()
         if not torch.equal(out_x[:B], out):
             fail(f"paged_decode_attention {name}: the rows' outputs changed "
@@ -492,7 +579,8 @@ def check_decode(torch, F, ref, kern):
             fail(f"paged_decode_attention {name}: a second launch on the "
                  f"same inputs is not bit-identical")
         err_x = float((out_x[B:].float() - ref.paged_decode_attention_ref(
-            q_x, kp, vp, bt_x, lens_x, scale=1.0)[B:].float()).abs().max())
+            q_x, kp, vp, bt_x, lens_x, scale=1.0, cap=cap)[B:].float())
+            .abs().max())
         if err_x > KERNEL_TOL:
             fail(f"paged_decode_attention {name}: appended rows max err "
                  f"{err_x} > {KERNEL_TOL}")
@@ -505,10 +593,10 @@ def check_decode(torch, F, ref, kern):
         qm = (unit(torch.randn(B, H, d, generator=g, device="cuda"))
               * d ** -0.5).bfloat16()
         kpm = unit(kp)
-        outm = kern(qm, kpm, vp, bt, lens, scale=1.0)
+        outm = kern(qm, kpm, vp, bt, lens, scale=1.0, cap=cap)
         torch.cuda.synchronize()
         wantm = ref.paged_decode_attention_ref(qm, kpm, vp, bt, lens,
-                                               scale=1.0)
+                                               scale=1.0, cap=cap)
         errm = float((outm.float() - wantm.float()).abs().max())
         magm = float(wantm.float().abs().max())
         if not torch.isfinite(outm.float()).all() or \
@@ -526,24 +614,28 @@ def check_decode(torch, F, ref, kern):
         qd = q.float()[:, :, None]
         mask = (torch.arange(T, device="cuda")[None]
                 < lens[:, None])[:, None, None]
-        ms = time_ms(lambda: kern(q, kp, vp, bt, lens, scale=1.0), torch)
+        ms = time_ms(lambda: kern(q, kp, vp, bt, lens, scale=1.0, cap=cap), torch)
         plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(
             q, kp, vp, bt, lens, scale=1.0), torch)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, scale=1.0, enable_gqa=True), torch)
+        lib_ms = None if cap else time_ms(   # SDPA has no softcap
+            lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, scale=1.0, enable_gqa=True),
+            torch)
         n_kv = sum(min(x, T) for x in lens_l)
         nbytes = (2 * n_kv * K * d * 4 + 2 * B * H * d * 2 + B * nb * 4
                   + B * 4)
         flops = 4 * n_kv * H * d                # bf16 q x f32 pool: TF32
         b_ms, b_by = bound(nbytes, [(flops, TF32_FLOP_PER_S)])
+        lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"[kernels] paged_decode_attention {name} B={B} H={H} K={K} "
-            f"G={H // K} d={d} ps={ps} nb={nb} lens={lens_l} (splits of "
+            f"G={H // K} d={d} cap={cap} ps={ps} nb={nb} lens={lens_l} "
+            f"(splits of "
             f"{SPLIT} positions, {-(-nb * ps // SPLIT)} a row): "
             f"max_abs_err={err:.3e} (tol {KERNEL_TOL}); bit-identical with "
             f"the table padded to {2 * nb} pages and "
             f"{len(DECODE_EXTRA_LENS)} rows added, and on a second launch; "
             f"kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_s}, bound "
             f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
         rows[name] = dict(max_abs_err=max(err, errm), ms=ms,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -604,16 +696,17 @@ def sweep_decode_split(torch, ref, kern):
 def check_prefill(torch, F, ref, kern):
     """``paged_prefill_attention`` against its plain version at every GQA
     geometry the port registers (PREFILL_CASES: G = 4 at C = 128 and 256,
-    then G = 5, 6, 7 and 1 at C = 256, then C = 1 and a ragged C = 130),
+    then G = 5, 6, 7 and 1 at C = 256, then C = 1 and a ragged C = 130,
+    then the gemma family's G = 2 at d = 256 and with a softcap of 50),
     bf16 q over f32 pools, ragged offsets and chunk lengths, every case
     held to one gate (KERNEL_TOL or one bf16 ulp of |want|, whichever is
     larger); a
     second launch bit-identical; times against one SDPA call and the
     bound.  Returns the summary row (Qwen3-8B at C = 256, the worst error
     of all cases) and every case's row."""
-    d, ps, nb, B = 128, 16, 24, 4
+    ps, nb, B = 16, 24, 4
     rows = {}
-    for name, H, K, C in PREFILL_CASES:
+    for name, H, K, C, d, cap in PREFILL_CASES:
         offs_l = [0, 8, 256, 300]               # 0, mid-page, boundary
         # empty row, full, ragged (at least one query at C = 1)
         cls_l = [0, C, max(C - 37, 1), max(C // 2, 1)]
@@ -631,9 +724,9 @@ def check_prefill(torch, F, ref, kern):
         offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
         cls = torch.tensor(cls_l, dtype=torch.int32, device="cuda")
         args = (q, k, v, kp, vp, bt, offs, cls)
-        out = kern(*args, scale=1.0)
+        out = kern(*args, scale=1.0, cap=cap)
         torch.cuda.synchronize()
-        want = ref.paged_prefill_attention_ref(*args, scale=1.0)
+        want = ref.paged_prefill_attention_ref(*args, scale=1.0, cap=cap)
         diff = (out.float() - want.float()).abs()
         err = float(diff.max())
         at = float(want.float().abs().flatten()[diff.argmax()])
@@ -644,7 +737,7 @@ def check_prefill(torch, F, ref, kern):
                  f"|want| {at} ({tol_s})")
         if float(out[0].float().abs().max()) != 0.0:
             fail("paged_prefill_attention: empty row is not zero")
-        again = kern(*args, scale=1.0)
+        again = kern(*args, scale=1.0, cap=cap)
         torch.cuda.synchronize()
         if not torch.equal(again, out):
             fail(f"paged_prefill_attention {name} C={C}: a second launch on "
@@ -662,11 +755,13 @@ def check_prefill(torch, F, ref, kern):
         valid = torch.cat([ar_t[None] < offs[:, None],
                            ar_c[None] < cls[:, None]], 1)
         mask = (valid[:, None] & (kvpos[:, None] <= qpos[:, :, None]))[:, None]
-        ms = time_ms(lambda: kern(*args, scale=1.0), torch)
+        ms = time_ms(lambda: kern(*args, scale=1.0, cap=cap), torch)
         plain_ms = time_ms(lambda: ref.paged_prefill_attention_ref(
-            *args, scale=1.0), torch)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kk, vv, attn_mask=mask, scale=1.0, enable_gqa=True), torch)
+            *args, scale=1.0, cap=cap), torch)
+        lib_ms = None if cap else time_ms(   # SDPA has no softcap
+            lambda: F.scaled_dot_product_attention(
+                qd, kk, vv, attn_mask=mask, scale=1.0, enable_gqa=True),
+            torch)
         n_pre = [min(o, T) for o in offs_l]
         # (query, key) pairs: prefix keys come from the f32 pools (TF32
         # products), in-chunk keys from the bf16 k/v (bf16 products)
@@ -679,12 +774,14 @@ def check_prefill(torch, F, ref, kern):
         b_ms, b_by = bound(nbytes, [(4 * pre_keys * H * d, TF32_FLOP_PER_S),
                                     (4 * chunk_keys * H * d,
                                      BF16_FLOP_PER_S)])
+        lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"[kernels] paged_prefill_attention {name} B={B} C={C} H={H} "
-            f"K={K} G={H // K} d={d} ps={ps} nb={nb} offsets={offs_l} "
+            f"K={K} G={H // K} d={d} cap={cap} ps={ps} nb={nb} "
+            f"offsets={offs_l} "
             f"chunk_lens={cls_l}: max_abs_err={err:.3e} at |want| {at:.3f} "
             f"({tol_s}); a second launch bit-identical; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+            f"{lib_s}, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
             f"{flops} flop)")
         rows[f"{name} C={C}"] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms,
@@ -695,6 +792,164 @@ def check_prefill(torch, F, ref, kern):
     # worst error of every case
     worst = max(r["max_abs_err"] for r in rows.values())
     return dict(rows["qwen3-8b C=256"], max_abs_err=worst), rows
+
+
+def served_table(torch, g, lens_l, ps: int):
+    """Block tables as the engine builds them for rows of ``lens_l``
+    positions: each row's pages distinct and random, the width the
+    engine's power of two (>= 8), page 0 (its garbage page) past a row's
+    pages.  Returns (table [B, nb] int32, pool pages P)."""
+    need = [-(-n // ps) for n in lens_l]
+    nb = 8
+    while nb < max(need):
+        nb *= 2
+    P = 1 + sum(need)
+    perm = (torch.randperm(P - 1, generator=g, device="cuda") + 1).tolist()
+    bt = torch.zeros(len(lens_l), nb, dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.tensor(perm[at:at + n], dtype=torch.int32)
+        at += n
+    return bt.cuda(), P
+
+
+def check_served_paged(torch, F, ref, dec_kern, pre_kern):
+    """The paged kernels at the shapes phase 11 serves (SERVED_PAGED):
+    the decode over tables as wide as the mix's longest rows at the end of
+    their generation (up to 67 splits merged at gemma2-27b's 4232
+    positions), and the prefill of the whole mix in one chunk (offsets 0,
+    C the engine's padded width, the longest row's tile loop walking the
+    whole chunk); bf16 q over f32 pools, each held against its plain
+    version at KERNEL_TOL or one bf16 ulp of |want|, whichever is larger,
+    and launched twice (bit-identical); times against the plain version
+    (the prefill's one row at a time: a whole batch's f32 scores would
+    take tens of GB), one SDPA call where there is no softcap, and the
+    bound.  Returns {case: row}."""
+    rows = {}
+    ps = 16
+    for name, H, K, d, cap in SERVED_PAGED:
+        plens, new = GEMMA_MIX[name]["lens"], GEMMA_MIX[name]["new"]
+        B = len(plens)
+        g = torch.Generator(device="cuda").manual_seed(11 + H + d)
+        # ---- decode at the end of generation ----
+        lens_l = [n + new for n in plens]
+        bt, P = served_table(torch, g, lens_l, ps)
+        nb = bt.shape[1]
+        q = torch.randn(B, H, d, generator=g, device="cuda").bfloat16()
+        kp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+        vp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        args = (q, kp, vp, bt, lens)
+        out = dec_kern(*args, scale=1.0, cap=cap)
+        again = dec_kern(*args, scale=1.0, cap=cap)
+        torch.cuda.synchronize()
+        want = ref.paged_decode_attention_ref(*args, scale=1.0, cap=cap)
+        err = served_gate(torch, out, want, again,
+                          f"paged_decode_attention {name} served")
+        T = nb * ps
+        kd = kp[bt.long()].reshape(B, T, K, d).transpose(1, 2).contiguous()
+        vd = vp[bt.long()].reshape(B, T, K, d).transpose(1, 2).contiguous()
+        qd = q.float()[:, :, None]
+        mask = (torch.arange(T, device="cuda")[None]
+                < lens[:, None])[:, None, None]
+        ms = time_ms(lambda: dec_kern(*args, scale=1.0, cap=cap), torch)
+        plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(
+            *args, scale=1.0, cap=cap), torch, iters=5)
+        lib_ms = None if cap else time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, scale=1.0, enable_gqa=True),
+            torch)
+        n_kv = sum(lens_l)
+        nbytes = (2 * n_kv * K * d * 4 + 2 * B * H * d * 2 + B * nb * 4
+                  + B * 4)
+        flops = 4 * n_kv * H * d
+        b_ms, b_by = bound(nbytes, [(flops, TF32_FLOP_PER_S)])
+        lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[kernels] paged_decode_attention {name} served B={B} H={H} "
+            f"K={K} d={d} cap={cap} ps={ps} nb={nb} lens={lens_l}: "
+            f"max_abs_err={err:.3e} (tol {KERNEL_TOL} or one bf16 ulp of "
+            f"|want|); a second launch bit-identical; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_s}, bound {b_ms:.4f} ms "
+            f"({b_by}: {nbytes} B, {flops} flop)")
+        rows[f"paged_decode_attention {name} served"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        del args, q, kp, vp, out, again, want, kd, vd, qd, mask
+        torch.cuda.empty_cache()
+        # ---- the whole mix prefilled in one chunk ----
+        C = -(-max(plens) // 128) * 128
+        bt, P = served_table(torch, g, list(plens), ps)
+        nb = bt.shape[1]
+        q = torch.randn(B, C, H, d, generator=g, device="cuda").bfloat16()
+        k = torch.randn(B, C, K, d, generator=g, device="cuda").bfloat16()
+        v = torch.randn(B, C, K, d, generator=g, device="cuda").bfloat16()
+        kp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+        vp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+        offs = torch.zeros(B, dtype=torch.int32, device="cuda")
+        cls = torch.tensor(plens, dtype=torch.int32, device="cuda")
+        args = (q, k, v, kp, vp, bt, offs, cls)
+        out = pre_kern(*args, scale=1.0, cap=cap)
+        again = pre_kern(*args, scale=1.0, cap=cap)
+        torch.cuda.synchronize()
+
+        def plain_rows():
+            return torch.cat([ref.paged_prefill_attention_ref(
+                *(a[b:b + 1] for a in (q, k, v)), kp, vp,
+                *(a[b:b + 1] for a in (bt, offs, cls)), scale=1.0, cap=cap)
+                for b in range(B)])
+        want = plain_rows()
+        err = served_gate(torch, out, want, again,
+                          f"paged_prefill_attention {name} served C={C}")
+        del want, again
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: pre_kern(*args, scale=1.0, cap=cap), torch)
+        plain_ms = time_ms(plain_rows, torch, iters=3, warmup=1)
+        lib_ms = None
+        if not cap:
+            kk = k.float().transpose(1, 2).contiguous()
+            vv = v.float().transpose(1, 2).contiguous()
+            qd = q.float().transpose(1, 2).contiguous()
+            ar = torch.arange(C, device="cuda")
+            mask = ((ar[None, None] <= ar[None, :, None])
+                    & (ar[None, None] < cls[:, None, None]))[:, None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qd, kk, vv, attn_mask=mask, scale=1.0, enable_gqa=True),
+                torch)
+            del kk, vv, qd, mask
+        chunk_keys = sum(min(i + 1, n) for n in plens for i in range(C))
+        nbytes = (2 * B * C * K * d * 2 + 2 * B * C * H * d * 2
+                  + B * nb * 4 + 2 * B * 4)
+        flops = 4 * chunk_keys * H * d
+        b_ms, b_by = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+        lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[kernels] paged_prefill_attention {name} served B={B} C={C} "
+            f"H={H} K={K} d={d} cap={cap} ps={ps} nb={nb} offsets 0 "
+            f"chunk_lens={list(plens)}: max_abs_err={err:.3e} (tol "
+            f"{KERNEL_TOL} or one bf16 ulp of |want|); a second launch "
+            f"bit-identical; kernel {ms:.4f} ms, plain (one row a call) "
+            f"{plain_ms:.4f} ms, sdpa {lib_s}, bound {b_ms:.4f} ms ({b_by}: "
+            f"{nbytes} B, {flops} flop)")
+        rows[f"paged_prefill_attention {name} served C={C}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        del args, q, k, v, kp, vp, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def served_gate(torch, out, want, again, what: str) -> float:
+    """Fail unless ``out`` is finite, within KERNEL_TOL or one bf16 ulp of
+    |want| (whichever is larger) everywhere, and ``again`` (a second
+    launch) is bit-identical to it; returns max |out - want|."""
+    diff = (out.float() - want.float()).abs()
+    tol = torch.clamp(BF16_ULP * want.float().abs(), min=KERNEL_TOL)
+    if not torch.isfinite(out.float()).all() or bool((diff > tol).any()):
+        fail(f"{what}: max err {float(diff.max())} over {KERNEL_TOL} or one "
+             f"bf16 ulp of |want|")
+    if not torch.equal(again, out):
+        fail(f"{what}: a second launch on the same inputs is not "
+             f"bit-identical")
+    return float(diff.max())
 
 
 def check_dequant(torch, ref, kern):
@@ -798,12 +1053,12 @@ def check_flash(torch, F, ref, kern):
         want = ref.flash_attention_ref(q, k, v, **opts)
         err = within(torch, out, want, KERNEL_TOL, f"flash_attention {name}")
         worst = max(worst, err)
-        if name == "train":
+        if name in FLASH_REPEAT:
             again = kern(q, k, v, **opts)
             torch.cuda.synchronize()
             if not torch.equal(again, out):
-                fail("flash_attention: a second launch on the same inputs is "
-                     "not bit-identical")
+                fail(f"flash_attention {name}: a second launch on the same "
+                     f"inputs is not bit-identical")
             del again
         del out, want
         err32 = None
@@ -949,6 +1204,69 @@ def check_slab_decode(torch, F, ref, kern):
             f"kernel {ms_e:.4f} ms, bound {b_e:.4f} ms ({by_e})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+def check_gemma_rings(torch, F, ref, kern):
+    """``decode_attention`` on the gemma family's rings (GEMMA_RINGS) as
+    phase 11 decodes them: bf16 q pre-scaled (scale=1.0) over the f32
+    [B, W, K, d] ring read as views, ragged lengths up to W, held within
+    one bf16 ulp, and with an f32 q within F32_KERNEL_TOL; a second launch
+    bit-identical; kernel / plain / SDPA times (no SDPA with a softcap)
+    and the bound.  Returns each ring's row."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+    for name, B, H, K, T, d, cap, lens_l in GEMMA_RINGS:
+        q = (torch.randn(B, H, d, generator=g, device="cuda")
+             * d ** -0.5).bfloat16()
+        ring_k, ring_v = (torch.randn(B, T, K, d, generator=g,
+                                      device="cuda") for _ in range(2))
+        k, v = ring_k.transpose(1, 2), ring_v.transpose(1, 2)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        opts = dict(scale=1.0, cap=cap)
+        out = kern(q, k, v, lens, **opts)
+        torch.cuda.synchronize()
+        err = within_bf16(torch, out, ref.decode_attention_ref(
+            q, k, v, lens, **opts), f"decode_attention {name} ring")
+        q32 = q.float()
+        out32 = kern(q32, k, v, lens, **opts)
+        torch.cuda.synchronize()
+        err32 = within(torch, out32, ref.decode_attention_ref(
+            q32, k, v, lens, **opts), F32_KERNEL_TOL,
+            f"decode_attention {name} ring f32")
+        again = kern(q, k, v, lens, **opts)
+        torch.cuda.synchronize()
+        if not torch.equal(again, out):
+            fail(f"decode_attention {name} ring: a second launch on the "
+                 f"same inputs is not bit-identical")
+        del q32, out32, again
+        ms = time_ms(lambda: kern(q, k, v, lens, **opts), torch)
+        plain_ms = time_ms(lambda: ref.decode_attention_ref(
+            q, k, v, lens, **opts), torch)
+        lib_ms = None                           # SDPA has no softcap
+        if not cap:
+            mask = (torch.arange(T, device="cuda")[None]
+                    < lens[:, None])[:, None, None]
+            qd = q.float()[:, :, None]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qd, k, v, attn_mask=mask, scale=1.0, enable_gqa=True),
+                torch)
+        n_kv = sum(min(x, T) for x in lens_l)
+        nbytes = 2 * n_kv * K * d * 4 + 2 * B * H * d * 2 + B * 4
+        flops = 4 * n_kv * H * d               # bf16 q x f32 K/V: TF32
+        b_ms, b_by = bound(nbytes, [(flops, TF32_FLOP_PER_S)])
+        lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[kernels] decode_attention {name} ring B={B} H={H} K={K} "
+            f"W={T} d={d} cap={cap} lens={list(lens_l)}: "
+            f"max_abs_err={err:.3e} (tol one bf16 ulp {BF16_ULP} x |want| "
+            f"+ {F32_KERNEL_TOL}), f32 q max_abs_err={err32:.3e} (tol "
+            f"{F32_KERNEL_TOL} abs + rel); a second launch bit-identical; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_s}, "
+            f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, ring_k, ring_v, k, v, out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def ssd_inputs(torch, g, b, L, H, G, P, N, dt, lens=None):
@@ -1113,18 +1431,21 @@ def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
     prefills through the paged kernels; the hybrid one through
     ``decode_attention`` (every decode step) and ``flash_attention`` plus
     ``ssd_scan`` (every prefill dispatch); the SSM one through
-    ``ssd_scan`` only."""
-    L = cfg.n_layers
-    dec, pre = L * eng.horizon * n_decode, L * n_prefill
-    dense = cfg.pattern == ("global",)
-    ring = cfg.pattern == ("hybrid",)
+    ``ssd_scan`` only; the gemma family's global layers through the paged
+    kernels and its local layers through ``decode_attention`` and
+    ``flash_attention``."""
+    L, mixers = cfg.n_layers, cfg.layer_mixers()
+    n_global = mixers.count("global")
+    n_ring = sum(m in ("local", "hybrid") for m in mixers)
+    n_ssm = sum(m in ("mamba", "hybrid") for m in mixers)
+    steps = eng.horizon * n_decode
     got = {k.__name__: k.launches for k in KERNELS}
-    want = {"paged_decode_attention": dec if dense else 0,
-            "paged_prefill_attention": pre if dense else 0,
+    want = {"paged_decode_attention": n_global * steps,
+            "paged_prefill_attention": n_global * n_prefill,
             "fused_dequant": n_dequant,
-            "flash_attention": L * n_train_fwd + (pre if ring else 0),
-            "decode_attention": dec if ring else 0,
-            "ssd_scan": pre if cfg.has_ssm else 0}
+            "flash_attention": L * n_train_fwd + n_ring * n_prefill,
+            "decode_attention": n_ring * steps,
+            "ssd_scan": n_ssm * n_prefill}
     log(f"[engine] {what}: launches {got}, expected {want} (layers x "
         f"dispatches: {n_decode} decode horizons of {eng.horizon}, "
         f"{n_prefill} prefill chunks; {n_dequant} int8-coded leaves; "
@@ -1239,6 +1560,49 @@ KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 # each decode wrapper's first kernel (one launch of it a wrapper call)
 DECODE_KERNEL_NAMES = {"paged_decode_attention": "paged_decode_split_kernel",
                        "decode_attention": "slab_decode_split_kernel"}
+# torch.profiler on the H100 (torch 2.11, CUDA 12.8) drops the first
+# device records of a profiling window, more of them the older the
+# process: in a whole run of this script 0-2 in phase 3 and 50-55 in
+# phase 11, which reached a step's first decode kernels.  A profiled
+# horizon therefore opens its window with PROBE_BURST spin kernels of
+# PROBE_CYCLES each, which take that loss and count it, and waits
+# PROFILE_PAD_S before the step and before the window closes (the
+# device's stamps, mapped to the host's clock, ran up to 4 ms off), with
+# one clock probe (a spin kernel on an idle card) before the step, after
+# it and at the end
+PROBE_BURST = 1024
+PROBE_CYCLES = 1000
+PROBE_KERNEL = "spin_kernel"
+PROFILE_PAD_S = 0.1
+
+
+def clock_probe(torch, probes: list, n: int = 1):
+    """``n`` spin kernels on an idle card, the host's launch time of each
+    (unix ns, the profiler's clock) appended to ``probes``."""
+    torch.cuda.synchronize()
+    for _ in range(n):
+        probes.append(time.time_ns())
+        torch.cuda._sleep(PROBE_CYCLES)
+    torch.cuda.synchronize()
+
+
+def probe_offsets(prof, probes):
+    """Each probe's device start as the profile recorded it less its
+    host launch time, in ms, matched nearest first (None where the profile
+    holds no spin kernel within PROFILE_PAD_S / 2 of it)."""
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    starts = sorted(t0 + int(e.time_range.start * 1e3) for e in prof.events()
+                    if PROBE_KERNEL in e.name
+                    and str(getattr(e, "device_type", "")).endswith("CUDA"))
+    out = []
+    for host in probes:
+        near = min(starts, key=lambda s: abs(s - host), default=None)
+        if near is None or abs(near - host) > PROFILE_PAD_S / 2 * 1e9:
+            out.append(None)
+        else:
+            starts.remove(near)
+            out.append((near - host) / 1e6)
+    return out
 
 
 def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
@@ -1247,11 +1611,17 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     ``step()`` of ``eng`` after every prefill is done (``n_rows`` single
     requests cycling over ``prompts``) and two more horizons (with graphs:
     the key's capture, then a replay), so that the profiled step is a pure
-    replay, which is gated.  Host launch calls counted (one
-    ``cudaGraphLaunch`` and no kernel launch with graphs); each decode
+    replay, which is gated.  The window opens with PROBE_BURST spin
+    kernels (how many of them the profile lost is logged) and the step
+    runs PROFILE_PAD_S inside both of its ends, with clock probes before
+    and after it (logged: the device stamp less the host launch time).
+    Host launch calls counted (one ``cudaGraphLaunch`` and no kernel
+    launch with graphs; the probes' own launches taken out); each decode
     wrapper's launch count gated against the profiler's count of its
-    kernel.  ``breakdown(prof, rows, busy_ms, tag)``, when given, returns
-    a dict of named device times, logged by it and kept in the result."""
+    kernel, which must be equal.  The profiled step's (request, token,
+    logprob) events are kept in the result, for ``hold_graph_profile``.
+    ``breakdown(prof, rows, busy_ms, tag)``, when given, returns a dict of
+    named device times, logged by it and kept in the result."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.rl.sampler import request_key
@@ -1266,13 +1636,20 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     torch.cuda.synchronize()
     n_dec, n_pre = eng.n_decode_dispatches, eng.n_prefill_dispatches
     s0 = graph_cache_stats()
+    probes = []
     reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        clock_probe(torch, probes, PROBE_BURST)
+        time.sleep(PROFILE_PAD_S)
+        clock_probe(torch, probes)
         t0 = time.perf_counter()
-        eng.step()
+        events = eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        clock_probe(torch, probes)
+        time.sleep(PROFILE_PAD_S)
+        clock_probe(torch, probes)
     s1 = graph_cache_stats()
     mode = "graph" if eng.cuda_graphs else "eager"
     launches = check_launches(cfg, eng, f"{cfg.name} profiled horizon "
@@ -1282,30 +1659,42 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
                             or s1["replays"] != s0["replays"] + 1):
         fail(f"{cfg.name}: the profiled horizon was not one replay of a "
              f"captured graph ({s0} -> {s1})")
+    offsets = probe_offsets(prof, probes)
+    burst_lost = offsets[:PROBE_BURST].count(None)
+    offsets_s = (f"{burst_lost} of the {PROBE_BURST} opening spin kernels "
+                 f"lost; device clock at the probes before the step, after "
+                 f"it and at the end, ms from the host's launch: "
+                 + ", ".join("lost" if o is None else f"{o:+.3f}"
+                             for o in offsets[PROBE_BURST:]))
     api = {k: 0 for k in (GRAPH_LAUNCH_API,) + KERNEL_LAUNCH_APIS}
     for e in prof.key_averages():
         if e.key in api:
             api[e.key] += e.count
+    # the probes' own launches (spin kernels launched with <<< >>>)
+    api["cudaLaunchKernel"] -= min(len(probes), api["cudaLaunchKernel"])
     n_kernel_api = sum(api[k] for k in KERNEL_LAUNCH_APIS)
-    rows = device_rows(prof)
+    rows = [r for r in device_rows(prof) if PROBE_KERNEL not in r[2]]
     for wrapper, kname in DECODE_KERNEL_NAMES.items():
         seen = sum(c for _, c, n in rows if kname in n)
         if launches[wrapper] and seen != launches[wrapper]:
             fail(f"{cfg.name} profiled horizon ({mode}): {wrapper} counted "
                  f"{launches[wrapper]} launches, the profiler {seen} "
-                 f"{kname}")
+                 f"{kname} ({offsets_s})")
     busy_ms = sum(r[0] for r in rows)
     log(f"{tag} one decode horizon ({what}, {mode}): host launch calls "
         f"{api}; decode kernels in the profile equal the wrappers' "
-        f"launch counts")
+        f"launch counts; {offsets_s}")
     if eng.cuda_graphs and (api[GRAPH_LAUNCH_API] != 1 or n_kernel_api):
         fail(f"{cfg.name}: the profiled graph horizon made "
              f"{api[GRAPH_LAUNCH_API]} graph launches and {n_kernel_api} "
              f"kernel launches (want 1 and 0)")
+    out = dict(events=[(e.req_id, e.token, e.logprob) for e in events],
+               burst_lost=burst_lost,
+               probe_offsets_ms=offsets[PROBE_BURST:])
     if busy_ms <= 0:
         log(f"{tag} wall {wall_ms:.2f} ms; device time not measured "
             f"(the profiler reported no CUDA kernels)")
-        return None
+        return out
     log(f"{tag} one decode horizon ({what}, {mode}): wall {wall_ms:.2f} ms, "
         f"device busy {busy_ms:.2f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}")
@@ -1315,12 +1704,26 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     for k, (ms, count, name) in enumerate(ranked):
         if k < 8 or "decode" in name or "split_merge" in name:
             log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
-    out = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+    out.update(wall_ms=wall_ms, busy_ms=busy_ms,
                idle_share=1 - busy_ms / wall_ms, api=api,
                kernels=sum(c for _, c, _ in rows))
     if breakdown is not None:
         out["breakdown"] = breakdown(prof, rows, busy_ms, tag)
     return out
+
+
+def hold_graph_profile(cfg, profiles, tag: str = "[profile]"):
+    """The graph engine's profiled horizon against the eager engine's,
+    built alike and at the same step: tokens and logprobs bit-equal (a
+    decode kernel skipped in the replay would leave its merge reading
+    stale scratch)."""
+    g, e = profiles["graph"], profiles["eager"]
+    if g["events"] != e["events"]:
+        fail(f"{cfg.name}: the profiled graph horizon's tokens / logprobs "
+             f"differ from the eager engine's at the same step")
+    log(f"{tag} profiled horizon ({cfg.name}): the graph replay's "
+        f"{len(g['events'])} tokens and logprobs bit-equal to the eager "
+        f"engine's")
 
 
 def profile_decode_pair(torch, cfg, make, prompts, n_rows: int, what: str,
@@ -1332,6 +1735,7 @@ def profile_decode_pair(torch, cfg, make, prompts, n_rows: int, what: str,
         out["graph" if graphs else "eager"] = profile_decode(
             torch, cfg, make(graphs), prompts, n_rows, what, tag)
         torch.cuda.empty_cache()
+    hold_graph_profile(cfg, out, tag)
     return out
 
 
@@ -2023,7 +2427,6 @@ def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
     GRPO steps on it with the flash kernel in every train-mode forward and
     one more under the profiler, then serve the mix again on the trained
     weights as version 1."""
-    import dataclasses
 
     from repro_torch.models.transformer import (forward, init_params,
                                                 logits_from_hidden,
@@ -2230,23 +2633,25 @@ def make_hybrid_engine(InferenceEngine, cfg, params, *, horizon=8,
                            device="cuda", cuda_graphs=cuda_graphs)
 
 
-def admit_singles(eng, prompts):
+def admit_singles(eng, prompts, new: int = NEW_TOKENS):
     """One request per prompt (the families without prompt sharing),
-    NEW_TOKENS new tokens each.  Returns the ids."""
+    ``new`` new tokens each.  Returns the ids."""
     from repro_torch.rl.sampler import request_key
     for rid, p in enumerate(prompts):
-        eng.add_request(rid, p, request_key(0, rid), len(p) + NEW_TOKENS,
-                        len(p))
+        eng.add_request(rid, p, request_key(0, rid), len(p) + new, len(p))
     return list(range(len(prompts)))
 
 
 def serve_hybrid(torch, InferenceEngine, cfg, params, prompts, *, horizon,
-                 tracer=None, cuda_graphs=True):
+                 tracer=None, cuda_graphs=True, make=None,
+                 new: int = NEW_TOKENS):
     """The phase-7 mix to completion, greedy; launch counts zeroed before
-    the run and checked after; the whole mix prefills in one dispatch."""
-    eng = make_hybrid_engine(InferenceEngine, cfg, params, horizon=horizon,
-                             tracer=tracer, cuda_graphs=cuda_graphs)
-    rids = admit_singles(eng, prompts)
+    the run and checked after; the whole mix prefills in one dispatch.
+    ``make`` builds the engine (default: phase 7's)."""
+    eng = (make or make_hybrid_engine)(
+        InferenceEngine, cfg, params, horizon=horizon, tracer=tracer,
+        cuda_graphs=cuda_graphs)
+    rids = admit_singles(eng, prompts, new)
     reset_launches()
     t0 = time.perf_counter()
     out, _ = drive(eng, rids)
@@ -2271,7 +2676,8 @@ def profile_prefill(torch, cfg, eng, prompts):
     ``step()`` of a fresh engine that prefills the whole mix in one
     dispatch (untimed, like the train profile): wall and device busy time,
     the device time and share of the prefill's attention kernel (the
-    dense family) or of the ``ssd_scan`` kernels, the top five rows."""
+    dense family; with local layers, the flash kernel's too) or of the
+    ``ssd_scan`` kernels, the top five rows."""
     from torch.profiler import ProfilerActivity, profile
     admit_singles(eng, prompts)
     torch.cuda.synchronize()
@@ -2305,13 +2711,19 @@ def profile_prefill(torch, cfg, eng, prompts):
         f"{1 - busy_ms / wall_ms:.3f}; {wrapper} kernels {scan_ms:.3f} ms "
         f"in {scan_n} kernels ({launches[wrapper]} launches), "
         f"{scan_ms / busy_ms:.3f} of device busy")
+    flash_ms = None
+    if cfg.mixed:
+        flash_ms = sum(r[0] for r in rows if "flash_attention" in r[2])
+        log(f"{tag}   flash_attention kernels {flash_ms:.3f} ms "
+            f"({launches['flash_attention']} launches), "
+            f"{flash_ms / busy_ms:.3f} of device busy")
     top = sorted(rows, reverse=True)[:5]
     for ms, count, name in top:
         log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 idle_share=1 - busy_ms / wall_ms, kernel=wrapper,
                 kernel_ms=scan_ms, kernel_count=scan_n,
-                kernel_share=scan_ms / busy_ms,
+                kernel_share=scan_ms / busy_ms, flash_ms=flash_ms,
                 top=[dict(ms=ms, count=c, name=n) for ms, c, n in top])
 
 
@@ -2359,20 +2771,27 @@ def scan_perturbation(torch, cfg, params, prompt, ops, ref, plain,
 
 def hybrid_logits(torch, cfg, params, prompt, ops, ref):
     """Last-position logits of ``prompt`` prefilled whole into a fresh
-    one-slot cache, and of one decode step after it with the kernels and
-    with the plain versions on a copy of the same cache."""
+    one-slot cache (rings of the whole window, pools for any global
+    layers), and of one decode step after it with the kernels and with
+    the plain versions on a copy of the same cache."""
     from repro_torch.models import kv_cache as kvc
     from repro_torch.models.transformer import forward, logits_from_hidden
-    cache = kvc.init_paged_cache(cfg, 1, 2, 16, ring_len=HYBRID_SLAB,
-                                 device="cuda")
+    ps = 16
+    n_pages = -(-(len(prompt) + 1) // ps)
+    cache = kvc.init_paged_cache(cfg, 1, n_pages + 1, ps,
+                                 ring_len=cfg.window, device="cuda")
+    paged = {"block_tables": torch.arange(1, n_pages + 1, dtype=torch.int32,
+                                          device="cuda")[None]}
     toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
-    out = forward(params, cfg, tokens=toks, cache=cache, mode="prefill")
+    out = forward(params, cfg, tokens=toks, cache=cache, mode="prefill",
+                  paged=paged)
     prefill = logits_from_hidden(params, cfg, out["hidden"][0, -1])
     cache["pos"] = out["pos"]
     nxt = torch.tensor([prompt[1]], dtype=torch.int32, device="cuda")
 
     def decode(c):
-        out = forward(params, cfg, tokens=nxt, cache=c, mode="decode")
+        out = forward(params, cfg, tokens=nxt, cache=c, mode="decode",
+                      paged=paged)
         return logits_from_hidden(params, cfg, out["hidden"][0, 0])
 
     copy = {k: v.clone() for k, v in cache.items()}
@@ -2383,16 +2802,21 @@ def hybrid_logits(torch, cfg, params, prompt, ops, ref):
 
 
 def migrate_hybrid(torch, InferenceEngine, cfg, params, prompts, clock,
-                   unmigrated):
+                   unmigrated, make=None, tag="[hybrid]",
+                   new: int = NEW_TOKENS):
     """Engine A serves the mix; two decode horizons after the prefill the
-    whole batch (ring K/V, conv and SSM rows) moves through a KV manifest
+    whole batch (its pages, and its ring K/V, conv and SSM rows, keyed as
+    the reference's cache tree keys them) moves through a KV manifest
     (codec none) into an empty engine B; B's tokens must continue the
-    unmigrated run's exactly with zero prefill."""
-    from repro_torch.models.kv_cache import SLOT_KEYS
+    unmigrated run's exactly with zero prefill.  ``make(InferenceEngine,
+    cfg, params)`` builds both engines (default: phase 7's); each request
+    asks for ``new`` tokens, as in the unmigrated run."""
+    from repro_torch.models import kv_cache as kvc
     from repro_torch.transfer.chunkstore import (assemble_kv_state,
                                                  build_kv_manifest)
-    src = make_hybrid_engine(InferenceEngine, cfg, params)
-    rids = admit_singles(src, prompts)
+    make = make or make_hybrid_engine
+    src = make(InferenceEngine, cfg, params)
+    rids = admit_singles(src, prompts, new)
     out = {r: [] for r in rids}
     while src.waiting:
         for e in src.step():
@@ -2403,21 +2827,24 @@ def migrate_hybrid(torch, InferenceEngine, cfg, params, prompts, clock,
             out[e.req_id].append(e.token)
     moving = src.exportable_request_ids()       # all but any at EOS
     if not moving:
-        fail("hybrid migrate: no request resident at the cut")
+        fail(f"{cfg.name} migrate: no request resident at the cut")
     t0 = clock()
     state = src.export_request_state(moving)
     t_export = clock() - t0
-    want_keys = sorted(SLOT_KEYS.values())
+    want_keys = sorted(k for k, *_ in kvc.export_keys(
+        cfg, tuple(kvc.SLOT_KEYS)))
+    want_pages = sorted(k for k, *_ in kvc.export_keys(cfg, kvc.POOL_NAMES))
     if any(sorted(state["slot_state"].get(r, {})) != want_keys
-           for r in moving) or state["pages"]:
-        fail("hybrid migrate: the export lacks ring / conv / SSM rows")
+           for r in moving) or sorted(state["pages"]) != want_pages:
+        fail(f"{cfg.name} migrate: the export's pages {sorted(state['pages'])}"
+             f" or per-slot rows are not the reference's cache leaves")
     t0 = clock()
     m, blobs, meta = build_kv_manifest(1, state, codec="none")
     t_manifest = clock() - t0
     t0 = clock()
     landed = assemble_kv_state(m, blobs, meta)
     t_assemble = clock() - t0
-    dst = make_hybrid_engine(InferenceEngine, cfg, params)
+    dst = make(InferenceEngine, cfg, params)
     reset_launches()
     t0 = clock()
     slots = dst.import_request_state(landed)
@@ -2425,7 +2852,7 @@ def migrate_hybrid(torch, InferenceEngine, cfg, params, prompts, clock,
     for rid in moving:
         src.drop_request(rid)
     if slots != list(range(len(moving))) or src.n_active:
-        fail(f"hybrid migrate: imported into slots {slots}, source keeps "
+        fail(f"{cfg.name} migrate: imported into slots {slots}, source keeps "
              f"{src.n_active} rows")
     done = set()
     for _ in range(10000):
@@ -2435,26 +2862,29 @@ def migrate_hybrid(torch, InferenceEngine, cfg, params, prompts, clock,
             out[e.req_id].append(e.token)
             if e.finished:
                 done.add(e.req_id)
-    check_launches(cfg, dst, "hybrid migrated destination",
+    check_launches(cfg, dst, f"{cfg.name} migrated destination",
                    dst.n_decode_dispatches, dst.n_prefill_dispatches)
     if done != set(moving) or dst.n_prefill_tokens:
-        fail(f"hybrid migrate: {len(moving) - len(done)} requests "
+        fail(f"{cfg.name} migrate: {len(moving) - len(done)} requests "
              f"unfinished, {dst.n_prefill_tokens} tokens prefilled on the "
              f"destination")
     same = [r for r in rids if out[r] == [t for t, _ in unmigrated[r]]]
     if len(same) != len(rids):
-        fail(f"hybrid migrate: tokens after migration differ from the "
+        fail(f"{cfg.name} migrate: tokens after migration differ from the "
              f"unmigrated run for {sorted(set(rids) - set(same))}")
     raw = sum(v.numel() * v.element_size() for rows in
               state["slot_state"].values() for v in rows.values())
-    log(f"[hybrid] migrate none: {len(moving)} requests "
+    page_b = sum(v.numel() * v.element_size()
+                 for v in state["pages"].values())
+    log(f"{tag} {cfg.name} migrate none: {len(moving)} requests "
         f"({dst.n_kv_import_tokens} context tokens) at decode horizon "
-        f"{cut}; {raw} B of ring / conv / SSM rows, {m.total_bytes} B on "
+        f"{cut}; {raw} B of ring / conv / SSM rows and {page_b} B of "
+        f"{state['n_pages']} pages, {m.total_bytes} B on "
         f"the wire in {m.n_chunks} chunks; export {t_export:.3f} s, "
         f"manifest {t_manifest:.3f} s, assemble {t_assemble:.3f} s, import "
         f"{t_import:.3f} s; destination prefill tokens 0; tokens equal to "
         f"the unmigrated run for {len(same)} of {len(rids)} requests")
-    return dict(requests=len(moving), slot_bytes=raw,
+    return dict(requests=len(moving), slot_bytes=raw, page_bytes=page_b,
                 wire_bytes=m.total_bytes, export_s=t_export,
                 manifest_s=t_manifest, assemble_s=t_assemble,
                 import_s=t_import)
@@ -2681,7 +3111,6 @@ def rl_config():
     as the reference's ``tiny_math_config`` cuts it: with 151,936 ids
     random weights almost never emit a tokenizer id, so every reward, and
     every gradient, would be zero."""
-    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.data import tokenizer as tok
@@ -3185,6 +3614,7 @@ def moe_serve(torch, InferenceEngine, cfg, params, prompts, clock, ops,
             torch, cfg, make_engine(InferenceEngine, cfg, params,
                                     cuda_graphs=False), prompts, 10, what,
             "[moe]", breakdown=moe_breakdown)
+    hold_graph_profile(cfg, row["profile"], "[moe]")
     torch.cuda.empty_cache()
     got, step, step_plain = model_logits(torch, cfg, params, prompts[0],
                                          ops, ref)
@@ -3268,7 +3698,6 @@ def moe_train(torch, InferenceEngine, cfg_full, prompts, clock):
     losses, a finite positive ``moe_aux``, every leaf changed except the
     padded experts (never routed to, so never moved), flash launches =
     layers x train-mode forwards.  Returns (launches, summary)."""
-    import dataclasses
 
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import adamw
@@ -3399,6 +3828,150 @@ def moe_phase(torch, InferenceEngine, clock, ops, ref):
     return total, summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the gemma family (mixed local / global attention) at full width
+# --------------------------------------------------------------------------- #
+def make_gemma_engine(InferenceEngine, cfg, params, *, horizon=8,
+                      tracer=None, cuda_graphs=True):
+    """GEMMA_MIX's engine for ``cfg``: the ring is the whole window, the
+    prefill budget takes every prompt of the mix in one dispatch."""
+    mix = GEMMA_MIX[cfg.name]
+    return InferenceEngine(cfg, params, max_batch=mix["max_batch"],
+                           slab_len=mix["ring"], page_size=16,
+                           prefill_chunk=sum(mix["lens"]),
+                           max_pool_pages=mix["pool_pages"],
+                           horizon=horizon, temperature=0.0, tracer=tracer,
+                           device="cuda", cuda_graphs=cuda_graphs)
+
+
+def gemma_phase(torch, InferenceEngine, clock, ops, ref):
+    """gemma3-4b, then gemma2-27b, as configured (every layer, published
+    widths, random weights from seed 0): GEMMA_MIX greedy at H=8 with
+    graphs, eagerly (tokens and logprobs bit-equal) and at H=1 (same
+    tokens); one steady horizon profiled with graphs and eagerly, and one
+    prefill dispatch of the mix (the paged prefill's and flash's shares);
+    the longest prompt's prefill and one decode step's logits against the
+    plain attention; gemma3-4b's batch migrated mid-generation through a
+    codec-none KV manifest of pages and ring rows.  Returns the H=8 graph
+    runs' launches summed per kernel and a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs.tracer import Tracer
+    summary, total = {}, {k.__name__: 0 for k in KERNELS}
+    for arch, mix in GEMMA_MIX.items():
+        # earlier phases leave engines in reference cycles: free them first
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        mixers = cfg.layer_mixers()
+        if max(mix["lens"]) + mix["new"] <= cfg.window \
+                or mix["ring"] != cfg.window:
+            fail(f"{arch}: the mix must pass the window {cfg.window} with "
+                 f"a ring of the whole window")
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(cfg, gen, "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"[gemma] {cfg.name}: {cfg.n_layers} layers "
+            f"({mixers.count('local')} local, window {cfg.window}; "
+            f"{mixers.count('global')} global) d={cfg.d_model} "
+            f"H={cfg.n_heads} K={cfg.n_kv_heads} dh={cfg.head_dim} "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} softcaps "
+            f"{cfg.attn_softcap} / {cfg.final_softcap}; {n_params} params "
+            f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rs = torch.Generator().manual_seed(2)
+        prompts = [[1] + torch.randint(3, cfg.vocab_size, (n - 1,),
+                                       generator=rs).tolist()
+                   for n in mix["lens"]]
+        tracer = Tracer(clock)
+        torch.cuda.reset_peak_memory_stats()
+        serve = dict(make=make_gemma_engine, new=mix["new"])
+        eng, greedy8, wall, launches = serve_hybrid(
+            torch, InferenceEngine, cfg, params, prompts, horizon=8,
+            tracer=tracer, **serve)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        spans = tracer.spans()
+        t_pre = sum(sp.duration for sp in spans
+                    if sp.name == "engine.prefill")
+        t_dec = sum(sp.duration for sp in spans
+                    if sp.name == "engine.decode")
+        n_dec = sum(len(v) for v in greedy8.values()) - len(greedy8)
+        row = dict(params=n_params, prefill_tok_s=eng.n_prefill_tokens / t_pre,
+                   decode_tok_s=n_dec / t_dec, peak_gb=peak_gb, wall_s=wall,
+                   launches=launches, capture_s=eng.graph_capture_s,
+                   graph_pool_bytes=eng.graph_pool_bytes())
+        for k, n in launches.items():
+            total[k] += n
+        log(f"[gemma] {cfg.name} greedy H=8: {len(greedy8)} requests, "
+            f"{eng.n_prefill_tokens} prefill tokens in "
+            f"{eng.n_prefill_dispatches} dispatch, {n_dec} decoded in "
+            f"{eng.n_decode_dispatches} horizons; prefill "
+            f"{row['prefill_tok_s']:.1f} tok/s ({t_pre:.3f} s), decode "
+            f"{row['decode_tok_s']:.1f} tok/s ({t_dec:.3f} s); wall "
+            f"{wall:.3f} s; capture {sum(eng.graph_capture_s):.3f} s, graph "
+            f"pool {row['graph_pool_bytes']} B; peak memory {peak_gb:.2f} GB")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["eager"] = serve_eager(torch, cfg, greedy8, serve_hybrid(
+            torch, InferenceEngine, cfg, params, prompts, horizon=8,
+            tracer=Tracer(clock), cuda_graphs=False, **serve),
+            row["decode_tok_s"], "[gemma]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng1, greedy1, wall1, _ = serve_hybrid(
+            torch, InferenceEngine, cfg, params, prompts, horizon=1, **serve)
+        if {r: [t for t, _ in v] for r, v in greedy1.items()} != \
+                {r: [t for t, _ in v] for r, v in greedy8.items()}:
+            fail(f"{cfg.name}: greedy tokens with H=8 differ from H=1")
+        log(f"[gemma] {cfg.name} greedy H=1: same tokens as H=8 "
+            f"({wall1:.3f} s, {eng1.n_decode_dispatches} decode "
+            f"dispatches)")
+        del eng1
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["profile"] = profile_decode_pair(
+            torch, cfg, lambda graphs: make_gemma_engine(
+                InferenceEngine, cfg, params, cuda_graphs=graphs),
+            prompts, len(prompts), f"{cfg.name}, H=8, {len(prompts)} rows, "
+            f"contexts {min(mix['lens'])}-{max(mix['lens'])}", "[gemma]")
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["prefill_profile"] = profile_prefill(
+            torch, cfg, make_gemma_engine(InferenceEngine, cfg, params),
+            prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        longest = max(prompts, key=len)
+        got, step, step_plain = hybrid_logits(torch, cfg, params, longest,
+                                              ops, ref)
+        with plain_attention(ops, ref):
+            plain, _, _ = hybrid_logits(torch, cfg, params, longest, ops,
+                                        ref)
+        row["prefill_logit_gap"] = compare_logits(
+            torch, cfg, f"{cfg.name} prefill ({len(longest)} tokens)", got,
+            plain)
+        row["decode_logit_gap"] = compare_logits(
+            torch, cfg, f"{cfg.name} decode step", step, step_plain)
+        del got, step, step_plain, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "gemma3-4b":
+            row["migrate"] = migrate_hybrid(
+                torch, InferenceEngine, cfg, params, prompts, clock, greedy8,
+                make=make_gemma_engine, tag="[gemma]", new=mix["new"])
+        row["peak_gb_phase"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[gemma] {cfg.name}: peak memory over its runs "
+            f"{row['peak_gb_phase']:.2f} GB")
+        summary[arch] = row
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total, summary
+
+
 def _items(tree):
     from repro_torch.transfer.chunkstore import tree_items
     return list(tree_items(tree))
@@ -3463,6 +4036,9 @@ def main():
     deq = check_dequant(torch, ref, fused_dequant)
     fla, fla_cases = check_flash(torch, F, ref, flash_attention)
     slab = check_slab_decode(torch, F, ref, decode_attention)
+    gemma_rings = check_gemma_rings(torch, F, ref, decode_attention)
+    served_paged = check_served_paged(torch, F, ref, paged_decode_attention,
+                                      paged_prefill_attention)
     ssd, ssd_served_rows = check_ssd(torch, ref, ssd_scan)
 
     # ---- 3. the engine at full width ----
@@ -3564,11 +4140,16 @@ def main():
     del got, step, step_plain, plain
     torch.cuda.empty_cache()
 
-    # ---- 4. pulled weight versions installed mid-generation ----
+    # ---- 4. pulled weight versions installed mid-generation, on the
+    # served model's first INSTALL_LAYERS layers ----
+    inst_cfg = dataclasses.replace(cfg, n_layers=INSTALL_LAYERS)
+    inst_params = dict(params, groups={"sub0": map_tree(
+        params["groups"]["sub0"], lambda t: t[:INSTALL_LAYERS])})
     with graph_phase("4 install"):
         installs, inst_launches = install_phase(
-            torch, InferenceEngine, cfg, params, prompts, clock,
+            torch, InferenceEngine, inst_cfg, inst_params, prompts, clock,
             fused_dequant)
+    del inst_params
 
     # ---- 5. KV migration at full width ----
     with graph_phase("5 migrate"):
@@ -3606,7 +4187,13 @@ def main():
         moe_launches, moe_summary = moe_phase(torch, InferenceEngine, clock,
                                               ops, ref)
 
-    # ---- 11. summary ----
+    # ---- 11. the gemma family at full width ----
+    torch.cuda.empty_cache()
+    with graph_phase("11 gemma"):
+        gemma_launches, gemma_summary = gemma_phase(torch, InferenceEngine,
+                                                    clock, ops, ref)
+
+    # ---- 12. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -3626,12 +4213,13 @@ def main():
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
-        # phases 9 and 10 run the paged kernels and flash too: their
-        # launches add
+        # phases 9, 10 and 11 run the paged kernels and flash too (and
+        # phase 11 decode_attention): their launches add
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces,
                          launches=(n[name] + rl_launches[name]
-                                   + moe_launches[name]), **r))
+                                   + moe_launches[name]
+                                   + gemma_launches[name]), **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -3642,8 +4230,10 @@ def main():
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"kernels": rows, "installs": installs, "flash_cases": fla_cases,
          "decode_cases": dec_cases, "prefill_cases": pre_cases,
+         "gemma_rings": gemma_rings, "served_paged": served_paged,
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
          "serve14b": serve14b, "rl": rl, "moe": moe_summary,
+         "gemma": gemma_summary,
          "graphs": GRAPHS,
          "serve_graph_engine": eng_graphs, "decode_profile": decode_profile,
          "prefill_profile": prefill_profile,

@@ -1,14 +1,17 @@
-"""Model configuration for the port: the decoder families whose every
-layer has the same mixer, which the serving engine runs: dense all-global
-attention (Qwen), mixture-of-experts all-global attention (Qwen1.5-MoE,
-DeepSeekMoE), hybrid sliding-window attention beside a Mamba-2 mixer
-(Hymba) and pure Mamba-2 (SSD).
+"""Model configuration for the port: the decoder families the serving
+engine runs: dense all-global attention (Qwen), dense mixed sliding-window
+("local") and global attention (Gemma 2 / Gemma 3), mixture-of-experts
+all-global attention (Qwen1.5-MoE, DeepSeekMoE), hybrid sliding-window
+attention beside a Mamba-2 mixer (Hymba) and pure Mamba-2 (SSD).
 
 A copy of ``repro.configs.base`` trimmed to the fields these families
-read.  Parameter trees keep the reference's layout: ``first_k_dense``
-prefix layers (DeepSeekMoE's dense first layer) under ``prefix/{i}``,
-then one scan-stacked ``groups/sub0`` entry whose leaves carry a leading
-layer axis, so a config here and its counterpart in the reference
+read.  ``pattern`` is the repeating group of mixers and ``suffix_pattern``
+the trailing layers that do not fill a group (gemma3-4b: 5 groups of 5
+local + 1 global, then 4 local).  Parameter trees keep the reference's
+layout: ``first_k_dense`` prefix layers (DeepSeekMoE's dense first layer)
+under ``prefix/{i}``, then one scan-stacked ``groups/sub{j}`` entry per
+pattern position j whose leaves carry a leading group axis, then
+``suffix/{i}``, so a config here and its counterpart in the reference
 describe the same weights.
 """
 
@@ -32,15 +35,18 @@ class ModelConfig:
     vocab_size: int
 
     pattern: Tuple[str, ...] = ("global",)
-    window: int = 0                 # sliding window of the hybrid mixer
+    window: int = 0                 # sliding window of local / hybrid mixers
     qkv_bias: bool = False
     qk_norm: bool = False
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
+    post_norms: bool = False        # gemma2 post-attention / post-MLP norms
     rope_theta: float = 1.0e4
     rope_theta_local: float = 1.0e4
     embed_scale: bool = False
     tie_embeddings: bool = True
+    # trailing layers that do not fill a whole pattern group
+    suffix_pattern: Tuple[str, ...] = ()
     dtype: str = "bfloat16"
     mlp_kind: str = "dense"         # dense | moe | none
     # prefix layers (moe family only) keep a dense MLP of their own width
@@ -66,9 +72,13 @@ class ModelConfig:
     def __post_init__(self):
         if self.pattern not in FAMILIES.get(self.family, ()):
             raise ValueError(
-                f"{self.name}: the port serves {sorted(FAMILIES)} with one "
-                f"mixer in every layer (family={self.family!r}, "
+                f"{self.name}: the port serves {sorted(FAMILIES)} with the "
+                f"layer patterns {FAMILIES} (family={self.family!r}, "
                 f"pattern={self.pattern!r})")
+        if any(m not in ("local", "global") for m in self.suffix_pattern) \
+                or (self.suffix_pattern and not self.mixed):
+            raise ValueError(f"{self.name}: suffix layers are ported for the "
+                             f"mixed local / global patterns only")
         if self.mlp_kind not in ("dense", "moe", "none"):
             raise ValueError(f"{self.name}: mlp_kind {self.mlp_kind!r} is "
                              f"not ported")
@@ -84,19 +94,23 @@ class ModelConfig:
         if self.first_k_dense and self.family != "moe":
             raise ValueError(f"{self.name}: dense prefix layers are ported "
                              f"for the moe family only")
-        if (self.n_layers - self.first_k_dense) % len(self.pattern):
+        scanned = (self.n_layers - self.first_k_dense
+                   - len(self.suffix_pattern))
+        if scanned < 0 or scanned % len(self.pattern):
             raise ValueError(f"{self.name}: {self.n_layers} layers less "
-                             f"{self.first_k_dense} prefix layers do not "
-                             f"fill whole pattern groups")
+                             f"{self.first_k_dense} prefix and "
+                             f"{len(self.suffix_pattern)} suffix layers do "
+                             f"not fill whole pattern groups")
         if self.has_attention and (self.n_kv_heads <= 0
                                    or self.n_heads % self.n_kv_heads):
             raise ValueError(f"{self.name}: n_heads must be a multiple of "
                              f"n_kv_heads")
         if self.has_ssm and self.ssm_state <= 0:
             raise ValueError(f"{self.name}: an SSM mixer needs ssm_state")
-        if self.pattern == ("hybrid",) and self.window <= 0:
-            raise ValueError(f"{self.name}: the hybrid mixer's attention "
-                             f"is a sliding window (window > 0)")
+        if any(m in ("hybrid", "local") for m in self.pattern) \
+                and self.window <= 0:
+            raise ValueError(f"{self.name}: the hybrid and local mixers' "
+                             f"attention is a sliding window (window > 0)")
 
     # --- derived ---
     @property
@@ -115,7 +129,13 @@ class ModelConfig:
 
     @property
     def has_attention(self) -> bool:
-        return any(m in ("global", "hybrid") for m in self.pattern)
+        return any(m in ("global", "local", "hybrid") for m in self.pattern)
+
+    @property
+    def mixed(self) -> bool:
+        """Local and global attention layers in one model (the gemma
+        family's patterns)."""
+        return "local" in self.pattern
 
     @property
     def has_ssm(self) -> bool:
@@ -123,7 +143,12 @@ class ModelConfig:
 
     @property
     def n_groups(self) -> int:
-        return (self.n_layers - self.first_k_dense) // len(self.pattern)
+        return ((self.n_layers - self.first_k_dense - len(self.suffix_pattern))
+                // len(self.pattern))
+
+    @property
+    def group_size(self) -> int:
+        return len(self.pattern)
 
     @property
     def n_experts_padded(self) -> int:
@@ -134,9 +159,11 @@ class ModelConfig:
         return ((self.n_experts + 15) // 16) * 16
 
     def layer_mixers(self) -> Tuple[str, ...]:
-        """Mixer kind for every layer, in order (prefix layers first)."""
+        """Mixer kind for every layer, in order: prefix layers, the groups,
+        then the suffix."""
         base = "global" if self.has_attention else self.pattern[0]
-        return (base,) * self.first_k_dense + self.pattern * self.n_groups
+        return ((base,) * self.first_k_dense + self.pattern * self.n_groups
+                + self.suffix_pattern)
 
     def mlp_kind_for_layer(self, layer_idx: int) -> str:
         if layer_idx < self.first_k_dense:
@@ -151,7 +178,7 @@ class ModelConfig:
         if not self.tie_embeddings:
             total += V * D
         for li, mix in enumerate(self.layer_mixers()):
-            if mix in ("global", "hybrid"):
+            if mix in ("global", "local", "hybrid"):
                 H, K, dh = self.n_heads, self.n_kv_heads, self.head_dim
                 total += D * (H + 2 * K) * dh + H * dh * D
             if mix in ("mamba", "hybrid"):
@@ -185,7 +212,9 @@ class ModelConfig:
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
         ``reduced`` for these families)."""
-        small: Dict = dict(n_layers=self.first_k_dense + 2 * len(self.pattern),
+        small: Dict = dict(n_layers=(self.first_k_dense
+                                     + 2 * self.group_size
+                                     + len(self.suffix_pattern)),
                            d_model=64, n_heads=4,
                            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
                            head_dim=16, d_ff=128 if self.d_ff else 0,
@@ -206,9 +235,12 @@ class ModelConfig:
         return dataclasses.replace(self, **small)
 
 
-# family -> the layer patterns the port runs for it
-FAMILIES = {"dense": (("global",),), "moe": (("global",),),
-            "hybrid": (("hybrid",),), "ssm": (("mamba",),)}
+# family -> the layer patterns the port runs for it: the dense family's
+# mixed ones are gemma2's (1 local : 1 global) and gemma3's (5 : 1)
+FAMILIES = {"dense": (("global",), ("local", "global"),
+                      ("local",) * 5 + ("global",)),
+            "moe": (("global",),), "hybrid": (("hybrid",),),
+            "ssm": (("mamba",),)}
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 

@@ -140,6 +140,7 @@ int by_head_dim(int d, const SlabArgs& a) {
   switch (d) {
     case 64: return launch<TQ, TKV, 64>(a);
     case 128: return launch<TQ, TKV, 128>(a);
+    case 256: return launch<TQ, TKV, 256>(a);
   }
   return -1;
 }

@@ -19,18 +19,19 @@
 // sequential grid axis over KV blocks; Hopper blocks run in no order, so
 // here each CTA loops over the KV tiles itself, keeping the running max,
 // sum and accumulator of its queries in registers.  Two paths:
-//   - bf16 (the trainer's and the hybrid prefill's): persistent CTAs of
-//     three warpgroups (two waves of one a SM) walk work items of (row,
-//     query head, tile of 128 queries), the most loaded first.  A
-//     producer warp keeps Q and K/V tiles of 128 keys arriving by TMA
-//     into a two-stage ring in shared memory (mbarriers count the bytes in
-//     and the consumers out), running into the next item while the
-//     consumers finish one; two consumer warpgroups of 64 queries each run
-//     S = Q K^T on wgmma from shared memory, the online softmax on the
-//     accumulator fragments (exp2 with scale * log2(e) folded in, its
-//     reductions in short chains: at 8 warps a SM it is latency-bound), and
-//     O += P V on wgmma with P from registers as bf16 and V read through
-//     the transposed (MN-major) operand layout.  Accumulators are f32.
+//   - bf16 (the trainer's and the hybrid and gemma prefills'): persistent
+//     CTAs of three warpgroups (two waves of one a SM) walk work items of
+//     (row, query head, tile of 128 queries), the most loaded first.  A
+//     producer warp keeps Q and K/V tiles of 128 keys (64 at d = 256)
+//     arriving by TMA into a two-stage ring in shared memory (mbarriers
+//     count the bytes in and the consumers out), running into the next
+//     item while the consumers finish one; two consumer warpgroups of 64
+//     queries each run S = Q K^T on wgmma from shared memory, the online
+//     softmax on the accumulator fragments (exp2 with scale * log2(e)
+//     folded in, its reductions in short chains: at 8 warps a SM it is
+//     latency-bound), and O += P V on wgmma with P from registers as bf16
+//     and V read through the transposed (MN-major) operand layout.
+//     Accumulators are f32.
 //     The tensor maps are built on the host from the strides of the
 //     [B, S, heads, d] views; TMA fills keys and queries past S with
 //     zeros.  See the section below.
@@ -86,7 +87,7 @@ constexpr int kThreads = kTPP * kPairs;
 // per-thread score row s[TT] stays in registers.
 template <int D>
 struct FlashTile {
-  static constexpr int TT = D >= 128 ? 32 : 64;
+  static constexpr int TT = D >= 256 ? 16 : D >= 128 ? 32 : 64;
 };
 
 // One K/V tile of the online softmax: this pair keeps tile positions
@@ -194,7 +195,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 // bf16: TMA + wgmma.  Persistent CTAs of three warpgroups, each walking
 // work items of (row, query head, tile of kBM = 128 queries).  Warpgroup
 // 0 is the producer: one thread issues the TMA loads (an item's Q, then
-// its K and V tiles of kBN = 128 keys into a kStages ring, running ahead
+// its K and V tiles of BN keys into a kStages ring, running ahead
 // into the next item while the consumers finish one); the others only
 // give their registers back.  Warpgroups 1
 // and 2 are consumers, 64 query rows each; they take turns issuing their
@@ -202,11 +203,17 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 // cores.
 //
 // Shared memory (1024-byte aligned): Q [128 x d], then kStages K and
-// kStages V tiles [128 x d], all bf16 in TMA's swizzled layout: a tile is
+// kStages V tiles [BN x d], all bf16 in TMA's swizzled layout: a tile is
 // split into column blocks of CB = 64 elements (32 when d = 32), each
-// [128 rows x CB] with 128-byte rows (64 when d = 32) whose 16-byte chunks
+// [rows x CB] with 128-byte rows (64 when d = 32) whose 16-byte chunks
 // are XOR-swizzled by the row within groups of 8 rows, the layout wgmma's
-// SWIZZLE_128B (64B) descriptors read.  Barriers: q_full, k_full[s],
+// SWIZZLE_128B (64B) descriptors read.  BN = 128 keys, or 64 at d = 256:
+// there Q is 64 KB and a K + V stage of 128 keys would be 128 KB, over
+// the 227 KB a block may have in two stages, and the score fragments of
+// 128 keys would not fit beside the 64 x 256 f32 accumulator (128
+// registers a thread); with 64 keys a stage is 64 KB (192 KB in all) and
+// a consumer thread holds 128 + 32 + 16 values of O, S and P.  O's 256
+// columns take two m64n128 products a k-step.  Barriers: q_full, k_full[s],
 // v_full[s] (TMA transaction bytes), q_empty and empty[s] (one arrival per
 // consumer warp).
 //
@@ -218,7 +225,6 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 // P V product for those 16 keys.
 // ---------------------------------------------------------------------------
 constexpr int kBM = 128;              // queries per CTA: 2 consumers x 64
-constexpr int kBN = 128;              // keys per K/V tile
 constexpr int kStages = 2;            // K/V ring depth (3 measured no faster)
 constexpr int kTmaThreads = 3 * 128;  // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
@@ -229,13 +235,15 @@ struct TmaTile {
   static constexpr int CB = D >= 64 ? 64 : 32;    // elements per column block
   static constexpr int RB = CB * 2;                // bytes per smem row
   static constexpr int NCB = D / CB;               // column blocks per tile
-  static constexpr int BLOCK = kBN * RB;           // bytes per column block
-  static constexpr int TILE = NCB * BLOCK;         // bytes per 128 x d tile
+  static constexpr int BN = D > 128 ? 64 : 128;    // keys per K/V tile
+  static constexpr int QBLOCK = kBM * RB;          // bytes per Q column block
+  static constexpr int BLOCK = BN * RB;            // and per K/V column block
+  static constexpr int QTILE = NCB * QBLOCK;       // bytes per 128 x d Q tile
+  static constexpr int TILE = NCB * BLOCK;         // bytes per BN x d K/V tile
   static constexpr int LAYOUT = RB == 128 ? 1 : 2; // wgmma: 128B / 64B swizzle
   // Q, kStages K and V tiles, 128 bytes of barriers, 1024 of alignment
-  static constexpr int SMEM = (1 + 2 * kStages) * TILE + 128 + 1024;
+  static constexpr int SMEM = QTILE + 2 * kStages * TILE + 128 + 1024;
 };
-static_assert(kBM == kBN, "Q and K/V tiles share one tensor-map box");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -355,11 +363,36 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x N] += A[64 x 16] B[16 x N], A (P) from registers, B (V) from
-// shared memory read MN-major (imm-trans-b = 1); scale-d = 1
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// shared memory read MN-major (imm-trans-b = 1); scale-d = 1.  n128
+// accumulates into d[OFF .. OFF + 63]: OFF = 64 is columns 128..255 of a
+// 256-wide O.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -369,22 +402,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
+        "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
+        "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -425,40 +458,53 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Issue S[64 x 128] = Q[64 x d] K^T for this warpgroup's 64 rows (the
+// Issue S[64 x BN] = Q[64 x d] K^T for this warpgroup's 64 rows (the
 // caller waits): Q and K both K-major (d contiguous); k-step kk reads 16
 // columns, 32 bytes into its column block's swizzled rows.
 template <int D>
-__device__ __forceinline__ void qk_wgmma(float (&s)[kBN / 2], uint32_t q,
-                                         uint32_t k) {
+__device__ __forceinline__ void qk_wgmma(float (&s)[TmaTile<D>::BN / 2],
+                                         uint32_t q, uint32_t k) {
   using L = TmaTile<D>;
   constexpr int KPB = L::CB / 16;                  // k-steps per column block
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / KPB) * L::BLOCK + (kk % KPB) * 32;
-    wgmma_ss_n128(s, gmma_desc(q + off, 16, 8 * L::RB, L::LAYOUT),
-                  gmma_desc(k + off, 16, 8 * L::RB, L::LAYOUT), kk > 0);
+    const uint32_t col = (kk % KPB) * 32;
+    const uint64_t dq = gmma_desc(q + (kk / KPB) * L::QBLOCK + col, 16,
+                                  8 * L::RB, L::LAYOUT);
+    const uint64_t dk = gmma_desc(k + (kk / KPB) * L::BLOCK + col, 16,
+                                  8 * L::RB, L::LAYOUT);
+    if constexpr (L::BN == 128) wgmma_ss_n128(s, dq, dk, kk > 0);
+    else wgmma_ss_n64(s, dq, dk, kk > 0);
   }
   wgmma_commit();
 }
 
-// Issue O[64 x d] += P[64 x 128] V (the caller waits): P from registers (k-step kk = keys
-// 16 kk .. 16 kk + 15), V MN-major (d contiguous): 8-key groups one atom
-// (8 rows) apart, column blocks of CB values one BLOCK apart.
+// Issue O[64 x d] += P[64 x BN] V (the caller waits): P from registers
+// (k-step kk = keys 16 kk .. 16 kk + 15), V MN-major (d contiguous): 8-key
+// groups one atom (8 rows) apart, column blocks of CB values one BLOCK
+// apart; at d = 256 columns 128..255 start two column blocks in.
 template <int D>
 __device__ __forceinline__ void pv_wgmma(float (&o)[D / 2],
-                                         uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t (&pa)[TmaTile<D>::BN / 16][4],
                                          uint32_t v) {
   using L = TmaTile<D>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t dv =
-        gmma_desc(v + kk * 16 * L::RB, L::BLOCK, 8 * L::RB, L::LAYOUT);
-    if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], dv);
-    else if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], dv);
-    else wgmma_rs_n32(o, pa[kk], dv);
+  for (int kk = 0; kk < L::BN / 16; ++kk) {
+    const uint32_t vk = v + kk * 16 * L::RB;
+    const uint64_t dv = gmma_desc(vk, L::BLOCK, 8 * L::RB, L::LAYOUT);
+    if constexpr (D == 256) {
+      wgmma_rs_n128<0>(o, pa[kk], dv);
+      wgmma_rs_n128<64>(o, pa[kk], gmma_desc(vk + 2 * L::BLOCK, L::BLOCK,
+                                             8 * L::RB, L::LAYOUT));
+    } else if constexpr (D == 128) {
+      wgmma_rs_n128<0>(o, pa[kk], dv);
+    } else if constexpr (D == 64) {
+      wgmma_rs_n64(o, pa[kk], dv);
+    } else {
+      wgmma_rs_n32(o, pa[kk], dv);
+    }
   }
   wgmma_commit();
 }
@@ -498,10 +544,10 @@ __device__ __forceinline__ float ex2(float x) {
 // scale is positive), the scale folds into the exponent's FFMA, exp2 is
 // one ex2.approx.ftz (results under 2^-126 flush to 0, far below a
 // bf16 P's resolution), and O is rescaled only when a row's maximum moved.
-template <int D>
-__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
+template <int D, int BN = TmaTile<D>::BN>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2],
                                              float (&o)[D / 2],
-                                             uint32_t (&pa)[kBN / 16][4],
+                                             uint32_t (&pa)[BN / 16][4],
                                              float (&m)[2], float (&l)[2],
                                              const FlashArgs& a, int j0,
                                              int r0, const int (&rows)[2],
@@ -511,16 +557,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
   float sc = a.scale * kLog2e;
   if (capped) {
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i)
+    for (int i = 0; i < BN / 2; ++i)
       s[i] = a.cap * tanhf(s[i] * a.scale / a.cap) * kLog2e;
     sc = 1.f;
   }
   // per-element masks only on tiles that straddle a limit of some row of
   // this warpgroup (keys past S, the diagonal, the window's edge)
-  if (j0 + kBN > a.S || (a.causal && j0 + kBN - 1 > r0) ||
+  if (j0 + BN > a.S || (a.causal && j0 + BN - 1 > r0) ||
       (a.window > 0 && r0 + 63 - j0 >= a.window)) {
 #pragma unroll
-    for (int n = 0; n < kBN / 8; ++n) {
+    for (int n = 0; n < BN / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = rows[e >> 1];
@@ -535,7 +581,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
 #pragma unroll
   for (int c = 0; c < 4; ++c) mx[0][c] = mx[1][c] = neg_inf();
 #pragma unroll
-  for (int n = 0; n < kBN / 8; ++n)
+  for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       mx[e >> 1][n & 3] = fmaxf(mx[e >> 1][n & 3], s[4 * n + e]);
@@ -563,7 +609,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
   // k-step kk
   float ls[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
     float p[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -595,14 +641,14 @@ __device__ __forceinline__ void named_arrive(int id) {
 }
 
 // One work item: a 128-query tile of one (row, head), and the keys its
-// queries may keep, [j_first, j_first + n_tiles * kBN) on a kBN grid:
+// queries may keep, [j_first, j_first + n_tiles * bn) on a grid of bn keys:
 // kv_hi = the tile's last query + 1 when causal (tiles above the diagonal
 // are never loaded), kv_lo = its first query - window + 1 with a window.
 struct Item {
   int b, h, kh, i0, j_first, n_tiles;
 };
 
-__device__ __forceinline__ Item item(const FlashArgs& a, int w) {
+__device__ __forceinline__ Item item(const FlashArgs& a, int w, int bn) {
   Item it;
   const int hb = a.H * a.B;
   it.i0 = (a.n_qt - 1 - w / hb) * kBM;
@@ -612,8 +658,8 @@ __device__ __forceinline__ Item item(const FlashArgs& a, int w) {
   const int i_last = min(a.S, it.i0 + kBM) - 1;
   const int kv_lo = a.window > 0 ? max(0, it.i0 - a.window + 1) : 0;
   const int kv_hi = a.causal ? i_last + 1 : a.S;
-  it.j_first = kv_lo - kv_lo % kBN;
-  it.n_tiles = (kv_hi - it.j_first + kBN - 1) / kBN;
+  it.j_first = kv_lo - kv_lo % bn;
+  it.n_tiles = (kv_hi - it.j_first + bn - 1) / bn;
   return it;
 }
 
@@ -628,10 +674,10 @@ flash_attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t qs = base;
-  const uint32_t ks = base + L::TILE;
+  const uint32_t ks = base + L::QTILE;
   const uint32_t vs = ks + kStages * L::TILE;
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      smem_raw + (base - raw) + (1 + 2 * kStages) * L::TILE);
+      smem_raw + (base - raw) + L::QTILE + 2 * kStages * L::TILE);
   uint64_t* q_full = bars;
   uint64_t* q_empty = bars + 1;
   uint64_t* k_full = bars + 2;
@@ -661,18 +707,18 @@ flash_attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       int tile_it = 0, item_it = 0;
       for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++item_it) {
-        const Item it = item(a, w);
+        const Item it = item(a, w, L::BN);
         // Q's buffer is free once both consumers' last Q K^T of the
         // previous item is done (the first wait passes at once)
         mbar_wait(q_empty, (item_it & 1) ^ 1);
-        mbar_expect_tx(q_full, L::TILE);
+        mbar_expect_tx(q_full, L::QTILE);
         for (int c = 0; c < L::NCB; ++c)
-          tma_load(qs + c * L::BLOCK, &tq, c * L::CB, it.i0, it.h, it.b,
+          tma_load(qs + c * L::QBLOCK, &tq, c * L::CB, it.i0, it.h, it.b,
                    q_full);
         for (int t = 0; t < it.n_tiles; ++t, ++tile_it) {
           const int st = tile_it % kStages;
           const uint32_t ph = (tile_it / kStages) & 1;
-          const int j0 = it.j_first + t * kBN;
+          const int j0 = it.j_first + t * L::BN;
           mbar_wait(&empty[st], ph ^ 1);   // the first round passes at once
           mbar_expect_tx(&k_full[st], L::TILE);
           for (int c = 0; c < L::NCB; ++c)
@@ -693,15 +739,15 @@ flash_attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;
     const uint32_t q_wg = qs + 64 * cw * L::RB;
-    float o[D / 2], s[kBN / 2];
+    float o[D / 2], s[L::BN / 2];
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
-    uint32_t pa[kBN / 16][4];
+    for (int i = 0; i < L::BN / 2; ++i) s[i] = 0.f;
+    uint32_t pa[L::BN / 16][4];
 
     if (cw == 1) named_arrive(kTurn);              // consumer 0 goes first
     int tile_it = 0, item_it = 0;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++item_it) {
-      const Item it = item(a, w);
+      const Item it = item(a, w, L::BN);
       const bool last_item = w + gridDim.x >= n_items;
       const int r0 = it.i0 + 64 * cw;              // this warpgroup's rows
       const int rows[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
@@ -726,7 +772,7 @@ flash_attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
           __syncwarp();
           if (lane == 0) mbar_arrive(q_empty);
         }
-        softmax_tile<D>(s, o, pa, m, l, a, it.j_first + t * kBN, r0, rows,
+        softmax_tile<D>(s, o, pa, m, l, a, it.j_first + t * L::BN, r0, rows,
                         t4);
         mbar_wait(&v_full[st], ph);
         pv_wgmma<D>(o, pa, vs + st * L::TILE);
@@ -776,17 +822,18 @@ EncodeTiled encode_tiled() {
 }
 
 // A [B, heads, S, d] bf16 view as a 4-D map, dims innermost first (d, S,
-// heads, B) with the view's own byte strides; boxes of CB x 128 positions.
-// Positions past S read as zeros.
+// heads, B) with the view's own byte strides; boxes of CB x `rows`
+// positions.  Positions past S read as zeros.
 template <int D>
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
-              int heads, int S, long long sb, long long sh, long long ss) {
+              int heads, int S, long long sb, long long sh, long long ss,
+              int rows) {
   using L = TmaTile<D>;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::CB, (cuuint32_t)kBN, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)L::CB, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -816,9 +863,12 @@ int launch_tma(const void* q, const void* k, const void* v, void* out,
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -2;
   CUtensorMap mq, mk, mv;
-  if (!make_map<D>(enc, &mq, q, a.B, a.H, a.S, a.q_sb, a.q_sh, a.q_ss) ||
-      !make_map<D>(enc, &mk, k, a.B, a.K, a.S, a.k_sb, a.k_sh, a.k_ss) ||
-      !make_map<D>(enc, &mv, v, a.B, a.K, a.S, a.v_sb, a.v_sh, a.v_ss))
+  if (!make_map<D>(enc, &mq, q, a.B, a.H, a.S, a.q_sb, a.q_sh, a.q_ss,
+                   kBM) ||
+      !make_map<D>(enc, &mk, k, a.B, a.K, a.S, a.k_sb, a.k_sh, a.k_ss,
+                   L::BN) ||
+      !make_map<D>(enc, &mv, v, a.B, a.K, a.S, a.v_sb, a.v_sh, a.v_ss,
+                   L::BN))
     return -3;
   auto kernel = flash_attention_tma_kernel<D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -850,6 +900,7 @@ int by_head_dim_f32(int d, const void* q, const void* k, const void* v,
     case 32: return launch_f32<32>(q, k, v, out, a, stream);
     case 64: return launch_f32<64>(q, k, v, out, a, stream);
     case 128: return launch_f32<128>(q, k, v, out, a, stream);
+    case 256: return launch_f32<256>(q, k, v, out, a, stream);
   }
   return -1;
 }
@@ -861,6 +912,7 @@ int by_head_dim_bf16(int d, const void* q, const void* k, const void* v,
     case 32: return launch_tma<32>(q, k, v, out, a, max_ctas, stream);
     case 64: return launch_tma<64>(q, k, v, out, a, max_ctas, stream);
     case 128: return launch_tma<128>(q, k, v, out, a, max_ctas, stream);
+    case 256: return launch_tma<256>(q, k, v, out, a, max_ctas, stream);
   }
   return -1;
 }

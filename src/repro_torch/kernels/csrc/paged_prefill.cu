@@ -44,6 +44,10 @@
 //   - a bf16 tile (the chunk's k/v, or a bf16 pool): bf16 m16n8k16, P
 //     rounded to bf16 (two C blocks are one A fragment), V's fragments by
 //     ldmatrix.trans.
+// At d = 256 (gemma3) the same code runs with a thread's accumulator at
+// 128 f32 registers (of the 255 a thread of this 256-thread CTA may hold)
+// and 198 KB of shared memory (two f32 K/V stages of 66 KB and the bf16
+// q tile of 66 KB), one CTA an SM; the f32 path's tile is 16 positions.
 // Why mma.sync and not wgmma: TF32 wgmma takes only K-major operands, and
 // V as the B operand of P V is MN-major, so every f32 V tile would need a
 // transposed copy; mma.sync's B fragments are read from shared memory by
@@ -535,6 +539,7 @@ int by_head_dim(int d, const PrefillArgs& a) {
   switch (d) {
     case 64: return launch<TQ, TKV, 64>(a);
     case 128: return launch<TQ, TKV, 128>(a);
+    case 256: return launch<TQ, TKV, 256>(a);
   }
   return -1;
 }

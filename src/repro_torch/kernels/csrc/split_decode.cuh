@@ -9,7 +9,9 @@
 // query heads of the KV head share each tile: their q sits in shared
 // memory, warp w takes heads w, w + 4, ...; for Q K^T a lane owns one
 // position's whole key row (no shuffle reduction per score), for P V a
-// lane owns d / 32 output dims.  Kernel 2 merges a row's splits in split
+// lane owns d / 32 output dims (2, 4 or 8 at d = 64, 128, 256; at d = 256
+// an f32 K/V tile pair is 2 x 33 KB, so the two-stage ring takes 130 KB
+// and one CTA fits an SM).  Kernel 2 merges a row's splits in split
 // order (no atomics: the result does not depend on which split ends
 // first).  A warp's head slots HPW (ceil(G / 4) rounded up to 1, 2, 4 or
 // 8) are a template parameter, so that a small group does not pay for 8
@@ -70,9 +72,12 @@ __device__ __forceinline__ void load_tile(TKV* ks, TKV* vs, const Rows& rows,
 // n consecutive elements of a shared-memory row as f32
 template <int N>
 __device__ __forceinline__ void row_f32(float (&x)[N], const float* p) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      x[i] = t.x; x[i + 1] = t.y; x[i + 2] = t.z; x[i + 3] = t.w;
+    }
   } else {
     const float2 t = *reinterpret_cast<const float2*>(p);
     x[0] = t.x; x[1] = t.y;

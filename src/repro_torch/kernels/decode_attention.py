@@ -56,8 +56,8 @@ def decode_attention(q, k, v, lengths, *, window: int = 0, cap: float = 0.0,
     ``window`` of them; the slots are split ``plan_splits(B, K, T, SMs)``
     ways and the splits merged in a second launch.  (q, k/v) dtypes: (f32,
     f32), (bf16, f32) or (bf16, bf16); H a multiple of K with H / K <= 32;
-    d in (64, 128).  ``scale`` defaults to d**-0.5.  Returns [B, H, d] in
-    q's dtype."""
+    d in HEAD_DIMS (64, 128, 256).  ``scale`` defaults to d**-0.5.
+    Returns [B, H, d] in q's dtype."""
     tensors = (q, k, v, lengths)
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
              "every tensor must be on the same CUDA device")

@@ -18,7 +18,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_decode_attention_ref  # noqa: F401
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 # (q dtype, pool dtype) pairs the library is built for
 DTYPE_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                (torch.bfloat16, torch.bfloat16)}
@@ -42,7 +42,8 @@ def _require(cond: bool, msg: str):
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            cap: float = 0.0, scale: Optional[float] = None):
     """q: [B, H, d]; k_pages/v_pages: [P, ps, K, d] (f32 q with f32
-    pools, or bf16 q with f32 or bf16 pools); block_tables: [B, nb] int32
+    pools, or bf16 q with f32 or bf16 pools), d in HEAD_DIMS (64, 128,
+    256); block_tables: [B, nb] int32
     (pad with the garbage page 0); lengths: [B] int32 (0 allowed =>
     zeros).  ``scale`` defaults to d**-0.5.  All on one CUDA device and
     contiguous.  Each row's positions are split every ``SPLIT`` positions

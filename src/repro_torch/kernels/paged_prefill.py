@@ -34,7 +34,8 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables, offsets,
     """q: [B, C, H, d]; k/v: [B, C, K, d] the chunk's own K/V, q's dtype;
     k_pages/v_pages: [P, ps, K, d] (f32 q with f32 pools, or bf16 q with f32
     or bf16 pools); block_tables: [B, nb] int32; offsets / chunk_lens: [B]
-    int32.  H a multiple of K with 1 <= H / K <= 64.  All on one CUDA
+    int32.  d in HEAD_DIMS (64, 128, 256); H a multiple of K with 1 <= H /
+    K <= 64.  All on one CUDA
     device, contiguous, with 16-byte aligned bases (the kernel copies q,
     k/v and the pools in 16-byte pieces).  bf16 q runs on the tensor cores
     (TF32 products against an f32 pool), f32 q on the f32 CUDA cores.

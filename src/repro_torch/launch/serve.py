@@ -4,9 +4,11 @@
       [--reduced] [--device cpu] --prompts "12+34=" "7*8=" --max-new 16
 
 ``--arch`` is any registered config: the dense Qwen family (``qwen3-8b``,
-``qwen3-14b``, ``qwen3-32b``, ``qwen2-7b``), the MoE ``qwen2-moe-a2.7b``
-and ``deepseek-moe-16b``, the hybrid ``hymba-1.5b`` and the SSM
-``mamba2-130m``.  Runs on the GPU unless ``--device cpu``.
+``qwen3-14b``, ``qwen3-32b``, ``qwen2-7b``), the dense gemma family of
+mixed local / global attention (``gemma2-27b``, ``gemma3-4b``,
+``gemma3-12b``), the MoE ``qwen2-moe-a2.7b`` and ``deepseek-moe-16b``,
+the hybrid ``hymba-1.5b`` and the SSM ``mamba2-130m``.  Runs on the GPU
+unless ``--device cpu``.
 Weights are random, drawn from ``--seed``.
 """
 

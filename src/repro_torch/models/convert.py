@@ -22,9 +22,10 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
     """Same nested dict and key strings, leaves as tensors on ``device``
-    (``None`` means CUDA).  The stacked ``groups/sub0`` leaves keep their
-    leading layer axis; ``prefix/{i}`` layers have none.  Raises
-    ``ValueError`` when a checked leaf's shape does not fit the config."""
+    (``None`` means CUDA).  The stacked ``groups/sub{j}`` leaves keep their
+    leading group axis; ``prefix/{i}`` and ``suffix/{i}`` layers have none.
+    Raises ``ValueError`` when a checked leaf's shape does not fit the
+    config."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -44,9 +45,20 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
 
     layer = ("groups", "sub0")
     got = {"embed": shape("embed"),
-           "prefix layers": len(params.get("prefix") or {})}
+           "prefix layers": len(params.get("prefix") or {}),
+           "pattern positions": sorted(params.get("groups") or {}),
+           "suffix layers": len(params.get("suffix") or {})}
     want = {"embed": (cfg.vocab_size, D),
-            "prefix layers": cfg.first_k_dense}
+            "prefix layers": cfg.first_k_dense,
+            "pattern positions": sorted(f"sub{j}"
+                                        for j in range(cfg.group_size)),
+            "suffix layers": len(cfg.suffix_pattern)}
+    if cfg.post_norms:
+        got["post_ln2"] = shape(*layer, "post_ln2", "scale")
+        want["post_ln2"] = (G, D)
+    for i in range(len(cfg.suffix_pattern)):
+        got[f"suffix.{i}.attn.wq"] = shape("suffix", str(i), "attn", "wq")
+        want[f"suffix.{i}.attn.wq"] = (D, cfg.n_heads, cfg.head_dim)
     if cfg.has_attention:
         got["attn.wq"] = shape(*layer, "attn", "wq")
         want["attn.wq"] = (G, D, cfg.n_heads, cfg.head_dim)

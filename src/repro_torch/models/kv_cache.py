@@ -1,27 +1,32 @@
 """Paged KV pools, per-slot ring and SSM state, and the host-side page
 allocator (port of ``repro.models.kv_cache``).
 
-Cache layout (every layer of a config has the same mixer, so each leaf
-carries a leading layer axis, as the reference's group-stacked leaves
-under ``groups/sub0`` do):
+Cache layout: one flat dict whose leaves carry a leading layer axis over
+the layers that hold that leaf, in layer order (``layer_slots`` maps a
+layer to its index in each of its leaves):
 
   cache = {
     "pos":     [B] int32 — tokens already in the cache per decode slot,
-    # global attention (dense and moe families): shared page pools
-    "k_pages": [L, P, page_size, K, dh],
+    # global attention: shared page pools
+    "k_pages": [L_global, P, page_size, K, dh],
     "v_pages": same,
-    # hybrid sliding-window attention: a per-slot ring of W = min(window,
-    # ring_len) slots, position p at slot p % W
-    "k":       [L, B, W, K, dh],
+    # local and hybrid sliding-window attention: a per-slot ring of
+    # W = min(window, ring_len) slots, position p at slot p % W
+    "k":       [L_ring, B, W, K, dh],
     "v":       same,
     # mamba / hybrid: per-slot conv inputs and SSM state
-    "conv":    [L, B, ssm_conv - 1, conv_dim],
-    "ssm":     [L, B, H_ssm, P_ssm, N],
+    "conv":    [L_ssm, B, ssm_conv - 1, conv_dim],
+    "ssm":     [L_ssm, B, H_ssm, P_ssm, N],
   }
 
-The prefix layers of a config with ``first_k_dense`` (DeepSeekMoE's dense
-first layer, global attention like the rest) are the first entries of the
-layer axis; only their export keys differ (``pool_keys``).
+A single-mixer config has one kind of leaf over all its layers (the prefix
+layers of a ``first_k_dense`` config first), as the reference's leaves
+under ``groups/sub0`` (and ``prefix/{i}``) stack them; a mixed local /
+global config (gemma) keeps its global layers' pools beside its local
+layers' rings.  The reference keys every leaf by the layer's place in its
+tree: ``prefix/{i}``, ``groups/sub{j}`` stacked over the groups, or
+``suffix/{i}``; exports use those keys (``export_keys``), so that an
+export from either package imports into the other.
 
 Position p of a request lives at (table[p // page_size], p % page_size)
 of its block table.  Page 0 is the reserved garbage page: padded and
@@ -39,6 +44,7 @@ for KV migration, keyed as the reference's cache tree keys its leaves.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -200,42 +206,86 @@ class PagedKVAllocator:
         return self.num_pages
 
 
+# mixer -> the cache leaves of one of its layers
+LAYER_LEAVES = {"global": ("k_pages", "v_pages"), "local": ("k", "v"),
+                "hybrid": ("k", "v", "conv", "ssm"), "mamba": ("conv", "ssm")}
+
+
+@functools.lru_cache(maxsize=64)
+def layer_slots(cfg) -> Tuple[Dict[str, int], ...]:
+    """For each layer, in order: {leaf: the layer's index along that
+    leaf's layer axis} for the leaves its mixer keeps."""
+    seen: Dict[str, int] = {}
+    out = []
+    for mixer in cfg.layer_mixers():
+        mine = {}
+        for name in LAYER_LEAVES[mixer]:
+            mine[name] = seen.get(name, 0)
+            seen[name] = mine[name] + 1
+        out.append(mine)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def export_keys(cfg, names: Tuple[str, ...]) -> Tuple:
+    """The reference's cache-tree key of every leaf in ``names`` the
+    config keeps: (key, leaf name, the layers of the port's leaf it holds
+    as indices along its layer axis, whether the reference stacks it on a
+    group axis), in the order of the reference's flattened tree (sorted
+    keys)."""
+    P, n_pre = cfg.group_size, cfg.first_k_dense
+    n_grouped = n_pre + cfg.n_groups * P
+    places: Dict[str, List] = {}          # tree path -> its layers
+    for i, slots in enumerate(layer_slots(cfg)):
+        if i < n_pre:
+            path, stacked = f"['prefix']['{i}']", False
+        elif i < n_grouped:
+            path, stacked = f"['groups']['sub{(i - n_pre) % P}']", True
+        else:
+            path, stacked = f"['suffix']['{i - n_grouped}']", False
+        places.setdefault(path, [stacked, []])[1].append(slots)
+    return tuple(sorted(
+        (f"{path}['{name}']", name, tuple(s[name] for s in layers), stacked)
+        for path, (stacked, layers) in places.items() for name in names
+        if name in layers[0]))
+
+
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
                      ring_len: int = 128, dtype=torch.float32,
                      device=None) -> Dict:
-    """Fresh cache: zeroed leaves for the config's mixer and a ``pos`` row
+    """Fresh cache: zeroed leaves for the config's mixers and a ``pos`` row
     per decode slot.  Global attention gets pools of ``num_pages`` pages;
-    the hybrid mixer a ring of min(window, ``ring_len``) slots per slot;
-    mamba / hybrid f32 conv and SSM state.  ``device=None`` means CUDA
-    (raises when absent)."""
+    local and hybrid mixers a ring of min(window, ``ring_len``) slots per
+    slot; mamba / hybrid f32 conv and SSM state.  ``device=None`` means
+    CUDA (raises when absent)."""
     device = resolve_device(device)
-    L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    mixer = cfg.pattern[0]
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    n = {}
+    for slots in layer_slots(cfg):
+        for name in slots:
+            n[name] = n.get(name, 0) + 1
+    shapes = {
+        "k_pages": (num_pages, page_size, K, dh),
+        "k": (batch, min(cfg.window, ring_len), K, dh),
+        "conv": (batch, cfg.ssm_conv - 1, cfg.conv_dim),
+        "ssm": (batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state)}
+    shapes.update(v_pages=shapes["k_pages"], v=shapes["k"])
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    if mixer == "global":
-        shape = (L, num_pages, page_size, K, dh)
-        cache["k_pages"] = torch.zeros(shape, dtype=dtype, device=device)
-        cache["v_pages"] = torch.zeros(shape, dtype=dtype, device=device)
-    if mixer == "hybrid":
-        shape = (L, batch, min(cfg.window, ring_len), K, dh)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
-    if cfg.has_ssm:
-        cache["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1,
-                                     cfg.conv_dim), device=device)
-        cache["ssm"] = torch.zeros((L, batch, cfg.ssm_nheads,
-                                    cfg.ssm_headdim, cfg.ssm_state),
-                                   device=device)
+    for name in ("k_pages", "v_pages", "k", "v", "conv", "ssm"):
+        if name in n:
+            dt = dtype if name in ("k_pages", "v_pages", "k", "v") \
+                else torch.float32
+            cache[name] = torch.zeros((n[name],) + shapes[name], dtype=dt,
+                                      device=device)
     return cache
 
 
-# leaf -> its key string in the reference's cache tree, where every leaf of
-# a single-mixer config sits group-stacked under groups/sub0 with the same
-# shape as here; KV exports use these keys so that an export from either
-# package imports into the other.  A config's first_k_dense prefix layers
-# sit under prefix/{i} there, unstacked: ``pool_keys`` names them.
+# leaf -> its key string in the reference's cache tree for a single-mixer
+# config with no prefix layers, where every leaf sits group-stacked under
+# groups/sub0 with the same shape as here (``export_keys`` keys any config)
 POOL_KEYS = {"k_pages": "['groups']['sub0']['k_pages']",
              "v_pages": "['groups']['sub0']['v_pages']"}
+POOL_NAMES = tuple(POOL_KEYS)
 SLOT_KEYS = {name: f"['groups']['sub0']['{name}']"
              for name in ("k", "v", "conv", "ssm")}
 
@@ -277,37 +327,41 @@ def grow_pool(cache, new_num_pages: int):
     return out
 
 
-def gather_pages(cache, page_ids, n_prefix: int = 0
-                 ) -> Dict[str, torch.Tensor]:
+def _layers(cache, layers):
+    return torch.as_tensor(layers, dtype=torch.long,
+                           device=cache["pos"].device)[:, None]
+
+
+def gather_pages(cache, page_ids, cfg) -> Dict[str, torch.Tensor]:
     """Host copies of the pool pages at ``page_ids`` from both pools
     (KV-migration export), keyed as the reference's cache tree keys them
-    (:func:`pool_keys`): ``[L, n, ps, K, dh]`` CPU tensors for the stacked
-    layers, ``[n, ps, K, dh]`` for each of ``n_prefix`` prefix layers;
-    empty for a cache without pools."""
+    (:func:`export_keys`): ``[G, n, ps, K, dh]`` CPU tensors for a
+    group-stacked pool, ``[n, ps, K, dh]`` for a prefix layer's; empty for
+    a cache without pools."""
     if "k_pages" not in cache:
         return {}
-    k0 = cache["k_pages"]
-    ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
+    ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                          device=cache["pos"].device)[None]
     out = {}
-    for key, name, layers, stacked in pool_keys(n_prefix):
-        got = cache[name][layers].index_select(1, ids).cpu()
+    for key, name, layers, stacked in export_keys(cfg, POOL_NAMES):
+        got = cache[name][_layers(cache, layers), ids].cpu()
         out[key] = got if stacked else got[0]
     return out
 
 
-def scatter_pages(cache, pages: Dict, page_ids, n_prefix: int = 0):
+def scatter_pages(cache, pages: Dict, page_ids, cfg):
     """Write exported page payloads (tensors or numpy arrays keyed as
     :func:`gather_pages` keys them) into both pools at ``page_ids``, in
     place (KV-migration import; inverse of :func:`gather_pages` up to page
     renames).  A cache without pools takes nothing."""
     if "k_pages" not in cache:
         return cache
-    k0 = cache["k_pages"]
-    ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=k0.device)
-    for key, name, layers, stacked in pool_keys(n_prefix):
-        pool = cache[name][layers]
+    ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                          device=cache["pos"].device)[None]
+    for key, name, layers, stacked in export_keys(cfg, POOL_NAMES):
+        pool = cache[name]
         val = torch.as_tensor(pages[key]).to(pool.device, pool.dtype)
-        pool[:, ids] = val if stacked else val[None]
+        pool[_layers(cache, layers), ids] = val if stacked else val[None]
     return cache
 
 
@@ -343,23 +397,29 @@ def scatter_rows(cache, rows, idx):
     return cache
 
 
-def gather_slot_rows(cache, slot: int) -> Dict[str, torch.Tensor]:
+def gather_slot_rows(cache, slot: int, cfg) -> Dict[str, torch.Tensor]:
     """Host copies of the per-slot leaves (ring K/V, conv and SSM state) at
-    batch row ``slot``, ``{SLOT_KEYS[k]: [L, ...]}``: the non-paged half
-    of a request's generation state, which rides in the same migration
-    manifest as its pages."""
-    return {SLOT_KEYS[k]: cache[k][:, slot].cpu()
-            for k in SLOT_KEYS if k in cache}
+    batch row ``slot``, keyed as the reference's cache tree keys them
+    (:func:`export_keys`): ``[G, ...]`` for a group-stacked leaf, ``[...]``
+    for a suffix layer's: the non-paged half of a request's generation
+    state, which rides in the same migration manifest as its pages."""
+    out = {}
+    for key, name, layers, stacked in export_keys(cfg, tuple(SLOT_KEYS)):
+        got = cache[name][list(layers), slot].cpu()
+        out[key] = got if stacked else got[0]
+    return out
 
 
-def scatter_slot_rows(cache, rows: Dict, slot: int):
+def scatter_slot_rows(cache, rows: Dict, slot: int, cfg):
     """Write exported per-slot rows (tensors or numpy arrays keyed as
     :func:`gather_slot_rows` keys them) back at batch row ``slot``, in
     place."""
-    for k, key in SLOT_KEYS.items():
-        if k in cache and key in rows:
-            cache[k][:, slot] = torch.as_tensor(np.asarray(rows[key])).to(
-                cache[k].device, cache[k].dtype)
+    for key, name, layers, stacked in export_keys(cfg, tuple(SLOT_KEYS)):
+        if key in rows:
+            leaf = cache[name]
+            val = torch.as_tensor(np.asarray(rows[key])).to(leaf.device,
+                                                            leaf.dtype)
+            leaf[list(layers), slot] = val if stacked else val[None]
     return cache
 
 

@@ -1,25 +1,32 @@
-"""Decoder backbone (port of ``repro.models.transformer``) for the
-single-mixer families: dense and mixture-of-experts all-global attention
-(the full-sequence ``train`` mode and the paged ``prefill`` / ``decode``
-modes), and the hybrid (sliding-window attention beside a Mamba-2 mixer,
-Hymba) and SSM (Mamba-2) families in the ``prefill`` / ``decode`` modes.
+"""Decoder backbone (port of ``repro.models.transformer``): dense all-global
+and mixed local / global attention (gemma) and mixture-of-experts
+all-global attention in the full-sequence ``train`` mode and the paged
+``prefill`` / ``decode`` modes, and the hybrid (sliding-window attention
+beside a Mamba-2 mixer, Hymba) and SSM (Mamba-2) families in the
+``prefill`` / ``decode`` modes.
 
 Parameters are the reference's nested dict with the same key strings:
 ``embed`` [V, D], ``lm_head`` [D, V] (untied configs only),
 ``final_norm/scale``, ``prefix/{i}/...`` for the ``first_k_dense`` dense
-prefix layers (DeepSeekMoE's first layer), and ``groups/sub0/...`` whose
-leaves carry a leading layer axis (the reference's scan stack).  A MoE
-layer's MLP is ``models.moe``; ``forward`` sums its aux losses over the
-layers as the reference does.  Order of operations follows the
-reference: qk-norm before RoPE; in the paged modes q is pre-scaled by
-dh**-0.5 so the paged kernels get ``scale=1.0``, and a prefill chunk
-attends to its own K/V before that K/V is written to the pool; in train
-mode the flash attention gets unscaled q and scales inside.  The hybrid
-mixer's attention keeps a per-slot ring of the window (``kv_cache``): a
-prefill (always the whole context) attends through the flash kernel with
-the window and fills the ring; a decode step attends the ring through the
-slab decode kernel, whose valid slots are the first min(pos + 1, W).
-Mamba mixers scan through ``ops.ssd`` in prefill (``models.ssm``).
+prefix layers (DeepSeekMoE's first layer), ``groups/sub{j}/...`` for
+pattern position j, whose leaves carry a leading group axis (the
+reference's scan stack), and ``suffix/{i}/...`` for the layers after the
+groups.  A layer is ``groups/sub{j}`` at group g for layer
+first_k_dense + g * len(pattern) + j.  A MoE layer's MLP is
+``models.moe``; ``forward`` sums its aux losses over the layers as the
+reference does.  Order of operations follows the reference: qk-norm
+before RoPE; in the paged modes q is pre-scaled by dh**-0.5 so the paged
+kernels get ``scale=1.0``, and a prefill chunk attends to its own K/V
+before that K/V is written to the pool; in train mode the flash attention
+gets unscaled q and scales inside; with ``post_norms`` (gemma2) the mixer's
+and the MLP's outputs are RMS-normed before they join the residual.  A
+local or hybrid layer's attention is the sliding window, with RoPE at
+``rope_theta_local``, and keeps a per-slot ring of the window
+(``kv_cache``): a prefill (always the whole context) attends through the
+flash kernel with the window and fills the ring; a decode step attends the
+ring through the slab decode kernel, whose valid slots are the first
+min(pos + 1, W).  Global layers keep the paged pools.  Mamba mixers scan
+through ``ops.ssd`` in prefill (``models.ssm``).
 """
 
 from __future__ import annotations
@@ -51,19 +58,18 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
-def _init_layers(cfg: ModelConfig, g, dt, device, L, mlp_kind: str,
-                 d_ff: int) -> Dict:
+def _init_layers(cfg: ModelConfig, g, dt, device, L, mixer: str,
+                 mlp_kind: str, d_ff: int) -> Dict:
     """The params of ``L`` layers stacked on a leading axis (``L=None``:
-    one layer, no axis), with the config's mixer and ``mlp_kind``."""
+    one layer, no axis), with ``mixer`` and ``mlp_kind``."""
     D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lead = () if L is None else (L,)
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(lead + shape, dtype=dtype, device=device)
 
-    mixer = cfg.pattern[0]
     layer = {"ln1": {"scale": zeros(D)}}
-    if cfg.has_attention:
+    if mixer in ("global", "local", "hybrid"):
         attn = {"wq": dense_init(g, (D, H, dh), D, dt, device, L),
                 "wk": dense_init(g, (D, K, dh), D, dt, device, L),
                 "wv": dense_init(g, (D, K, dh), D, dt, device, L),
@@ -74,13 +80,15 @@ def _init_layers(cfg: ModelConfig, g, dt, device, L, mlp_kind: str,
         if cfg.qk_norm:
             attn.update(q_norm=zeros(dh), k_norm=zeros(dh))
         layer["attn"] = attn
-    if cfg.has_ssm:
+    if mixer in ("mamba", "hybrid"):
         per_layer = [init_mamba_params(cfg, g, dt, device)
                      for _ in range(L or 1)]
         layer["mamba"] = per_layer[0] if L is None else _stack(per_layer)
     if mixer == "hybrid":
         layer["attn_norm"] = {"scale": zeros(D)}
         layer["ssm_norm"] = {"scale": zeros(D)}
+    if cfg.post_norms:
+        layer["post_ln1"] = {"scale": zeros(D)}
     if mlp_kind != "none":
         layer["ln2"] = {"scale": zeros(D)}
         if mlp_kind == "moe":
@@ -90,6 +98,8 @@ def _init_layers(cfg: ModelConfig, g, dt, device, L, mlp_kind: str,
                             "wg": dense_init(g, (D, d_ff), D, dt, device, L),
                             "wo": dense_init(g, (d_ff, D), d_ff, dt, device,
                                              L)}
+        if cfg.post_norms:
+            layer["post_ln2"] = {"scale": zeros(D)}
     return layer
 
 
@@ -97,24 +107,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Random weights with the reference's tree, shapes and distributions
     (its bits differ: the draws come from ``generator``): ``prefix/{i}``
-    for the dense prefix layers, then the stacked ``groups/sub0``.  Norm
-    scales are zero (weight 1 under the zero-centred RMSNorm).
-    ``device=None`` means CUDA (raises when absent); ``generator`` must
-    live on that device."""
+    for the dense prefix layers, the stacked ``groups/sub{j}``, then
+    ``suffix/{i}``.  Norm scales are zero (weight 1 under the zero-centred
+    RMSNorm).  ``device=None`` means CUDA (raises when absent);
+    ``generator`` must live on that device."""
     device = resolve_device(device)
     dt = dtype_of(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     g = generator
-    prefix = {str(i): _init_layers(cfg, g, dt, device, None, "dense",
-                                   cfg.d_ff_dense_prefix)
+    mixers = cfg.layer_mixers()
+    prefix = {str(i): _init_layers(cfg, g, dt, device, None, mixers[i],
+                                   "dense", cfg.d_ff_dense_prefix)
               for i in range(cfg.first_k_dense)}
-    stack = _init_layers(cfg, g, dt, device, cfg.n_groups, cfg.mlp_kind,
-                         cfg.d_ff)
+    groups = {f"sub{j}": _init_layers(cfg, g, dt, device, cfg.n_groups,
+                                      mixer, cfg.mlp_kind, cfg.d_ff)
+              for j, mixer in enumerate(cfg.pattern)}
+    suffix = {str(i): _init_layers(cfg, g, dt, device, None, mixer,
+                                   cfg.mlp_kind, cfg.d_ff)
+              for i, mixer in enumerate(cfg.suffix_pattern)}
     params = {"final_norm": {"scale": torch.zeros((D,), device=device)},
               "embed": dense_init(g, (V, D), D, dt, device),
-              "groups": {"sub0": stack}}
+              "groups": groups}
     if prefix:
         params["prefix"] = prefix
+    if suffix:
+        params["suffix"] = suffix
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, (D, V), D, dt, device)
     return params
@@ -141,11 +158,23 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def _layer_params(params, cfg: ModelConfig, i: int):
+    """Layer ``i``'s params: ``prefix/{i}``, ``groups/sub{j}`` at its
+    group, or ``suffix/{i}``."""
+    n_pre, P = cfg.first_k_dense, cfg.group_size
+    if i < n_pre:
+        return params["prefix"][str(i)]
+    g, j = divmod(i - n_pre, P)
+    if g < cfg.n_groups:
+        return _layer(params["groups"][f"sub{j}"], g)
+    return params["suffix"][str(i - n_pre - cfg.n_groups * P)]
+
+
 # --------------------------------------------------------------------------- #
 # layers
 # --------------------------------------------------------------------------- #
-def _attn_apply(p, h, cfg: ModelConfig, mode: str, lc, positions, lens,
-                paged):
+def _attn_apply(p, h, cfg: ModelConfig, local: bool, mode: str, lc,
+                positions, lens, paged):
     B, S, D = h.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (h @ p["wq"].reshape(D, H * dh)).view(B, S, H, dh)
@@ -158,8 +187,7 @@ def _attn_apply(p, h, cfg: ModelConfig, mode: str, lc, positions, lens,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    # the hybrid mixer's attention is the sliding window, on the local theta
-    local = cfg.pattern[0] == "hybrid"
+    # local and hybrid layers attend the sliding window, on the local theta
     inv = _rope_table(dh, cfg.rope_theta_local if local else cfg.rope_theta,
                       h.device)
     q = apply_rope(q, positions, inv)
@@ -170,7 +198,7 @@ def _attn_apply(p, h, cfg: ModelConfig, mode: str, lc, positions, lens,
         out = ops.attention_bshd(q, k, v, causal=True,
                                  window=cfg.window if local else 0,
                                  cap=cfg.attn_softcap)
-        if local:
+        if mode == "prefill":
             kvc.prefill_fill_ring(lc["k"], lc["v"], k, v, lens)
         return out.reshape(B, S, H * dh) @ wo
     q = q * (dh ** -0.5)
@@ -230,31 +258,35 @@ def _mamba_apply(p, h, cfg: ModelConfig, mode: str, lc, lens, seq_mask):
     return out
 
 
-def _apply_layer(p, x, cfg: ModelConfig, mlp_kind: str, mode: str, lc,
-                 positions, lens, paged, seq_mask):
+def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp_kind: str,
+                 mode: str, lc, positions, lens, paged, seq_mask):
     """One layer: (x, the MoE aux loss, or None for a dense or no MLP)."""
-    mixer = cfg.pattern[0]
     h = rms_norm(x, p["ln1"]["scale"])
-    if mixer == "global":
-        mix = _attn_apply(p["attn"], h, cfg, mode, lc, positions, lens,
-                          paged)
+    if mixer in ("global", "local"):
+        mix = _attn_apply(p["attn"], h, cfg, mixer == "local", mode, lc,
+                          positions, lens, paged)
     elif mixer == "mamba":
         mix = _mamba_apply(p["mamba"], h, cfg, mode, lc, lens, seq_mask)
     else:                                                # hybrid
-        attn_out = _attn_apply(p["attn"], h, cfg, mode, lc, positions, lens,
-                               paged)
+        attn_out = _attn_apply(p["attn"], h, cfg, True, mode, lc, positions,
+                               lens, paged)
         m_out = _mamba_apply(p["mamba"], h, cfg, mode, lc, lens, seq_mask)
         mix = 0.5 * (rms_norm(attn_out, p["attn_norm"]["scale"])
                      + rms_norm(m_out, p["ssm_norm"]["scale"]))
+    if cfg.post_norms:
+        mix = rms_norm(mix, p["post_ln1"]["scale"])
     x = x + mix
     if mlp_kind == "none":
         return x, None
     h2 = rms_norm(x, p["ln2"]["scale"])
+    aux = None
     if mlp_kind == "moe":
         out, aux = moe_layer(p["mlp"], h2, cfg)
-        return x + out, aux
-    return x + swiglu(h2, p["mlp"]["wi"], p["mlp"]["wg"],
-                      p["mlp"]["wo"]), None
+    else:
+        out = swiglu(h2, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
+    if cfg.post_norms:
+        out = rms_norm(out, p["post_ln2"]["scale"])
+    return x + out, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -288,7 +320,8 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
-    if mode == "train" and cfg.pattern != ("global",):
+    mixers = cfg.layer_mixers()
+    if mode == "train" and cfg.has_ssm:
         raise NotImplementedError(
             f"{cfg.name}: train mode is ported for the dense and moe "
             f"families only")
@@ -307,28 +340,28 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
         offs = (paged or {}).get("q_offsets")
         if offs is None:
             offs = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+            if paged is not None:
+                paged = dict(paged, q_offsets=offs)
         positions = offs[:, None] + positions
         if seq_mask is None:
             lens = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
         else:
             lens = seq_mask.to(torch.int32).sum(-1, dtype=torch.int32)
-    stack, n_pre = params["groups"]["sub0"], cfg.first_k_dense
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        p = params["prefix"][str(i)] if i < n_pre else _layer(stack,
-                                                              i - n_pre)
+    for i, (mixer, slots) in enumerate(zip(mixers, kvc.layer_slots(cfg))):
+        p = _layer_params(params, cfg, i)
         kind = cfg.mlp_kind_for_layer(i)
         if mode == "train":
-            def layer(x, p=p, kind=kind):
-                return _apply_layer(p, x, cfg, kind, mode, None, positions,
-                                    None, None, None)
+            def layer(x, p=p, mixer=mixer, kind=kind):
+                return _apply_layer(p, x, cfg, mixer, kind, mode, None,
+                                    positions, None, None, None)
             x, a = checkpoint(layer, x, use_reentrant=False) if remat \
                 else layer(x)
         else:
-            lc = {k: v[i] for k, v in cache.items() if k != "pos"}
-            x, a = _apply_layer(p, x, cfg, kind, mode, lc, positions, lens,
-                                paged, seq_mask)
+            lc = {k: cache[k][j] for k, j in slots.items()}
+            x, a = _apply_layer(p, x, cfg, mixer, kind, mode, lc, positions,
+                                lens, paged, seq_mask)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, params["final_norm"]["scale"])

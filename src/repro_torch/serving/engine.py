@@ -3,8 +3,10 @@
 
 One engine is one rollout instance.  Global-attention KV lives in shared
 page pools with per-request block tables (``PagedKVAllocator``); the
-hybrid family's window ring and the SSM families' conv and scan state live
-in per-slot rows; decode concurrency is bounded by ``max_batch`` slots.
+sliding-window ring of local and hybrid layers and the SSM families' conv
+and scan state live in per-slot rows, beside the pools in a model that
+mixes local and global layers (gemma); decode concurrency is bounded by
+``max_batch`` slots.
 The scheduler keeps the reference's contracts:
 
   * ``step()`` decodes ``horizon`` tokens per active request in one
@@ -803,10 +805,11 @@ class InferenceEngine:
                 key_data=np.array(st.key_data, np.uint32),
                 page_idx=idxs))
             if not self._chunkable:         # ring / SSM state exists
-                slot_state[rid] = kvc.gather_slot_rows(self.cache, slot)
+                slot_state[rid] = kvc.gather_slot_rows(self.cache, slot,
+                                                       self.cfg)
         span = self.tracer.begin("engine.kv_export", self.trace_lane,
                                  n_reqs=len(req_ids), n_pages=len(unique))
-        pages = (kvc.gather_pages(self.cache, unique, self.cfg.first_k_dense)
+        pages = (kvc.gather_pages(self.cache, unique, self.cfg)
                  if unique else {})
         self.tracer.end(span)
         self.n_kv_export_pages += len(unique)
@@ -861,8 +864,7 @@ class InferenceEngine:
                 sel[k] = v.index_select(v.ndim - 4,
                                         torch.as_tensor(used,
                                                         dtype=torch.long))
-            kvc.scatter_pages(self.cache, sel, fresh,
-                              self.cfg.first_k_dense)
+            kvc.scatter_pages(self.cache, sel, fresh, self.cfg)
         slots = []
         referenced: Dict[int, int] = {}
         for r in reqs:
@@ -889,7 +891,7 @@ class InferenceEngine:
             self.maxtot_buf[slot] = r["max_total"]
             if rid in state.get("slot_state", {}):
                 kvc.scatter_slot_rows(self.cache, state["slot_state"][rid],
-                                      slot)
+                                      slot, self.cfg)
             slots.append(slot)
             self.n_kv_import_tokens += r["ctx_len"]
         self.n_kv_import_pages += len(used)

@@ -24,7 +24,9 @@ the unpadded row's bit for bit; it checks that repeated launches are
 bit-identical, and
 that the paged decode's outputs do not move by a bit when the table
 doubles or rows are added; the paged decode also at G = 1 (the MoE
-configs' 16 / 16 heads).  The MoE layer with drops gives the same bits on
+configs' 16 / 16 heads); the four attention kernels at gemma3's head dim
+of 256 and at gemma2's G = 2 with a softcap of 50, and a tiny gemma3's
+decode horizon as a graph.  The MoE layer with drops gives the same bits on
 a second launch and the CPU's drop set.  The engine's decode horizon as a
 CUDA graph, on a tiny dense, a tiny MoE and a tiny hybrid config: replayed tokens and logprobs
 bit-equal to eager H=8 and to eager H=1 at temperature 0 and 1, and
@@ -592,6 +594,79 @@ def test_moe_layer_bit_repeatable_on_card(cuda, dtype):
         want, want_aux = moe.moe_layer(cpu_p, xc, cfg)
         assert _err(out, want) <= 1e-5
         assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+# ---- the gemma family: d = 256 (gemma3) and G = 2 with a softcap (gemma2) ---- #
+GEMMA_DECODE = [(4, 8, 4, 16, 8, 256, 0.0), (4, 32, 16, 16, 8, 128, 50.0)]
+GEMMA_PREFILL = [(4, 96, 8, 4, 16, 6, 256, 0.0), (4, 1, 8, 4, 16, 6, 256, 0.0),
+                 (3, 130, 8, 4, 16, 8, 256, 0.0),
+                 (4, 200, 32, 16, 16, 6, 128, 50.0)]
+GEMMA_SLAB = [(5, 8, 4, 1024, 256, 0, 0.0), (3, 8, 4, 300, 256, 100, 0.0),
+              (4, 32, 16, 512, 128, 0, 50.0)]
+GEMMA_FLASH = [(2, 8, 4, 300, 256, True, 128, 0.0),
+               (1, 8, 4, 1, 256, True, 0, 0.0),
+               (1, 4, 2, 77, 256, False, 0, 20.0),
+               (2, 4, 2, 200, 256, True, 64, 30.0),
+               (1, 32, 16, 300, 128, True, 128, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", KV_DTYPES)
+@pytest.mark.parametrize("case", GEMMA_DECODE)
+def test_gemma_decode_kernel_matches_plain_on_card(cuda, case, qdt, kvdt):
+    test_decode_kernel_matches_plain_on_card(cuda, *case, qdt, kvdt)
+    test_decode_split_is_fixed_in_position_space_on_card(cuda, *case, qdt,
+                                                         kvdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", KV_DTYPES)
+@pytest.mark.parametrize("case", GEMMA_PREFILL)
+def test_gemma_prefill_kernel_matches_plain_on_card(cuda, case, qdt, kvdt):
+    test_prefill_kernel_matches_plain_on_card(cuda, *case, qdt, kvdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kvdt", KV_DTYPES)
+@pytest.mark.parametrize("case", GEMMA_SLAB)
+def test_gemma_slab_decode_kernel_matches_plain_on_card(cuda, case, qdt,
+                                                        kvdt):
+    test_slab_decode_kernel_matches_plain_on_card(cuda, *case, qdt, kvdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GEMMA_FLASH)
+def test_gemma_flash_kernel_matches_plain_on_card(cuda, case, dtype):
+    test_flash_kernel_matches_plain_on_card(cuda, *case, dtype)
+
+
+@pytest.mark.cuda
+def test_gemma_graph_horizon_on_card(cuda):
+    """A tiny gemma3 at d = 256 (local layers on rings, global ones on the
+    pools, a suffix): replayed tokens and logprobs bit-equal to eager H=8
+    and H=1; the paged decode counts global layers x H x horizons and
+    ``decode_attention`` local layers x H x horizons, with replays."""
+    cfg = get_config("gemma3-4b").reduced(
+        name="tiny-graph-gemma", vocab_size=tok.VOCAB_SIZE, d_model=128,
+        n_heads=4, n_kv_heads=2, head_dim=256, d_ff=256)
+    params = _graph_params(cfg, 0, cuda)
+    mixers = cfg.layer_mixers()
+    before = (paged_decode_attention.launches, decode_attention.launches)
+    got, eng = _graph_serve(cfg, params, horizon=8, temperature=0.0,
+                            graphs=True)
+    steps = eng.horizon * eng.n_decode_dispatches
+    assert eng.graph_capture_s, "no horizon was captured"
+    assert paged_decode_attention.launches - before[0] == \
+        mixers.count("global") * steps
+    assert decode_attention.launches - before[1] == \
+        mixers.count("local") * steps
+    eager8, _ = _graph_serve(cfg, params, horizon=8, temperature=0.0,
+                             graphs=False)
+    eager1, _ = _graph_serve(cfg, params, horizon=1, temperature=0.0,
+                             graphs=False)
+    assert got == eager8
+    assert got == eager1
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ boundaries and mid-page values; offsets at 0, mid-page, page boundary and
 full table; chunk_len 0, full and ragged; the slab decode cases of
 ``test_kernels.py:42-45`` plus Hymba's G = 5; the flash cases of
 ``test_kernels.py`` plus a sequence length that is no multiple of 128 and
-a G = 5 sliding window).
+a G = 5 sliding window; and gemma3's head dim of 256 and gemma2's G = 2
+with a softcap of 50 on every one of them).
 f32 at atol 2e-5; bf16 inputs at the reference's own bf16 tolerance, 1e-2
 for the paged versions and 2e-2 for flash (one bf16 rounding of the
 output).  The split-K decodes' and the tensor-core prefill's arithmetic is
@@ -678,3 +679,50 @@ def test_tma_layout_check_refuses_what_tma_cannot_read():
     assert not tma_layout_ok(1024, (4096, 128, 1024, 2), 2)     # last dim
     assert not tma_layout_ok(1024, (2 ** 40, 128, 1024, 1), 2)  # too far
     assert tma_layout_ok(1024, (4096, 4, 512, 1), 4)            # 16 B
+
+
+# --------------- gemma3's head dim of 256 and gemma2's G = 2 + softcap ------- #
+# tiny B, S and tables at the shapes the gemma family serves: d = 256 with G
+# = 2 (gemma3-4b's 8 / 4 heads, cut to 4 / 2), and d = 128, G = 2, cap 50
+# (gemma2-27b's); the same checks as the cases above, Pallas in interpret
+# mode, the tolerances of tests/test_kernels.py:16
+GEMMA_DECODE = [(3, 4, 2, 8, 4, 256, 0.0), (3, 4, 2, 8, 4, 128, 50.0)]
+GEMMA_PREFILL = [(4, 16, 4, 2, 8, 3, 256, 0.0), (3, 24, 4, 2, 8, 4, 128, 50.0)]
+GEMMA_FLASH = [(1, 4, 2, 128, 256, True, 48, 0.0),
+               (1, 4, 2, 96, 256, False, 0, 0.0),
+               (1, 4, 2, 128, 128, True, 64, 50.0)]
+GEMMA_SLAB = [(3, 4, 2, 64, 256, 0, 0.0), (2, 4, 2, 64, 256, 16, 0.0),
+              (3, 4, 2, 128, 128, 0, 50.0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GEMMA_DECODE)
+def test_gemma_decode_plain_matches_reference(case, dtype):
+    test_decode_plain_matches_reference(*case, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GEMMA_PREFILL)
+def test_gemma_prefill_plain_matches_reference(case, dtype):
+    test_prefill_plain_matches_reference(*case, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GEMMA_FLASH)
+def test_gemma_flash_plain_matches_reference(case, dtype):
+    test_flash_plain_matches_reference(*case, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GEMMA_SLAB)
+def test_gemma_slab_decode_plain_matches_reference(case, dtype):
+    test_slab_decode_plain_matches_reference(*case, dtype)
+
+
+@pytest.mark.parametrize("split", [32, 64])
+@pytest.mark.parametrize("case", GEMMA_DECODE)
+def test_gemma_paged_split_decode_matches_reference(case, split):
+    """The fixed-split arithmetic of the CUDA paged decode at d = 256 and
+    with gemma2's softcap, in f32."""
+    test_paged_split_decode_matches_reference(*case, split)
+
