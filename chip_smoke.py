@@ -32,9 +32,11 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 phase's shape, at S=4096, on the reference test's feature
                 cases (window, softcap, MQA, bidirectional, a ragged S), at
                 Hymba's prefill (G=5, d=64, window 1024), at phase 10's
-                train shape (G=1, 16 heads) and at phase 11's local
+                train shape (G=1, 16 heads), at phase 11's local
                 layers (gemma3-4b: d=256, window 1024; gemma2-27b: window
-                4096, softcap 50), those launched twice (bit-identical);
+                4096, softcap 50) and at phase 12's train shapes
+                (hubert-xlarge: d=80, bidirectional, in bf16 and f32;
+                llava-next-34b: G=7), those launched twice (bit-identical);
                 ``decode_attention`` at Hymba's ring (B=8, H=25, K=5, d=64,
                 T=1024, bf16 q over f32 K/V read as views of the [B, T, K,
                 d] ring, ragged lengths 1..T; again with an empty row and
@@ -48,7 +50,9 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 (b=8, L=1152, H=50, P=64, N=16, strided slices of one conv
                 output, dt = 0 past each row's length), at Mamba2-130m's
                 geometry in f32 and bf16 and at its served prefill (the
-                same 8 ragged rows, H=24, N=128, f32), each launched
+                same 8 ragged rows, H=24, N=128, f32) and at phase 12's
+                Hymba and Mamba2 train shapes (every row full; the scan's
+                recomputed plain backward timed too), each launched
                 twice (bit-identical); max error against the stated
                 tolerance, kernel / plain / library times (CUDA events, L2
                 flushed before each launch) and the bound (the scan's at
@@ -224,8 +228,33 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 prefill) (``[gemma]`` lines: prefill and decode tok/s with
                 graphs and eagerly, capture seconds, graph-pool bytes,
                 peak memory);
- 12. summary  — one JSON line per the kernels (rows 1, 2, 4 and 5 count
-                phases 9, 10 and 11's launches too), the card's name and
+ 12. train12  — every family trained at full width on the code path of
+                the port's ``launch/train.py`` (its ``synthetic_batch``,
+                ``make_train_step`` with remat, the batch of step i from
+                a generator seeded with i; TRAIN12_MIX): mamba2-130m and
+                hymba-1.5b at every layer (the scan under autograd: its
+                kernel forward, its plain chunked backward), gemma3-4b cut
+                to one pattern group, gemma2-27b to one local and one
+                global layer, hubert-xlarge at every layer (embeddings
+                in, bidirectional flash at d = 80, ``supervised_loss``),
+                llava-next-34b cut to 2 layers (GRPO on embeddings and
+                tokens); each: step 1's loss, ratio_mean and grad norm
+                (and the mamba leaves' grad norm) with the kernels against
+                plain attention and the plain chunked scan, a decoder
+                scored against the plain pass's own logprobs; 3 timed
+                steps and one profiled for CUDA activity (seconds,
+                tokens/s, peak memory, device busy and idle share, the
+                plain backwards' device spans; ``[train12]`` lines),
+                launches = attention
+                (SSM) layers x forwards for flash (``ssd_scan``), every
+                loss finite; then llava-next-34b served as configured (60
+                layers, 68.8 GB of bf16 weights): the phase-3 prompts as 4
+                single requests, H=8 greedy with graphs (launches =
+                layers x dispatches), a steady horizon profiled with
+                graphs and eagerly, one prefill's and one decode step's
+                logits against the plain attention;
+ 13. summary  — one JSON line per the kernels (rows 1, 2, 4, 5 and 6
+                count phases 9-12's launches too), the card's name and
                 power limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
@@ -330,9 +359,16 @@ FLASH_CASES = (("train", (10, 32, 8, TRAIN_SEQ, 128, True, 0, 0.0)),
                # phase 11's local layers: gemma3-4b's longest prefill (d =
                # 256, window 1024) and gemma2-27b's (window 4096, cap 50)
                ("gemma3-local", (1, 8, 4, 1152, 256, True, 1024, 0.0)),
-               ("gemma2-local", (1, 32, 16, 4224, 128, True, 4096, 50.0)))
+               ("gemma2-local", (1, 32, 16, 4224, 128, True, 4096, 50.0)),
+               # phase 12's train forwards: hubert-xlarge's encoder (d =
+               # 80, bidirectional, 16 / 16 heads) and llava-next-34b's
+               # G = 7 (56 / 8 heads)
+               ("hubert", (4, 16, 16, 1024, 80, False, 0, 0.0)),
+               ("llava-train", (4, 56, 8, 1024, 128, True, 0, 0.0)))
 # flash cases launched twice, the second launch bit-identical to the first
-FLASH_REPEAT = ("train", "gemma3-local", "gemma2-local")
+FLASH_REPEAT = ("train", "gemma3-local", "gemma2-local", "hubert")
+# flash cases held in bf16 only (the train shapes); the others in f32 too
+FLASH_BF16_ONLY = ("train", "long", "moe-train", "llava-train")
 # slab decode: the reference test's cases, tests/test_kernels.py:42-45,
 # (B, H, K, T, d, window, cap); its tolerance (:16) is atol = rtol = 2e-5
 # in f32 and 2e-2 in bf16
@@ -386,6 +422,10 @@ SSD_MAMBA2 = (1, 128, 24, 1, 64, 128, 64)
 # Mamba2-130m's prefill as phase 7 serves it: the same 8 ragged rows
 SSD_MAMBA2_SERVE = (8, 1152, 24, 1, 64, 128, 64)
 SSD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
+# the scan at phase 12's train shapes (every row full, f32 strided slices
+# of one conv output): Hymba at B = 4 and Mamba2-130m at B = 8, L = 1152
+SSD_TRAIN = (("hymba train", (4, 1152, 50, 1, 64, 16, 64)),
+             ("mamba2-130m train", (8, 1152, 24, 1, 64, 128, 64)))
 # phase 7: prompts of Hymba's mix (SSD_HYMBA_LENS: 1090 and 1150 pass the
 # 1024-token window in prefill, 1000 + 64 crosses it in decode)
 HYBRID_PROMPT_LENS = SSD_HYMBA_LENS
@@ -431,6 +471,36 @@ GEMMA_MIX = {"gemma3-4b": dict(lens=HYBRID_PROMPT_LENS, new=NEW_TOKENS,
 # prefilled in one chunk
 SERVED_PAGED = (("gemma3-4b", 8, 4, 256, 0.0),
                 ("gemma2-27b", 32, 16, 128, 50.0))
+# phase 12: every family trained at full width on the code path of the
+# port's launch/train.py (synthetic_batch, make_train_step with remat, the
+# batch of step i from a generator seeded with i), (arch, layers kept or
+# None for all, B, S).  AdamW holds 16 B a parameter, and the plain
+# backward of flash holds [B, H, S, S] f32 scores and probabilities of one
+# layer: gemma3-4b keeps one pattern group (5 local + 1 global, 1.24 G
+# params with its 0.67 G embed, ~20 GB of state), gemma2-27b one local and
+# one global layer (2.31 G, ~37 GB; its scores at H = 32, S = 4224 are 4.6
+# GB a tensor at B = 2, ~23 GB at the plain backward's peak), llava-next-34b
+# two layers (2.03 G, ~32.5 GB); the others keep every layer (hymba-1.5b
+# ~1.6 G, hubert-xlarge 1.26 G).  S passes the local windows (1024;
+# gemma2's 4096) and the softcaps run.  B is even: synthetic_batch
+# normalizes advantages over pairs of rows, and a lone row's advantage,
+# hence its whole GRPO gradient, is 0
+TRAIN12_MIX = (("mamba2-130m", None, 8, 1152),
+               ("hymba-1.5b", None, 4, 1152),
+               ("gemma3-4b", 6, 4, 1152),
+               ("gemma2-27b", 2, 2, 4224),
+               ("hubert-xlarge", None, 4, 1024),
+               ("llava-next-34b", 2, 4, 1024))
+# step 1's loss (of a decoder against max(|loss|, 1)) and ratio_mean - 1,
+# kernels against plain attention and the plain chunked scan on the same
+# batch: the kernels' outputs differ from the plain versions' by bf16
+# roundings (flash's P) and 3xTF32 products (the scan), which move a loss
+# of order 1-10, or a mean logprob ratio, by far less than 1%
+TRAIN12_LOSS_REL_TOL = 1e-2
+# phase 12: llava-next-34b served as configured (60 layers, 68.8 GB of
+# bf16 weights) on the phase-3 prompts as single requests
+LLAVA_NEW_TOKENS = 32
+
 # phases 4-5: the pull plane's network, modeled on the event clock (rates
 # of the reference's runtime, not measurements): two reserved-node
 # transfer agents (hybrid_runtime.py:161), a spot instance's receiving NIC,
@@ -1062,7 +1132,7 @@ def check_flash(torch, F, ref, kern):
             del again
         del out, want
         err32 = None
-        if name not in ("train", "long", "moe-train"):
+        if name not in FLASH_BF16_ONLY:
             q32, k32, v32 = (x.float() for x in (q, k, v))
             out = kern(q32, k32, v32, **opts)
             torch.cuda.synchronize()
@@ -1337,16 +1407,16 @@ def ssd_passes(torch, fn, n: int = 5):
     return out
 
 
-def ssd_served(torch, g, ref, kern, shape, what: str):
-    """``ssd_scan`` at a served prefill geometry (f32 strided slices, the
-    8 ragged rows of SSD_HYMBA_LENS): within SSD_TOL of the plain version
-    on y and state, a second launch bit-identical to the first, and
-    timed, with each of its kernels timed apart.  Returns (inputs, max rel
-    err, max abs err, kernel ms, bound with the kernels' ms under
-    "passes")."""
+def ssd_served(torch, g, ref, kern, shape, what: str,
+               lens=SSD_HYMBA_LENS):
+    """``ssd_scan`` at a served prefill or train geometry (f32 strided
+    slices; by default the 8 ragged rows of SSD_HYMBA_LENS, ``lens=None``
+    every row full): within SSD_TOL of the plain version on y and state, a
+    second launch bit-identical to the first, and timed, with each of its
+    kernels timed apart.  Returns (inputs, max rel err, max abs err, kernel
+    ms, bound with the kernels' ms under "passes")."""
     b, L, H, G, P, N, chunk = shape
-    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32,
-                      SSD_HYMBA_LENS)
+    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32, lens)
     y, st = kern(*args, chunk=chunk)
     y2, st2 = kern(*args, chunk=chunk)
     torch.cuda.synchronize()
@@ -1362,7 +1432,8 @@ def ssd_served(torch, g, ref, kern, shape, what: str):
     passes = ssd_passes(torch, lambda: kern(*args, chunk=chunk))
     bd = ssd_bound(b, L, H, G, P, N, chunk)
     log(f"[kernels] ssd_scan {what} b={b} L={L} H={H} G={G} P={P} N={N} "
-        f"chunk={chunk} (f32 strided slices, lens={list(SSD_HYMBA_LENS)}): "
+        f"chunk={chunk} (f32 strided slices, lens="
+        f"{list(lens) if lens else 'all ' + str(L)}): "
         f"max rel err {rel:.3e} (y and state; tol {SSD_TOL['float32']}), "
         f"max_abs_err={err:.3e}, second launch bit-identical; kernel "
         f"{ms:.4f} ms, bound {bd['ms']:.4f} ms ({bd['by']}; 3xTF32 at "
@@ -1377,12 +1448,14 @@ def ssd_served(torch, g, ref, kern, shape, what: str):
     return args, rel, err, ms, bd
 
 
-def check_ssd(torch, ref, kern):
+def check_ssd(torch, ref, ops, kern):
     """``ssd_scan`` against the sequential recurrence at Mamba2-130m's
     geometry (f32 and bf16, each launched twice: bit-identical), at its
-    served prefill (f32, timed) and at Hymba's prefill (f32, timed against
-    the plain version too).  Returns the summary row (Hymba's) and both
-    served geometries' numbers."""
+    served prefill (f32, timed), at Hymba's prefill (f32, timed against
+    the plain version too) and at phase 12's two train shapes (timed
+    against the plain version, and the recomputed backward timed).
+    Returns the summary row (Hymba's prefill) and every geometry's
+    numbers."""
     g = torch.Generator(device="cuda").manual_seed(6)
     b, L, H, G, P, N, chunk = SSD_MAMBA2
     for name, dt in (("float32", torch.float32),
@@ -1410,8 +1483,25 @@ def check_ssd(torch, ref, kern):
         f"{SSD_TOL['bfloat16']}, bit-identical on a second launch")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bd["ms"], bound_by=bd["by"], library_ms=None)
-    return row, dict(hymba=dict(ms=ms, rel_err=rel, bound=bd),
-                     mamba2_served=dict(ms=ms_m, rel_err=rel_m, bound=bd_m))
+    rows = dict(hymba=dict(ms=ms, rel_err=rel, bound=bd),
+                mamba2_served=dict(ms=ms_m, rel_err=rel_m, bound=bd_m))
+    for what, shape in SSD_TRAIN:
+        args, rel_t, err_t, ms_t, bd_t = ssd_served(torch, g, ref, kern,
+                                                    shape, what, None)
+        plain_t = time_ms(lambda: ref.ssd_scan_ref(*args), torch, iters=3,
+                          warmup=1)
+        # the recomputed backward of a train step, y's gradient only
+        gy = torch.randn(args[0].shape, generator=g, device="cuda")
+        bwd_ms = time_ms(lambda: ops._ssd_backward(*args, gy, None,
+                                                   shape[-1]), torch,
+                         iters=3, warmup=1)
+        log(f"[kernels] ssd_scan {what}: plain {plain_t:.4f} ms; the "
+            f"recomputed plain backward (ssd_chunked under autograd, "
+            f"ops._ssd_backward) {bwd_ms:.4f} ms")
+        rows[what] = dict(ms=ms_t, rel_err=rel_t, max_abs_err=err_t,
+                          plain_ms=plain_t, backward_ms=bwd_ms, bound=bd_t)
+        del args, gy
+    return row, rows
 
 
 # --------------------------------------------------------------------------- #
@@ -1433,21 +1523,24 @@ def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
     ``ssd_scan`` (every prefill dispatch); the SSM one through
     ``ssd_scan`` only; the gemma family's global layers through the paged
     kernels and its local layers through ``decode_attention`` and
-    ``flash_attention``."""
-    L, mixers = cfg.n_layers, cfg.layer_mixers()
+    ``flash_attention``.  A train-mode forward runs ``flash_attention`` in
+    every attention layer and ``ssd_scan`` in every SSM layer."""
+    mixers = cfg.layer_mixers()
     n_global = mixers.count("global")
     n_ring = sum(m in ("local", "hybrid") for m in mixers)
+    n_attn = n_global + n_ring
     n_ssm = sum(m in ("mamba", "hybrid") for m in mixers)
-    steps = eng.horizon * n_decode
+    steps = eng.horizon * n_decode if n_decode else 0
     got = {k.__name__: k.launches for k in KERNELS}
     want = {"paged_decode_attention": n_global * steps,
             "paged_prefill_attention": n_global * n_prefill,
             "fused_dequant": n_dequant,
-            "flash_attention": L * n_train_fwd + n_ring * n_prefill,
+            "flash_attention": n_attn * n_train_fwd + n_ring * n_prefill,
             "decode_attention": n_ring * steps,
-            "ssd_scan": n_ssm * n_prefill}
+            "ssd_scan": n_ssm * (n_prefill + n_train_fwd)}
     log(f"[engine] {what}: launches {got}, expected {want} (layers x "
-        f"dispatches: {n_decode} decode horizons of {eng.horizon}, "
+        f"dispatches: {n_decode} decode horizons of "
+        f"{eng.horizon if eng else 0}, "
         f"{n_prefill} prefill chunks; {n_dequant} int8-coded leaves; "
         f"{n_train_fwd} train-mode forwards)")
     if got != want or any(want[k] and not got[k] for k in want):
@@ -1806,26 +1899,30 @@ def range_device_ms(prof, name: str):
 
 
 @contextlib.contextmanager
-def flash_ranges(ops):
+def train_ranges(ops):
     """Name the flash kernel's forward launches and the recomputed plain
-    backward in a profile (``flash.forward`` / ``flash.backward``); a
-    yardstick for this script only."""
+    backwards of flash and of the scan in a profile (``flash.forward``,
+    ``flash.backward``, ``ssd.backward``); a yardstick for this script
+    only."""
     from torch.profiler import record_function
-    fwd, bwd = ops._flash_kernel, ops._flash_backward
+    names = {"_flash_kernel": "flash.forward",
+             "_flash_backward": "flash.backward",
+             "_ssd_backward": "ssd.backward"}
+    saved = {n: getattr(ops, n) for n in names}
 
-    def forward(*args, **kw):
-        with record_function("flash.forward"):
-            return fwd(*args, **kw)
+    def named(fn, label):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
 
-    def backward(*args, **kw):
-        with record_function("flash.backward"):
-            return bwd(*args, **kw)
-
-    ops._flash_kernel, ops._flash_backward = forward, backward
+    for n, label in names.items():
+        setattr(ops, n, named(saved[n], label))
     try:
         yield
     finally:
-        ops._flash_kernel, ops._flash_backward = fwd, bwd
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
 @contextlib.contextmanager
@@ -2523,7 +2620,7 @@ def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
     # one more step, under the profiler, kept out of the timed steps
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    with flash_ranges(ops), torch_profile(activities=[
+    with train_ranges(ops), torch_profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = clock()
         state, m = step_fn(state, batch)
@@ -3972,6 +4069,372 @@ def gemma_phase(torch, InferenceEngine, clock, ops, ref):
     return total, summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: every family trained, and llava-next-34b served, at full width
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def plain_train(ops, ref):
+    """``plain_attention`` with the scan through the plain chunked scan
+    (``models.ssm.ssd_chunked``): the sequential plain scan under autograd
+    would run ~1,152 steps of small kernels a layer; a yardstick for this
+    script only."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    with plain_attention(ops, ref):
+        saved, ops.ssd = ops.ssd, ssd_chunked
+        try:
+            yield
+        finally:
+            ops.ssd = saved
+
+
+def leaf_norm(torch, grads, part: str = ""):
+    """The global norm of the gradient leaves whose key holds ``part``."""
+    sq = [g.float().square().sum() for k, g in _items(grads) if part in k]
+    return float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+
+
+@contextlib.contextmanager
+def backward_spans(torch, ops):
+    """Device spans of the recomputed plain backwards of flash and of the
+    scan (``flash.backward``, ``ssd.backward``): a CUDA event on the
+    stream before and after each call, so a profile of CUDA activity
+    alone can split them out.  Yields {label: [(start, end) events]}; a
+    yardstick for this script only."""
+    names = {"_flash_backward": "flash.backward",
+             "_ssd_backward": "ssd.backward"}
+    saved = {n: getattr(ops, n) for n in names}
+    spans = {label: [] for label in names.values()}
+
+    def timed(fn, label):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans[label].append((start, end))
+            return out
+        return call
+
+    for n, label in names.items():
+        setattr(ops, n, timed(saved[n], label))
+    try:
+        yield spans
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def profile_train12(torch, prof, spans, wall_ms: float, name: str):
+    """Device busy time and idle share of one step profiled for CUDA
+    activity alone (the host-side op rows of a deep model's step cost
+    tens of seconds to read), the flash and scan kernels apart and the
+    device spans of their recomputed plain backwards (``backward_spans``),
+    the top rows."""
+    torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        log(f"[train12] {name} profiled step: wall {wall_ms:.2f} ms; device "
+            f"time not measured (the profiler reported no CUDA kernels)")
+        return None
+    span_ms = {label: sum(a.elapsed_time(b) for a, b in pairs)
+               for label, pairs in spans.items()}
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+               idle_share=1 - busy_ms / wall_ms,
+               flash_forward_ms=sum(ms for ms, _, n in rows
+                                    if "flash_attention" in n),
+               ssd_forward_ms=sum(ms for ms, _, n in rows
+                                  if "ssd_" in n and "_kernel" in n),
+               flash_backward_ms=span_ms["flash.backward"],
+               ssd_backward_ms=span_ms["ssd.backward"])
+    log(f"[train12] {name} profiled step (not among the timed steps): wall "
+        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+        f"{out['idle_share']:.3f}; flash forward kernel "
+        f"{out['flash_forward_ms']:.3f} ms, its recomputed plain backward "
+        f"{out['flash_backward_ms']:.3f} ms (device span); ssd_scan kernels "
+        f"{out['ssd_forward_ms']:.3f} ms, its recomputed plain backward "
+        f"{out['ssd_backward_ms']:.3f} ms (device span)")
+    out["top"] = []
+    for ms, count, kname in sorted(rows, reverse=True)[:6]:
+        log(f"[train12]   {ms:9.3f} ms {count:6d}x  {kname[:90]}")
+        out["top"].append(dict(ms=ms, count=count, name=kname))
+    return out
+
+
+def train12_arch(torch, clock, ops, ref, arch, layers, B, S):
+    """``arch`` at full width, ``layers`` deep (None: every layer), on the
+    code path of ``launch/train.py``: step 1's loss, ratio_mean and grad
+    norm (and the mamba leaves' grad norm) with the kernels against plain
+    attention and the plain chunked scan on the same batch; TRAIN_STEPS
+    timed steps and one profiled step; launches = attention (SSM) layers
+    x forwards, the recompute of remat included, for ``flash_attention``
+    (``ssd_scan``) and none of the other kernels; every loss finite.
+    Returns (launches, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.rl import grpo
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    full = get_config(arch)
+    cfg = full
+    if layers is not None:
+        cfg = dataclasses.replace(full, n_layers=layers, suffix_pattern=())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_arch = clock()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    state = grpo.init_train_state(params, "cuda")
+    n_params = sum(t.numel() for t in adamw.tree_leaves(params))
+    del params                  # the steps return new params: keep none
+    kind = "grpo" if cfg.is_decoder else "supervised"
+    mixers = cfg.layer_mixers()
+    log(f"[train12] {cfg.name}: d={cfg.d_model} H={cfg.n_heads} "
+        f"K={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} (full width), {cfg.n_layers} of "
+        f"{full.n_layers} layers ({dict((m, mixers.count(m)) for m in set(mixers))}"
+        f"), {n_params} params ({n_params * 16 / 1e9:.1f} GB of trainer "
+        f"state at 16 B a param; state {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB on the card); B={B} S={S}, {kind} loss"
+        f"{', embeddings in' if cfg.input_mode == 'embeds' else ''}")
+
+    def batch(i):
+        return synthetic_batch(cfg, torch.Generator().manual_seed(i), B, S,
+                               "cuda")
+
+    # (a) step 1 with the kernels against the plain versions.  Under the
+    # launcher's behaviour logprobs (-2) every ratio is near exp(-9), so a
+    # row of negative advantage takes the clipped branch, a constant: the
+    # loss would not see the model.  Step 1 scores the policy against the
+    # plain pass's own logprobs instead (ratio 1, every response token in
+    # the gradient); the timed steps keep the launcher's batch
+    t_init = clock() - t_arch
+    b0 = batch(0)
+    if cfg.is_decoder:
+        with torch.no_grad(), plain_train(ops, ref):
+            b0["behavior_logprobs"] = grpo.policy_logprobs(
+                state["params"], cfg, b0["tokens"],
+                embeds=b0.get("embeds"))[0]
+    reset_launches()
+    loss_k, met_k, g = grpo.loss_and_grads(state["params"], cfg, b0,
+                                           remat=True)
+    gn_k, gm_k = leaf_norm(torch, g), leaf_norm(torch, g, "['mamba']")
+    del g
+    with plain_train(ops, ref):
+        loss_p, _, g = grpo.loss_and_grads(state["params"], cfg, b0,
+                                           remat=True)
+    gn_p, gm_p = leaf_norm(torch, g), leaf_norm(torch, g, "['mamba']")
+    del g, b0
+    torch.cuda.empty_cache()
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    # a GRPO loss at ratio 1 is a cancelling sum of order-1 terms (about
+    # 0 here), held as the CPU tests hold it: against max(|loss|, 1); its
+    # ratio_mean, the masked mean of exp(logprob with the kernels - the
+    # plain logprob), must be 1 within the same tolerance
+    scale = max(abs(loss_p), 1.0) if cfg.is_decoder else abs(loss_p)
+    ratio_k = float(met_k.get("ratio_mean", 1.0))
+    log(f"[train12] {cfg.name} step 1, kernels vs plain attention and the "
+        f"plain chunked scan: loss {loss_k:.6e} vs {loss_p:.6e} (tol "
+        f"{TRAIN12_LOSS_REL_TOL} x {scale:.6e})"
+        + (f", ratio_mean {ratio_k:.6e} (behaviour = the plain pass's "
+           f"logprobs)" if cfg.is_decoder else "")
+        + f", grad norm {gn_k:.6e} vs {gn_p:.6e} (rel tol "
+        f"{GRAD_NORM_REL_TOL})"
+        + (f", mamba leaves' grad norm {gm_k:.6e} vs {gm_p:.6e}"
+           if cfg.has_ssm else ""))
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p)
+            <= TRAIN12_LOSS_REL_TOL * scale):
+        fail(f"{cfg.name} train: step 1's loss with the kernels disagrees "
+             f"with the plain path's")
+    if not abs(ratio_k - 1.0) <= TRAIN12_LOSS_REL_TOL:
+        fail(f"{cfg.name} train: step 1's logprobs with the kernels "
+             f"disagree with the plain path's (ratio_mean {ratio_k})")
+    for what, a, b in (("grad norm", gn_k, gn_p),) + (
+            (("mamba leaves' grad norm", gm_k, gm_p),) if cfg.has_ssm
+            else ()):
+        if not (b > 0 and abs(a - b) <= GRAD_NORM_REL_TOL * b):
+            fail(f"{cfg.name} train: step 1's {what} with the kernels "
+                 f"disagrees with the plain path's")
+
+    # timed steps, then one profiled step
+    t_gate = clock() - t_arch - t_init
+    step_fn = grpo.make_train_step(cfg, lr=TRAIN_LR, remat=True)
+    steps = []
+    for i in range(TRAIN_STEPS + 1):
+        b = batch(i)
+        torch.cuda.synchronize()
+        if i < TRAIN_STEPS:
+            t0 = clock()
+            state, m = step_fn(state, b)
+            dt = clock() - t0
+        else:
+            with backward_spans(torch, ops) as spans, torch_profile(
+                    activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = clock()
+                state, m = step_fn(state, b)
+                dt = clock() - t0
+            profile = profile_train12(torch, prof, spans, dt * 1e3,
+                                      cfg.name)
+        m = {k: float(v) for k, v in m.items()}
+        m.update(seconds=dt, tokens_per_s=B * S / dt,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        steps.append(m)
+        log(f"[train12] {cfg.name} step {i + 1}"
+            f"{' (profiled)' if i == TRAIN_STEPS else ''}: {dt:.3f} s, "
+            f"{B * S / dt:.1f} tokens/s, loss {m['loss']:.6e}, grad_norm "
+            f"{m['grad_norm']:.6e}, peak memory {m['peak_gb']:.2f} GB")
+        del b
+    launches = check_launches(cfg, None, f"{cfg.name} train", 0, 0,
+                              n_train_fwd=2 * (TRAIN_STEPS + 2))
+    for i, m in enumerate(steps):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            fail(f"{cfg.name} train: step {i + 1} loss {m['loss']} "
+                 f"grad_norm {m['grad_norm']}")
+    if int(state["opt"]["count"]) != TRAIN_STEPS + 1:
+        fail(f"{cfg.name} train: AdamW count {int(state['opt']['count'])}")
+    t_arch = clock() - t_arch
+    log(f"[train12] {cfg.name}: {t_arch:.1f} s in all (init {t_init:.1f} "
+        f"s, step 1 kernels vs plain {t_gate:.1f} s, the {TRAIN_STEPS + 1} "
+        f"steps with the profile's set-up and reading "
+        f"{t_arch - t_init - t_gate:.1f} s), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(layers=cfg.n_layers, B=B, S=S, loss_kind=kind,
+                          n_params=n_params, loss_kernel=loss_k,
+                          loss_plain=loss_p, grad_norm_kernel=gn_k,
+                          grad_norm_plain=gn_p, mamba_grad_norm_kernel=gm_k,
+                          mamba_grad_norm_plain=gm_p, steps=steps[:-1],
+                          profiled_step=steps[-1], profile=profile,
+                          seconds=t_arch,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def make_llava_engine(InferenceEngine, cfg, params, *, horizon=8,
+                      tracer=None, cuda_graphs=True):
+    """4 slots for the phase-3 prompts as single requests, the prefill
+    budget taking all four in one dispatch."""
+    return InferenceEngine(cfg, params, max_batch=len(PROMPT_LENS),
+                           slab_len=512, page_size=16,
+                           prefill_chunk=sum(PROMPT_LENS), horizon=horizon,
+                           temperature=0.0, tracer=tracer, device="cuda",
+                           cuda_graphs=cuda_graphs)
+
+
+def llava_serve(torch, InferenceEngine, clock, ops, ref):
+    """llava-next-34b as configured (60 layers, G = 7, random weights from
+    seed 0) serving the phase-3 prompts as 4 single requests through the
+    engine (token prompts, H=8 greedy with graphs, LLAVA_NEW_TOKENS new
+    tokens): launches = layers x dispatches; one steady horizon profiled
+    with graphs and eagerly (each decode kernel's profiler count equal to
+    its launches); one prefill's and one decode step's logits against the
+    plain attention.  Returns (launches, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs.tracer import Tracer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("llava-next-34b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[train12] {cfg.name} serve: {cfg.n_layers} layers d={cfg.d_model} "
+        f"H={cfg.n_heads} K={cfg.n_kv_heads} dh={cfg.head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}; {n_params} params "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rs = torch.Generator().manual_seed(0)
+    prompts = [[1] + torch.randint(3, cfg.vocab_size, (n - 1,),
+                                   generator=rs).tolist()
+               for n in PROMPT_LENS]
+    tracer = Tracer(clock)
+    eng = make_llava_engine(InferenceEngine, cfg, params, tracer=tracer)
+    rids = admit_singles(eng, prompts, LLAVA_NEW_TOKENS)
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _ = drive(eng, rids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches(cfg, eng, f"{cfg.name} greedy H=8",
+                              eng.n_decode_dispatches,
+                              eng.n_prefill_dispatches)
+    for r, evs in out.items():
+        if not all(math.isfinite(lp) for _, lp in evs):
+            fail(f"{cfg.name}: request {r} has a non-finite logprob")
+    spans = tracer.spans()
+    t_pre = sum(sp.duration for sp in spans if sp.name == "engine.prefill")
+    t_dec = sum(sp.duration for sp in spans if sp.name == "engine.decode")
+    n_dec = sum(len(v) for v in out.values()) - len(out)
+    row = dict(params=n_params, prefill_tok_s=eng.n_prefill_tokens / t_pre,
+               decode_tok_s=n_dec / t_dec, wall_s=wall, launches=launches,
+               capture_s=eng.graph_capture_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[train12] {cfg.name} greedy H=8: {len(out)} requests, "
+        f"{eng.n_prefill_tokens} prefill tokens in "
+        f"{eng.n_prefill_dispatches} dispatches, {n_dec} decoded in "
+        f"{eng.n_decode_dispatches} horizons; prefill "
+        f"{row['prefill_tok_s']:.1f} tok/s ({t_pre:.3f} s), decode "
+        f"{row['decode_tok_s']:.1f} tok/s ({t_dec:.3f} s); wall {wall:.3f} "
+        f"s; capture {sum(eng.graph_capture_s):.3f} s; peak memory "
+        f"{row['peak_gb']:.2f} GB")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["profile"] = profile_decode_pair(
+        torch, cfg, lambda graphs: make_llava_engine(
+            InferenceEngine, cfg, params, cuda_graphs=graphs),
+        prompts, len(prompts), f"{cfg.name}, H=8, {len(prompts)} rows, "
+        f"contexts ~300-370", "[train12]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, step, step_plain = model_logits(torch, cfg, params, prompts[0],
+                                         ops, ref)
+    with plain_attention(ops, ref):
+        plain, _, _ = model_logits(torch, cfg, params, prompts[0], ops, ref)
+    row["prefill_logit_gap"] = compare_logits(
+        torch, cfg, f"{cfg.name} prefill", got, plain)
+    row["decode_logit_gap"] = compare_logits(
+        torch, cfg, f"{cfg.name} decode step", step, step_plain)
+    row["peak_gb_phase"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train12] {cfg.name}: peak memory over its serves "
+        f"{row['peak_gb_phase']:.2f} GB")
+    del got, step, step_plain, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def train12_phase(torch, InferenceEngine, clock, ops, ref):
+    """TRAIN12_MIX trained in order, then llava-next-34b served as
+    configured.  Returns the launches summed per kernel and a summary."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"[train12] card: {smi.stdout.strip() or 'nvidia-smi failed'}")
+    total = {k.__name__: 0 for k in KERNELS}
+    summary = {}
+    for arch, layers, B, S in TRAIN12_MIX:
+        launches, summary[arch] = train12_arch(torch, clock, ops, ref, arch,
+                                               layers, B, S)
+        for k, n in launches.items():
+            total[k] += n
+    launches, summary["llava-next-34b serve"] = llava_serve(
+        torch, InferenceEngine, clock, ops, ref)
+    for k, n in launches.items():
+        total[k] += n
+    return total, summary
+
+
 def _items(tree):
     from repro_torch.transfer.chunkstore import tree_items
     return list(tree_items(tree))
@@ -4039,7 +4502,7 @@ def main():
     gemma_rings = check_gemma_rings(torch, F, ref, decode_attention)
     served_paged = check_served_paged(torch, F, ref, paged_decode_attention,
                                       paged_prefill_attention)
-    ssd, ssd_served_rows = check_ssd(torch, ref, ssd_scan)
+    ssd, ssd_served_rows = check_ssd(torch, ref, ops, ssd_scan)
 
     # ---- 3. the engine at full width ----
     cfg = get_config("qwen3-8b")
@@ -4193,7 +4656,13 @@ def main():
         gemma_launches, gemma_summary = gemma_phase(torch, InferenceEngine,
                                                     clock, ops, ref)
 
-    # ---- 12. summary ----
+    # ---- 12. every family trained, llava-next-34b served ----
+    torch.cuda.empty_cache()
+    with graph_phase("12 train12"):
+        train12_launches, train12 = train12_phase(torch, InferenceEngine,
+                                                  clock, ops, ref)
+
+    # ---- 13. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -4213,13 +4682,14 @@ def main():
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
-        # phases 9, 10 and 11 run the paged kernels and flash too (and
-        # phase 11 decode_attention): their launches add
+        # phases 9-12 run the paged kernels and flash too (phase 11
+        # decode_attention, phase 12 ssd_scan): their launches add
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces,
                          launches=(n[name] + rl_launches[name]
                                    + moe_launches[name]
-                                   + gemma_launches[name]), **r))
+                                   + gemma_launches[name]
+                                   + train12_launches[name]), **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -4233,7 +4703,7 @@ def main():
          "gemma_rings": gemma_rings, "served_paged": served_paged,
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
          "serve14b": serve14b, "rl": rl, "moe": moe_summary,
-         "gemma": gemma_summary,
+         "gemma": gemma_summary, "train12": train12,
          "graphs": GRAPHS,
          "serve_graph_engine": eng_graphs, "decode_profile": decode_profile,
          "prefill_profile": prefill_profile,

@@ -1,12 +1,17 @@
-"""Model configuration for the port: the decoder families the serving
-engine runs: dense all-global attention (Qwen), dense mixed sliding-window
-("local") and global attention (Gemma 2 / Gemma 3), mixture-of-experts
-all-global attention (Qwen1.5-MoE, DeepSeekMoE), hybrid sliding-window
-attention beside a Mamba-2 mixer (Hymba) and pure Mamba-2 (SSD).
+"""Model configuration for the port: dense all-global attention (Qwen),
+dense mixed sliding-window ("local") and global attention (Gemma 2 /
+Gemma 3), mixture-of-experts all-global attention (Qwen1.5-MoE,
+DeepSeekMoE), hybrid sliding-window attention beside a Mamba-2 mixer
+(Hymba), pure Mamba-2 (SSD), and the two backbones whose frontend is a
+stub: the encoder-only audio family (HuBERT: bidirectional attention, no
+decode step) and the vision-language decoder (LLaVA-NeXT).
 
 A copy of ``repro.configs.base`` trimmed to the fields these families
-read.  ``pattern`` is the repeating group of mixers and ``suffix_pattern``
-the trailing layers that do not fill a group (gemma3-4b: 5 groups of 5
+read.  ``input_mode`` is ``"tokens"`` for the language models and
+``"embeds"`` for the stubbed backbones, which take precomputed
+``(B, S, d_model)`` frame or patch embeddings in train and prefill.
+``pattern`` is the repeating group of mixers and ``suffix_pattern`` the
+trailing layers that do not fill a group (gemma3-4b: 5 groups of 5
 local + 1 global, then 4 local).  Parameter trees keep the reference's
 layout: ``first_k_dense`` prefix layers (DeepSeekMoE's dense first layer)
 under ``prefix/{i}``, then one scan-stacked ``groups/sub{j}`` entry per
@@ -25,7 +30,7 @@ from typing import Callable, Dict, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | hybrid | ssm
+    family: str  # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,6 +48,7 @@ class ModelConfig:
     post_norms: bool = False        # gemma2 post-attention / post-MLP norms
     rope_theta: float = 1.0e4
     rope_theta_local: float = 1.0e4
+    causal: bool = True             # False: encoder-only (hubert)
     embed_scale: bool = False
     tie_embeddings: bool = True
     # trailing layers that do not fill a whole pattern group
@@ -68,6 +74,8 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_groups: int = 1
+
+    input_mode: str = "tokens"      # tokens | embeds
 
     def __post_init__(self):
         if self.pattern not in FAMILIES.get(self.family, ()):
@@ -107,6 +115,9 @@ class ModelConfig:
                              f"n_kv_heads")
         if self.has_ssm and self.ssm_state <= 0:
             raise ValueError(f"{self.name}: an SSM mixer needs ssm_state")
+        if self.input_mode not in ("tokens", "embeds"):
+            raise ValueError(f"{self.name}: input_mode {self.input_mode!r} "
+                             f"is not tokens or embeds")
         if any(m in ("hybrid", "local") for m in self.pattern) \
                 and self.window <= 0:
             raise ValueError(f"{self.name}: the hybrid and local mixers' "
@@ -140,6 +151,11 @@ class ModelConfig:
     @property
     def has_ssm(self) -> bool:
         return any(m in ("mamba", "hybrid") for m in self.pattern)
+
+    @property
+    def is_decoder(self) -> bool:
+        """Whether the arch has an autoregressive decode step."""
+        return self.causal
 
     @property
     def n_groups(self) -> int:
@@ -240,7 +256,8 @@ class ModelConfig:
 FAMILIES = {"dense": (("global",), ("local", "global"),
                       ("local",) * 5 + ("global",)),
             "moe": (("global",),), "hybrid": (("hybrid",),),
-            "ssm": (("mamba",),)}
+            "ssm": (("mamba",),), "audio": (("global",),),
+            "vlm": (("global",),)}
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 

@@ -5,7 +5,8 @@
 // of a sequence attends the same sequence's keys under one online softmax:
 // scores q.k * scale in f32, softcap cap * tanh(s / cap) before the mask,
 // causal (key <= query), sliding window (query - key < window) or
-// bidirectional.  The model's train-mode forward calls it in every layer.
+// bidirectional (hubert's encoder, d = 80).  The model's train-mode forward
+// calls it in every layer.
 //
 // What bounds it on this card: operations once sequences are long, bytes
 // at the trainer's rollout batches.  It reads q, k and v once and writes
@@ -202,9 +203,14 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 // Q K^T, so one's softmax runs while the other's products hold the tensor
 // cores.
 //
-// Shared memory (1024-byte aligned): Q [128 x d], then kStages K and
-// kStages V tiles [BN x d], all bf16 in TMA's swizzled layout: a tile is
-// split into column blocks of CB = 64 elements (32 when d = 32), each
+// Shared memory (1024-byte aligned): Q [128 x DP], then kStages K and
+// kStages V tiles [BN x DP], all bf16 in TMA's swizzled layout, DP = d
+// rounded up to whole column blocks (d = 80: DP = 128, the tensor maps'
+// inner extent of 80 zero-filling columns 80..127, so Q K^T runs its 5
+// k-steps of real columns and P V an m64n128 whose last 48 columns are
+// never stored: 1.6x the products of a 80-wide P V, no copy or pad of q,
+// k or v on the host): a tile is split into column blocks of CB = 64
+// elements (32 when d = 32), each
 // [rows x CB] with 128-byte rows (64 when d = 32) whose 16-byte chunks
 // are XOR-swizzled by the row within groups of 8 rows, the layout wgmma's
 // SWIZZLE_128B (64B) descriptors read.  BN = 128 keys, or 64 at d = 256:
@@ -234,8 +240,11 @@ template <int D>
 struct TmaTile {
   static constexpr int CB = D >= 64 ? 64 : 32;    // elements per column block
   static constexpr int RB = CB * 2;                // bytes per smem row
-  static constexpr int NCB = D / CB;               // column blocks per tile
-  static constexpr int BN = D > 128 ? 64 : 128;    // keys per K/V tile
+  static constexpr int NCB = (D + CB - 1) / CB;    // column blocks per tile
+  // the tile's width: d rounded up to whole column blocks (d = 80: 128,
+  // the tensor maps' inner extent of 80 filling columns 80..127 with zeros)
+  static constexpr int DP = NCB * CB;
+  static constexpr int BN = DP > 128 ? 64 : 128;   // keys per K/V tile
   static constexpr int QBLOCK = kBM * RB;          // bytes per Q column block
   static constexpr int BLOCK = BN * RB;            // and per K/V column block
   static constexpr int QTILE = NCB * QBLOCK;       // bytes per 128 x d Q tile
@@ -480,12 +489,14 @@ __device__ __forceinline__ void qk_wgmma(float (&s)[TmaTile<D>::BN / 2],
   wgmma_commit();
 }
 
-// Issue O[64 x d] += P[64 x BN] V (the caller waits): P from registers
+// Start O[64 x DP] += P[64 x BN] V (the caller waits): P from registers
 // (k-step kk = keys 16 kk .. 16 kk + 15), V MN-major (d contiguous): 8-key
 // groups one atom (8 rows) apart, column blocks of CB values one BLOCK
-// apart; at d = 256 columns 128..255 start two column blocks in.
+// apart; at d = 256 columns 128..255 start two column blocks in.  At d =
+// 80 the product is m64n128 over the tile's 128 columns, of which V's 80..127
+// are TMA's zeros: O's columns there stay 0 and are never stored.
 template <int D>
-__device__ __forceinline__ void pv_wgmma(float (&o)[D / 2],
+__device__ __forceinline__ void pv_wgmma(float (&o)[TmaTile<D>::DP / 2],
                                          uint32_t (&pa)[TmaTile<D>::BN / 16][4],
                                          uint32_t v) {
   using L = TmaTile<D>;
@@ -494,11 +505,11 @@ __device__ __forceinline__ void pv_wgmma(float (&o)[D / 2],
   for (int kk = 0; kk < L::BN / 16; ++kk) {
     const uint32_t vk = v + kk * 16 * L::RB;
     const uint64_t dv = gmma_desc(vk, L::BLOCK, 8 * L::RB, L::LAYOUT);
-    if constexpr (D == 256) {
+    if constexpr (L::DP == 256) {
       wgmma_rs_n128<0>(o, pa[kk], dv);
       wgmma_rs_n128<64>(o, pa[kk], gmma_desc(vk + 2 * L::BLOCK, L::BLOCK,
                                              8 * L::RB, L::LAYOUT));
-    } else if constexpr (D == 128) {
+    } else if constexpr (L::DP == 128) {
       wgmma_rs_n128<0>(o, pa[kk], dv);
     } else if constexpr (D == 64) {
       wgmma_rs_n64(o, pa[kk], dv);
@@ -546,7 +557,7 @@ __device__ __forceinline__ float ex2(float x) {
 // bf16 P's resolution), and O is rescaled only when a row's maximum moved.
 template <int D, int BN = TmaTile<D>::BN>
 __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2],
-                                             float (&o)[D / 2],
+                                             float (&o)[TmaTile<D>::DP / 2],
                                              uint32_t (&pa)[BN / 16][4],
                                              float (&m)[2], float (&l)[2],
                                              const FlashArgs& a, int j0,
@@ -739,7 +750,7 @@ flash_attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;
     const uint32_t q_wg = qs + 64 * cw * L::RB;
-    float o[D / 2], s[L::BN / 2];
+    float o[L::DP / 2], s[L::BN / 2];
 #pragma unroll
     for (int i = 0; i < L::BN / 2; ++i) s[i] = 0.f;
     uint32_t pa[L::BN / 16][4];
@@ -752,7 +763,7 @@ flash_attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
       const int r0 = it.i0 + 64 * cw;              // this warpgroup's rows
       const int rows[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < L::DP / 2; ++i) o[i] = 0.f;
       float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
       mbar_wait(q_full, item_it & 1);
@@ -823,7 +834,8 @@ EncodeTiled encode_tiled() {
 
 // A [B, heads, S, d] bf16 view as a 4-D map, dims innermost first (d, S,
 // heads, B) with the view's own byte strides; boxes of CB x `rows`
-// positions.  Positions past S read as zeros.
+// positions.  Positions past S, and columns past d in a tile's last
+// column block (d = 80), read as zeros.
 template <int D>
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
               int heads, int S, long long sb, long long sh, long long ss,
@@ -899,6 +911,7 @@ int by_head_dim_f32(int d, const void* q, const void* k, const void* v,
   switch (d) {
     case 32: return launch_f32<32>(q, k, v, out, a, stream);
     case 64: return launch_f32<64>(q, k, v, out, a, stream);
+    case 80: return launch_f32<80>(q, k, v, out, a, stream);
     case 128: return launch_f32<128>(q, k, v, out, a, stream);
     case 256: return launch_f32<256>(q, k, v, out, a, stream);
   }
@@ -911,6 +924,7 @@ int by_head_dim_bf16(int d, const void* q, const void* k, const void* v,
   switch (d) {
     case 32: return launch_tma<32>(q, k, v, out, a, max_ctas, stream);
     case 64: return launch_tma<64>(q, k, v, out, a, max_ctas, stream);
+    case 80: return launch_tma<80>(q, k, v, out, a, max_ctas, stream);
     case 128: return launch_tma<128>(q, k, v, out, a, max_ctas, stream);
     case 256: return launch_tma<256>(q, k, v, out, a, max_ctas, stream);
   }

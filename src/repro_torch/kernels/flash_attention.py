@@ -17,7 +17,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import DTYPE_CODES
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: F401
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
@@ -47,8 +47,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bf16 the bases 16-byte aligned and the strides multiples of 8 (TMA,
     ``tma_layout_ok``): the model passes [B, S, H, d] activations as
     transposed views, and the output takes q's memory order.  d in
-    HEAD_DIMS (32, 64, 128, 256); H / K is at most 64.  Returns [B, H, S,
-    d] in q's dtype."""
+    HEAD_DIMS (32, 64, 80, 128, 256; 80 is hubert's, laid out in the
+    kernel's shared memory as 128 with zero columns); H / K is at most
+    64.  Returns [B, H, S, d] in q's dtype."""
     _require(all(t.is_cuda and t.device == q.device for t in (q, k, v)),
              "q, k and v must be on the same CUDA device")
     _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,

@@ -113,16 +113,45 @@ def decode_bshd(q, k_cache, v_cache, lengths, *, window: int = 0,
     return out[:, None]
 
 
+def _ssd_backward(x, dt, A, B, C, grad_y, grad_state, chunk: int):
+    """Gradients of the scan at (x, dt, A, B, C) for the gradients of its
+    y and of its final state (either ``None`` when that output is
+    unused): the plain chunked scan (``models.ssm.ssd_chunked``, the path
+    the reference's trainer differentiates; its Pallas kernel has no
+    backward) recomputed in f32 under autograd."""
+    from repro_torch.models.ssm import ssd_chunked
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+        outs = zip(ssd_chunked(*leaves, chunk=chunk), (grad_y, grad_state))
+        outs = [(o, g) for o, g in outs if g is not None]
+        return torch.autograd.grad([o for o, _ in outs], leaves,
+                                   [g for _, g in outs])
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward through the scan kernel; backward through
+    ``_ssd_backward``.  Both outputs carry a gradient: the final state's
+    is ``None`` when the caller does not use the state (the train
+    forward uses y only) and is then left out of the recompute."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _ssd_kernel(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        return (*_ssd_backward(*ctx.saved_tensors, grad_y, grad_state,
+                               ctx.chunk), None)
+
+
 def ssd(x, dt, A, B, C, *, chunk: int = 64):
     """The Mamba-2 SSD scan from a zero state: (y [b, L, H, P], final
-    state [b, H, P, N]), both f32.  On CUDA the kernel has no backward, so
-    an input that requires grad is refused rather than silently cut off
-    from the gradient."""
+    state [b, H, P, N]), both f32.  Differentiable on both devices: on the
+    CPU through the plain sequential version, on CUDA through the
+    kernel's forward and the plain chunked scan's recomputed backward."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            "ops.ssd: the CUDA ssd_scan has no backward; training the SSM "
-            "families is not ported")
-    return _ssd_kernel(x, dt, A, B, C, chunk=chunk)
+    return _SSDScan.apply(x, dt, A, B, C, chunk)

@@ -7,8 +7,10 @@
 ``qwen3-14b``, ``qwen3-32b``, ``qwen2-7b``), the dense gemma family of
 mixed local / global attention (``gemma2-27b``, ``gemma3-4b``,
 ``gemma3-12b``), the MoE ``qwen2-moe-a2.7b`` and ``deepseek-moe-16b``,
-the hybrid ``hymba-1.5b`` and the SSM ``mamba2-130m``.  Runs on the GPU
-unless ``--device cpu``.
+the hybrid ``hymba-1.5b``, the SSM ``mamba2-130m`` and the
+vision-language decoder ``llava-next-34b`` (text prompts through its
+embedding table).  The encoder-only ``hubert-xlarge`` has no decode step
+and is refused.  Runs on the GPU unless ``--device cpu``.
 Weights are random, drawn from ``--seed``.
 """
 
@@ -43,8 +45,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if not cfg.is_decoder:
+        ap.error(f"{args.arch} is encoder-only: it has no decode step to "
+                 f"serve")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced(vocab_size=tok.VOCAB_SIZE)
     gen = torch.Generator(device=device).manual_seed(args.seed)

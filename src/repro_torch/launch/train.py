@@ -1,12 +1,17 @@
-"""Training launcher: GRPO steps on synthetic batches, with checkpoint and
-resume (port of ``python -m repro.launch.train``).
+"""Training launcher: steps on synthetic batches of any registered
+architecture, with checkpoint and resume (port of ``python -m
+repro.launch.train``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
       [--reduced] [--device cpu] --steps 20 --ckpt-dir /tmp/rl_ckpt
 
-``--arch`` is any registered config of the dense or moe family (the moe
-steps carry the router's aux loss, printed as ``moe_aux``).  Runs on the
-GPU unless ``--device cpu``.  Weights are random, drawn from
+``--arch`` is any registered config.  The decoders take GRPO steps (the
+moe steps carry the router's aux loss, printed as ``moe_aux``); the
+encoder-only hubert takes ``supervised_loss`` steps (masked cross-entropy
+of random labels).  A config with ``input_mode == "embeds"`` (hubert's
+frames, llava's patches: their frontends are stubs) reads embeddings drawn
+from the seed, and a decoder among them scores random tokens as well.
+Runs on the GPU unless ``--device cpu``.  Weights are random, drawn from
 ``--seed``; the batch of step i is drawn from a generator seeded with
 (seed, i), so a resumed run sees the batches the uninterrupted one would.
 One card, no mesh: the reference's ``--data`` / ``--model`` / ``--recipe``
@@ -30,18 +35,29 @@ from repro_torch.rl import grpo
 
 
 def synthetic_batch(cfg, gen: torch.Generator, B: int, S: int, device):
-    """Random tokens; the first quarter of each row is prompt; advantages
-    group-normalized over pairs of rows; behaviour logprobs -2."""
-    mask = torch.ones(B, S)
-    mask[:, :S // 4] = 0.0
-    batch = {
-        "tokens": torch.randint(3, cfg.vocab_size, (B, S), generator=gen,
-                                dtype=torch.int32),
-        "response_mask": mask,
-        "advantages": grpo.group_advantages(
-            torch.rand(B, generator=gen), 2 if B % 2 == 0 else 1),
-        "behavior_logprobs": torch.full((B, S), -2.0),
-    }
+    """The reference launcher's batch, drawn from ``gen``: bf16 N(0, 1)
+    embeddings [B, S, D] for an ``embeds`` config; for a decoder random
+    tokens, the first quarter of each row prompt, advantages
+    group-normalized over pairs of rows, behaviour logprobs -2; for an
+    encoder random ``labels`` under an all-ones ``mask``."""
+    batch = {}
+    if cfg.input_mode == "embeds":
+        batch["embeds"] = torch.randn((B, S, cfg.d_model),
+                                      generator=gen).to(torch.bfloat16)
+    if cfg.is_decoder:
+        mask = torch.ones(B, S)
+        mask[:, :S // 4] = 0.0
+        batch.update(
+            tokens=torch.randint(3, cfg.vocab_size, (B, S), generator=gen,
+                                 dtype=torch.int32),
+            response_mask=mask,
+            advantages=grpo.group_advantages(
+                torch.rand(B, generator=gen), 2 if B % 2 == 0 else 1),
+            behavior_logprobs=torch.full((B, S), -2.0))
+    else:
+        batch.update(labels=torch.randint(0, cfg.vocab_size, (B, S),
+                                          generator=gen, dtype=torch.int32),
+                     mask=torch.ones(B, S))
     return {k: v.to(device) for k, v in batch.items()}
 
 

@@ -25,7 +25,8 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
     (``None`` means CUDA).  The stacked ``groups/sub{j}`` leaves keep their
     leading group axis; ``prefix/{i}`` and ``suffix/{i}`` layers have none.
     Raises ``ValueError`` when a checked leaf's shape does not fit the
-    config."""
+    config.  An encoder on embeddings (hubert) has no ``embed``; an
+    untied config has ``lm_head``."""
     dev = resolve_device(device)
 
     def conv(t):
@@ -48,11 +49,15 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
            "prefix layers": len(params.get("prefix") or {}),
            "pattern positions": sorted(params.get("groups") or {}),
            "suffix layers": len(params.get("suffix") or {})}
-    want = {"embed": (cfg.vocab_size, D),
+    want = {"embed": ((cfg.vocab_size, D) if cfg.input_mode == "tokens"
+                      or cfg.is_decoder else None),
             "prefix layers": cfg.first_k_dense,
             "pattern positions": sorted(f"sub{j}"
                                         for j in range(cfg.group_size)),
             "suffix layers": len(cfg.suffix_pattern)}
+    if not cfg.tie_embeddings:
+        got["lm_head"] = shape("lm_head")
+        want["lm_head"] = (D, cfg.vocab_size)
     if cfg.post_norms:
         got["post_ln2"] = shape(*layer, "post_ln2", "scale")
         want["post_ln2"] = (G, D)

@@ -6,17 +6,20 @@ Shapes, as in the reference:
   A   [H]            (negative; A = -exp(A_log))
   B,C [B, L, G, N]   (G ssm groups, N = d_state)
 
-The prefill path's chunked scan runs through ``kernels.ops.ssd`` (the CUDA
-``ssd_scan`` on the card, the sequential recurrence on the CPU); the conv
-and the one-token decode step are plain PyTorch, as the reference left
-them to XLA.  The prefill scan always starts from a zero state (the
-reference's ``initial_state`` is unused on the serving path).
+The train and prefill paths' chunked scan runs through ``kernels.ops.ssd``
+(the CUDA ``ssd_scan`` on the card, the sequential recurrence on the CPU);
+the conv and the one-token decode step are plain PyTorch, as the reference
+left them to XLA.  The scan always starts from a zero state (the
+reference's ``initial_state`` is unused on the serving and train paths).
+``ssd_chunked`` is the reference's plain chunked scan, the function its
+trainer differentiates: the CUDA scan's backward recomputes through it
+(``kernels.ops._ssd_backward``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,70 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import rms_norm
 
 SSD_CHUNK = 64          # chunk of the scan kernel (ops.ssd's default)
+
+
+# --------------------------------------------------------------------------- #
+# the plain chunked scan (the reference's ``ssd_chunked``)
+# --------------------------------------------------------------------------- #
+def _segsum(a):
+    """a: [..., T] -> [..., T, T] with out[s, t] = sum of a[k] for k in
+    (t, s], -inf where t > s."""
+    T = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=a.device))
+    return seg.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y [b, L, H, P], final state [b, H, P, N]) from a zero state, f32,
+    any L: L is padded with zeros to a multiple of ``chunk`` as the
+    reference's mixer pads it (dt is 0 there, so the state passes the
+    padding unchanged) and y is cut back to L.  Each chunk's own outputs
+    through the masked decay matrix exp(segsum(dt A)), its state, the
+    states passed from chunk to chunk, and their outputs through
+    exp(cumsum(dt A)).  The reference scans the chunks one by one carrying
+    the state; here every chunk is one batch entry and the states pass
+    through the decay matrix over chunks (the SSD paper's minimal form,
+    the same sums), since a Python loop over chunks under autograd
+    launches tens of small kernels a chunk.  Differentiable (plain
+    PyTorch, f32)."""
+    L = x.shape[1]
+    pad = -L % chunk
+    x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                   for t in (x, dt, B, C))
+    b, Lp, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if H % G:
+        raise ValueError(f"ssd_chunked: H={H} must be a multiple of G={G}")
+    nc, rep = Lp // chunk, H // G
+    xc = x.float().reshape(b, nc, chunk, G, rep, P)
+    dtc = dt.float().reshape(b, nc, chunk, G, rep)
+    Bc = B.float().reshape(b, nc, chunk, G, N)
+    Cc = C.float().reshape(b, nc, chunk, G, N)
+    dA = dtc * A.float().reshape(G, rep)                # [b, nc, c, G, r]
+    cum = torch.cumsum(dA, dim=2)
+    xdt = xc * dtc[..., None]                           # [b, nc, c, G, r, P]
+    # each chunk's own outputs, factored by group so B and C are not
+    # repeated over the group's heads
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 4, 2)))  # [b,nc,G,r,c,c]
+    scores = torch.einsum("bksgn,bktgn->bkgst", Cc, Bc)
+    y = torch.einsum("bkgrst,bktgrp->bksgrp", scores[:, :, :, None] * Lmat,
+                     xdt)
+    # each chunk's state, then the state entering every chunk
+    decay_out = torch.exp(cum[:, :, -1:] - cum)
+    states = torch.einsum("bktgn,bktgrp->bkgrpn", Bc,
+                          xdt * decay_out[..., None])   # [b, nc, G, r, P, N]
+    states = F.pad(states, (0, 0) * 4 + (1, 0))      # a zero state first
+    last = F.pad(cum[:, :, -1], (0, 0, 0, 0, 1, 0))     # [b, nc + 1, G, r]
+    decay_chunk = torch.exp(_segsum(last.permute(0, 2, 3, 1)))
+    states = torch.einsum("bgrzk,bkgrpn->bzgrpn", decay_chunk, states)
+    # the entering states' outputs
+    y = y + torch.einsum("bksgn,bkgrpn->bksgrp", Cc, states[:, :-1]) \
+        * torch.exp(cum)[..., None]
+    return (y.reshape(b, Lp, H, P)[:, :L],
+            states[:, -1].reshape(b, H, P, N))
 
 
 # --------------------------------------------------------------------------- #
@@ -122,8 +189,10 @@ def _gated_out(params, y, z, x_dtype):
 
 def mamba_mixer_fwd(params, x, cfg, *, chunk: int = SSD_CHUNK,
                     return_state: bool = False, seq_lens=None):
-    """Prefill path.  x: [B, L, D] -> [B, L, D], and with ``return_state``
-    the decode cache {"conv": [B, K-1, conv_dim], "ssm": [B, H, P, N]}.
+    """Train and prefill path.  x: [B, L, D] -> [B, L, D], and with
+    ``return_state`` the decode cache {"conv": [B, K-1, conv_dim], "ssm":
+    [B, H, P, N]}.  Differentiable through ``ops.ssd`` (train mode: no
+    ``seq_lens``, no state).
 
     seq_lens [B]: true lengths of a right-padded prefill: dt is zeroed past
     them (the state passes the padding unchanged) and the conv state holds

@@ -1,12 +1,16 @@
-"""Decoder backbone (port of ``repro.models.transformer``): dense all-global
-and mixed local / global attention (gemma) and mixture-of-experts
-all-global attention in the full-sequence ``train`` mode and the paged
-``prefill`` / ``decode`` modes, and the hybrid (sliding-window attention
-beside a Mamba-2 mixer, Hymba) and SSM (Mamba-2) families in the
-``prefill`` / ``decode`` modes.
+"""LM backbone (port of ``repro.models.transformer``): dense all-global and
+mixed local / global attention (gemma), mixture-of-experts all-global
+attention, the hybrid (sliding-window attention beside a Mamba-2 mixer,
+Hymba) and SSM (Mamba-2) families and the vision-language decoder (llava)
+in the full-sequence ``train`` mode and the paged ``prefill`` / ``decode``
+modes; the encoder-only audio backbone (hubert: bidirectional attention,
+``cfg.causal`` False) in ``train`` mode only, as it has no decode step.
+Configs with ``input_mode == "embeds"`` take precomputed [B, S, D]
+embeddings in place of the token lookup in train and prefill.
 
 Parameters are the reference's nested dict with the same key strings:
-``embed`` [V, D], ``lm_head`` [D, V] (untied configs only),
+``embed`` [V, D] (absent for an encoder on embeddings), ``lm_head`` [D, V]
+(untied configs only),
 ``final_norm/scale``, ``prefix/{i}/...`` for the ``first_k_dense`` dense
 prefix layers (DeepSeekMoE's first layer), ``groups/sub{j}/...`` for
 pattern position j, whose leaves carry a leading group axis (the
@@ -18,7 +22,9 @@ reference does.  Order of operations follows the reference: qk-norm
 before RoPE; in the paged modes q is pre-scaled by dh**-0.5 so the paged
 kernels get ``scale=1.0``, and a prefill chunk attends to its own K/V
 before that K/V is written to the pool; in train mode the flash attention
-gets unscaled q and scales inside; with ``post_norms`` (gemma2) the mixer's
+gets unscaled q and scales inside, causal unless ``cfg.causal`` is
+False, and then with no window (the reference ignores the window of a
+bidirectional layer); with ``post_norms`` (gemma2) the mixer's
 and the MLP's outputs are RMS-normed before they join the residual.  A
 local or hybrid layer's attention is the sliding window, with RoPE at
 ``rope_theta_local``, and keeps a per-slot ring of the window
@@ -26,7 +32,8 @@ local or hybrid layer's attention is the sliding window, with RoPE at
 flash kernel with the window and fills the ring; a decode step attends the
 ring through the slab decode kernel, whose valid slots are the first
 min(pos + 1, W).  Global layers keep the paged pools.  Mamba mixers scan
-through ``ops.ssd`` in prefill (``models.ssm``).
+through ``ops.ssd`` in train and prefill (``models.ssm``); a hybrid layer
+trains its attention and SSM branches together.
 """
 
 from __future__ import annotations
@@ -126,8 +133,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                    cfg.mlp_kind, cfg.d_ff)
               for i, mixer in enumerate(cfg.suffix_pattern)}
     params = {"final_norm": {"scale": torch.zeros((D,), device=device)},
-              "embed": dense_init(g, (V, D), D, dt, device),
               "groups": groups}
+    if cfg.input_mode == "tokens" or cfg.is_decoder:
+        params["embed"] = dense_init(g, (V, D), D, dt, device)
     if prefix:
         params["prefix"] = prefix
     if suffix:
@@ -195,9 +203,9 @@ def _attn_apply(p, h, cfg: ModelConfig, local: bool, mode: str, lc,
     wo = p["wo"].reshape(H * dh, D)
     if mode == "train" or (local and mode == "prefill"):
         # unscaled q: the flash attention scales by dh**-0.5 itself
-        out = ops.attention_bshd(q, k, v, causal=True,
-                                 window=cfg.window if local else 0,
-                                 cap=cfg.attn_softcap)
+        out = ops.attention_bshd(q, k, v, causal=cfg.causal,
+                                 window=cfg.window if local and cfg.causal
+                                 else 0, cap=cfg.attn_softcap)
         if mode == "prefill":
             kvc.prefill_fill_ring(lc["k"], lc["v"], k, v, lens)
         return out.reshape(B, S, H * dh) @ wo
@@ -242,8 +250,10 @@ def _attn_apply(p, h, cfg: ModelConfig, local: bool, mode: str, lc,
 
 
 def _mamba_apply(p, h, cfg: ModelConfig, mode: str, lc, lens, seq_mask):
-    """The Mamba-2 mixer; updates the layer's conv and SSM state in
-    place."""
+    """The Mamba-2 mixer; outside train mode it updates the layer's conv
+    and SSM state in place."""
+    if mode == "train":
+        return mamba_mixer_fwd(p, h, cfg)
     if mode == "decode":
         out, mc = mamba_mixer_decode(p, h[:, 0], cfg,
                                      {"conv": lc["conv"], "ssm": lc["ssm"]})
@@ -292,23 +302,25 @@ def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp_kind: str,
 # --------------------------------------------------------------------------- #
 # full model
 # --------------------------------------------------------------------------- #
-def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
-            paged=None, seq_mask: Optional[torch.Tensor] = None,
+def forward(params, cfg: ModelConfig, *, tokens=None, mode: str,
+            embeds: Optional[torch.Tensor] = None, cache=None, paged=None,
+            seq_mask: Optional[torch.Tensor] = None,
             remat: bool = False) -> Dict:
     """Returns {"hidden": [B, S, D] after the final norm, "aux": the MoE
     layers' load-balance aux losses summed (f32 scalar, 0 without MoE)}
     and, in the paged modes, "pos": [B] int32 tokens in the pool
     afterwards.
 
-    train:   tokens [B, S]; the whole sequence at positions 0..S-1, no
-             cache; differentiable.  ``remat`` recomputes each layer in the
+    train:   tokens [B, S], or ``embeds`` [B, S, D] in their place (cast to
+             the config's dtype); the whole sequence at positions
+             0..S-1, no cache; differentiable.  ``remat`` recomputes each layer in the
              backward pass (``torch.utils.checkpoint``, the reference's
              per-group ``jax.checkpoint``) instead of keeping its
              activations.
     decode:  tokens [B]; positions = cache["pos"]; writes the new K/V
              (pools or rings) and SSM state into ``cache`` IN PLACE.
-    prefill: tokens [B, C] right-padded (``seq_mask`` [B, C] marks the
-             valid tokens); paged["q_offsets"] [B] = tokens of each row
+    prefill: tokens [B, C] (or ``embeds`` [B, C, D]) right-padded
+             (``seq_mask`` [B, C] marks the valid tokens); paged["q_offsets"] [B] = tokens of each row
              already in the pool (the chunk attends that prefix; 0 when
              absent, and always 0 for the ring and SSM families, which
              prefill a whole context at once); writes the chunk's K/V,
@@ -320,32 +332,33 @@ def forward(params, cfg: ModelConfig, *, tokens, mode: str, cache=None,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
+    if mode != "train" and not cfg.is_decoder:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no cache to "
+                         f"fill or decode from (train mode only)")
     mixers = cfg.layer_mixers()
-    if mode == "train" and cfg.has_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: train mode is ported for the dense and moe "
-            f"families only")
     lens = None
     if mode == "decode":
         x = embed_tokens(params["embed"], tokens[:, None], cfg.embed_scale,
                          cfg.d_model)
         positions = cache["pos"][:, None]
     else:
-        x = embed_tokens(params["embed"], tokens, cfg.embed_scale,
-                         cfg.d_model)
-        B, S = tokens.shape
+        if embeds is not None:
+            x = embeds.to(dtype_of(cfg))
+        else:
+            x = embed_tokens(params["embed"], tokens, cfg.embed_scale,
+                             cfg.d_model)
+        B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
+                                 device=x.device)[None].expand(B, S)
     if mode == "prefill":
         offs = (paged or {}).get("q_offsets")
         if offs is None:
-            offs = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+            offs = torch.zeros((B,), dtype=torch.int32, device=x.device)
             if paged is not None:
                 paged = dict(paged, q_offsets=offs)
         positions = offs[:, None] + positions
         if seq_mask is None:
-            lens = torch.full((B,), S, dtype=torch.int32,
-                              device=tokens.device)
+            lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
         else:
             lens = seq_mask.to(torch.int32).sum(-1, dtype=torch.int32)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

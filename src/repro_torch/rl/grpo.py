@@ -3,9 +3,9 @@
 Group-normalized advantages, the clipped-surrogate loss with an optional
 k3 KL to a reference policy, the MoE router's load-balance aux loss
 (``aux_coef`` x the aux summed over layers / n_layers, on by default for
-the moe family at ``cfg.router_aux_coef``), and ``make_train_step`` =
-loss -> grads -> AdamW.  The supervised (encoder) loss waits for an
-encoder config.
+the moe family at ``cfg.router_aux_coef``), the masked cross-entropy of
+an encoder (``supervised_loss``, hubert's masked prediction), and
+``make_train_step`` = loss -> grads -> AdamW.
 
 Batch layout (one microbatch), tensors on the params' device:
   tokens            [B, S] int32   prompt + response, right-padded
@@ -13,6 +13,10 @@ Batch layout (one microbatch), tensors on the params' device:
   advantages        [B]    f32     group-normalized (already)
   behavior_logprobs [B, S] f32     rollout-time logprobs (token t at slot t)
   ref_logprobs      [B, S] f32     reference-policy logprobs (optional, KL)
+  embeds            [B, S, D]      frame / patch embeddings in place of the
+                                   token lookup (``input_mode`` "embeds")
+An encoder's batch (``supervised_loss``) is ``embeds``, ``labels`` [B, S]
+int32 and ``mask`` [B, S] f32.
 
 Token t is predicted from hidden t-1, so slots 1..S-1 carry logprobs and
 masks are expected to be 0 at slot 0.
@@ -54,11 +58,14 @@ def group_normalized_advantages(rewards: np.ndarray,
     return adv
 
 
-def policy_logprobs(params, cfg, tokens, *, remat: bool = False):
+def policy_logprobs(params, cfg, tokens, *, embeds=None,
+                    remat: bool = False):
     """(lp [B, S], aux): slot t = log p(tokens[t] | tokens[<t]) under
     ``params``, slot 0 is 0; aux the MoE layers' aux losses summed (0
-    without MoE)."""
-    out = forward(params, cfg, tokens=tokens, mode="train", remat=remat)
+    without MoE).  With ``embeds`` the model reads them in place of the
+    token lookup and scores ``tokens``."""
+    out = forward(params, cfg, tokens=tokens, embeds=embeds, mode="train",
+                  remat=remat)
     lp = token_logprobs(params, cfg, out["hidden"][:, :-1], tokens[:, 1:])
     return F.pad(lp, (1, 0)), out["aux"]
 
@@ -70,7 +77,8 @@ def grpo_loss(params, cfg, batch: Dict, *, clip_eps: float = 0.2,
     adv = batch["advantages"].float()[:, None]
     beh = batch["behavior_logprobs"].float()
 
-    lp, aux = policy_logprobs(params, cfg, batch["tokens"], remat=remat)
+    lp, aux = policy_logprobs(params, cfg, batch["tokens"],
+                              embeds=batch.get("embeds"), remat=remat)
     ratio = torch.exp(lp - beh)
     surr = torch.minimum(ratio * adv,
                          torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
@@ -96,25 +104,51 @@ def grpo_loss(params, cfg, batch: Dict, *, clip_eps: float = 0.2,
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
+def supervised_loss(params, cfg, batch: Dict, *, remat: bool = False
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """Masked cross-entropy of ``labels`` at every position under
+    ``mask`` (an encoder's masked prediction, hubert)."""
+    out = forward(params, cfg, tokens=batch.get("tokens"),
+                  embeds=batch.get("embeds"), mode="train", remat=remat)
+    lp = token_logprobs(params, cfg, out["hidden"], batch["labels"])
+    mask = batch["mask"].float()
+    loss = -(lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"loss": loss.detach()}
+
+
 def loss_and_grads(params, cfg, batch: Dict, **loss_kw):
     """(loss, metrics, grads): grads in each param's dtype, keyed as
-    ``params`` (the reference's ``jax.value_and_grad(grpo_loss)``)."""
+    ``params`` (the reference's ``jax.value_and_grad`` of its launcher's
+    loss: ``grpo_loss`` for a decoder, ``supervised_loss`` for an
+    encoder)."""
+    loss_fn = grpo_loss if cfg.is_decoder else supervised_loss
     tree = adamw.tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, metrics = grpo_loss(tree, cfg, batch, **loss_kw)
-    flat = iter(torch.autograd.grad(loss, list(adamw.tree_leaves(tree))))
-    return loss.detach(), metrics, adamw.tree_map(lambda _: next(flat), tree)
+    loss, metrics = loss_fn(tree, cfg, batch, **loss_kw)
+    # embeddings in place of the token lookup leave an untied embed table
+    # (llava's; hubert has none) unread: its gradient is zero, as jax.grad
+    # gives it
+    unread = (tree.get("embed") if batch.get("embeds") is not None
+              and not cfg.tie_embeddings else None)
+    flat = iter(torch.autograd.grad(
+        loss, [t for t in adamw.tree_leaves(tree) if t is not unread]))
+    return loss.detach(), metrics, adamw.tree_map(
+        lambda t: torch.zeros_like(t) if t is unread else next(flat), tree)
 
 
 def make_train_step(cfg, *, lr: float = 1e-5, clip_eps: float = 0.2,
                     kl_coef: float = 0.0, weight_decay: float = 0.0,
                     remat: bool = False):
-    """(state, batch) -> (state, metrics), state = {"params", "opt"}.
-    The optimizer state is updated in place (``optim.adamw``); the params
-    in the returned state are new tensors."""
+    """(state, batch) -> (state, metrics), state = {"params", "opt"}, the
+    loss that of ``loss_and_grads``.  The optimizer state is updated in
+    place (``optim.adamw``); the params in the returned state are new
+    tensors."""
+    loss_kw = dict(remat=remat)
+    if cfg.is_decoder:
+        loss_kw.update(clip_eps=clip_eps, kl_coef=kl_coef)
+
     def train_step(state, batch):
         _, metrics, grads = loss_and_grads(state["params"], cfg, batch,
-                                           clip_eps=clip_eps,
-                                           kl_coef=kl_coef, remat=remat)
+                                           **loss_kw)
         new_params, opt, om = adamw.apply(grads, state["opt"],
                                           state["params"], lr=lr,
                                           weight_decay=weight_decay)

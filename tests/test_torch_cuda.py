@@ -26,7 +26,10 @@ that the paged decode's outputs do not move by a bit when the table
 doubles or rows are added; the paged decode also at G = 1 (the MoE
 configs' 16 / 16 heads); the four attention kernels at gemma3's head dim
 of 256 and at gemma2's G = 2 with a softcap of 50, and a tiny gemma3's
-decode horizon as a graph.  The MoE layer with drops gives the same bits on
+decode horizon as a graph; the flash attention at hubert's d = 80
+(bidirectional), and the gradients of ``ops.ssd`` (the kernel's forward,
+the recomputed plain backward) against autograd through the plain
+scan.  The MoE layer with drops gives the same bits on
 a second launch and the CPU's drop set.  The engine's decode horizon as a
 CUDA graph, on a tiny dense, a tiny MoE and a tiny hybrid config: replayed tokens and logprobs
 bit-equal to eager H=8 and to eager H=1 at temperature 0 and 1, and
@@ -667,6 +670,60 @@ def test_gemma_graph_horizon_on_card(cuda):
                              graphs=False)
     assert got == eager8
     assert got == eager1
+
+
+# ---- training the other families: hubert's d = 80, the scan's gradient ---- #
+# flash at hubert-xlarge's d = 80: its train shape (bidirectional, H = K =
+# 16), a ragged S, one position, and d = 80 causal with a window and a
+# softcap (the kernel's other masks at this width)
+HUBERT_FLASH = [(4, 16, 16, 1024, 80, False, 0, 0.0),
+                (2, 4, 4, 77, 80, False, 0, 0.0),
+                (1, 4, 4, 1, 80, False, 0, 0.0),
+                (2, 8, 2, 300, 80, True, 64, 20.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", HUBERT_FLASH)
+def test_hubert_flash_kernel_matches_plain_on_card(cuda, case, dtype):
+    test_flash_kernel_matches_plain_on_card(cuda, *case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_state", [True, False])
+@pytest.mark.parametrize("b,L,H,G,P,N,chunk", [(2, 150, 6, 2, 32, 16, 64),
+                                               (1, 64, 4, 1, 64, 128, 64)])
+def test_ssd_function_grads_match_plain_autograd_on_card(cuda, b, L, H, G,
+                                                         P, N, chunk,
+                                                         use_state):
+    """``ops.ssd`` on CUDA under autograd: one kernel launch, its y and
+    state within the kernel's f32 tolerance of the plain scan, and the
+    gradients of every input (through the recomputed chunked scan) within
+    1e-4 of each leaf's max |value| of autograd through the sequential
+    plain scan on the same card (f32 sums in another order), with the
+    final state's gradient and with the state unused (train mode)."""
+    args = _ssd_inputs(b, L, H, G, P, N, seed=7)
+    rs = np.random.RandomState(1)
+    wy = torch.from_numpy(rs.randn(b, L, H, P).astype(np.float32)).to(cuda)
+    ws = torch.from_numpy(rs.randn(b, H, P, N).astype(np.float32)).to(cuda)
+
+    def grads(fn):
+        leaves = [torch.from_numpy(a).to(cuda).requires_grad_(True)
+                  for a in args]
+        y, st = fn(*leaves)
+        loss = (y * wy).sum() + ((st * ws).sum() if use_state else 0.0)
+        loss.backward()
+        return (y.detach(), st.detach()), [t.grad for t in leaves]
+
+    before = ssd_scan.launches
+    got_out, got = grads(lambda *a: ops.ssd(*a, chunk=chunk))
+    assert ssd_scan.launches == before + 1
+    want_out, want = grads(lambda *a: ref.ssd_scan_ref(*a))
+    torch.cuda.synchronize()
+    for g, w in zip(got_out, want_out):
+        assert _rel(g, w) < SSD_TOL["float32"]
+    for g, w in zip(got, want):
+        assert _rel(g, w) < 1e-4
 
 
 @pytest.mark.cuda

@@ -15,8 +15,8 @@ Same weights (the reference's ``init_params`` carried across with
   across the packages in both directions, continuing the unmigrated
   tokens with zero prefill;
 * the port refuses a GRPO group where prompt pages cannot be shared (the
-  reference admits it and serves the siblings from empty rows), prefills a
-  context whole, and raises for train mode.
+  reference admits it and serves the siblings from empty rows) and
+  prefills a context whole; the train forward matches the reference's.
 """
 
 import subprocess
@@ -188,10 +188,19 @@ def test_padded_prefill_matches_unpadded(name):
 
 
 def test_train_mode_is_refused_for_these_families():
-    _, _, cfg, params = _pair("hymba")
-    with pytest.raises(NotImplementedError, match="train"):
-        forward(params, cfg, tokens=torch.zeros((1, 4), dtype=torch.int32),
-                mode="train")
+    """Train mode was refused for these families until the scan took a
+    gradient; it now runs, and its hidden states (the reduced window of 16
+    passed, L past the reference's SSD chunk of 32) are within
+    HIDDEN_TOL of the reference's train forward."""
+    for name in ("hymba", "mamba2"):
+        jcfg, jparams, cfg, params = _pair(name)
+        toks = np.random.RandomState(3).randint(
+            3, cfg.vocab_size, (2, 45)).astype(np.int32)
+        want = jax_forward(jparams, jcfg, CPU_RT, tokens=jnp.asarray(toks),
+                           mode="train")["hidden"]
+        got = forward(params, cfg, tokens=torch.from_numpy(toks),
+                      mode="train")["hidden"]
+        assert _err(got.numpy(), want) <= HIDDEN_TOL
 
 
 def test_init_params_matches_reference_tree():

@@ -647,20 +647,27 @@ def _attention_views(monkeypatch, cfg, run):
     return seen
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "hymba-1.5b",
+                                  "hubert-xlarge"])
 def test_tma_layout_accepts_the_models_attention_views(monkeypatch, arch):
     """Every [B, heads, S, d] view of the model's [B, S, heads, d]
     activations that reaches the flash attention (the dense train forward,
-    the hybrid prefill) passes the TMA layout check of the bf16 kernel."""
+    the hybrid prefill, hubert's train forward on embeddings at its d =
+    80) passes the TMA layout check of the bf16 kernel."""
     from repro_torch.configs import get_config
     from repro_torch.models import kv_cache as kvc
     from repro_torch.models.transformer import forward, init_params
-    cfg = get_config(arch).reduced(dtype="bfloat16", head_dim=32)
+    cfg = get_config(arch).reduced(
+        dtype="bfloat16", head_dim=80 if arch == "hubert-xlarge" else 32)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.randint(3, cfg.vocab_size, (2, 40),
                          generator=torch.Generator().manual_seed(1))
     if arch == "qwen3-8b":
         run = lambda: forward(params, cfg, tokens=toks, mode="train")
+    elif arch == "hubert-xlarge":
+        embeds = torch.randn((2, 40, cfg.d_model),
+                             generator=torch.Generator().manual_seed(2))
+        run = lambda: forward(params, cfg, embeds=embeds, mode="train")
     else:
         cache = kvc.init_paged_cache(cfg, 2, 2, 16, ring_len=32,
                                      device="cpu")
@@ -710,6 +717,18 @@ def test_gemma_prefill_plain_matches_reference(case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", GEMMA_FLASH)
 def test_gemma_flash_plain_matches_reference(case, dtype):
+    test_flash_plain_matches_reference(*case, dtype)
+
+
+# hubert-xlarge's encoder attention: d = 80, bidirectional, H = K (cut to 4
+# heads); the reference's Pallas kernel takes d = 80 in interpret mode
+HUBERT_FLASH = [(2, 4, 4, 128, 80, False, 0, 0.0),
+                (1, 4, 4, 200, 80, False, 0, 0.0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", HUBERT_FLASH)
+def test_hubert_flash_plain_matches_reference(case, dtype):
     test_flash_plain_matches_reference(*case, dtype)
 
 
