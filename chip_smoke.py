@@ -51,9 +51,17 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 output, dt = 0 past each row's length), at Mamba2-130m's
                 geometry in f32 and bf16 and at its served prefill (the
                 same 8 ragged rows, H=24, N=128, f32) and at phase 12's
-                Hymba and Mamba2 train shapes (every row full; the scan's
-                recomputed plain backward timed too), each launched
-                twice (bit-identical); max error against the stated
+                Hymba and Mamba2 train shapes and phase 13's train_4k
+                (every row full; the scan's recomputed plain backward
+                timed too), each launched twice (bit-identical); at phase
+                13's cells' shapes: flash at S=32,768 (G=7) and at
+                S=524,288 with a window of 1024 (the first and last 128
+                query rows against the plain attention of those rows;
+                SDPA where it takes the shape), ``decode_attention`` on
+                decode_32k's slab (B=8, T=32,896, bf16, whole), the scan
+                over 524,288 positions (Mamba2's and Hymba's heads, whole,
+                against the plain chunked scan in segments carrying the
+                state); max error against the stated
                 tolerance, kernel / plain / library times (CUDA events, L2
                 flushed before each launch) and the bound (the scan's at
                 the 3xTF32 rate, beside its f32 CUDA-core figure);
@@ -79,7 +87,7 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 against the plain attention; a ``[graph]`` line for this
                 and each later phase (captures, replays, invalidations,
                 padded reuse, capture seconds, graph-pool bytes);
-  4. install  — on qwen3-8b cut to its first INSTALL_LAYERS (8) layers
+  4. install  — on qwen3-8b cut to its first INSTALL_LAYERS (4) layers
                 (the host's int8 encode of the whole model's manifests
                 would take most of the time limit), the trainer side
                 publishes v0 (the serving weights) and v1
@@ -253,8 +261,23 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 layers x dispatches), a steady horizon profiled with
                 graphs and eagerly, one prefill's and one decode step's
                 logits against the plain attention;
- 13. summary  — one JSON line per the kernels (rows 1, 2, 4, 5 and 6
-                count phases 9-12's launches too), the card's name and
+ 13. cells    — the (arch x shape) cells' step functions
+                (``launch/steps.py`` on the slab cache), each cell's
+                batch one data-parallel device's rows (global_batch / 16,
+                CELLS): qwen2-7b prefill_32k (2 x 32,768: next tokens and
+                last logits against InferenceEngine's paged prefill of the
+                same prompts), decode_32k (four 2-row prefills placed into
+                an 8-row slab of 32,896 slots through ``slice_batch`` /
+                ``update_batch``, then 4 serve steps, each against the
+                same step under the plain attention), mamba2-130m and
+                hymba-1.5b long_500k (1 x 524,288: the prefill against the
+                engine's, 4 serve steps against plain), mamba2-130m
+                train_4k (16 x 4,096: step 1's loss and grad norm with the
+                kernels against plain, then 2 train steps); launches
+                exact; ``[cells]`` lines (rows, length, seconds, tokens/s,
+                peak memory);
+ 14. summary  — one JSON line per the kernels (rows 1, 2, 4, 5 and 6
+                count phases 9-13's launches too), the card's name and
                 power limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
@@ -319,10 +342,10 @@ NEW_TOKENS = 64
 PROMPT_LENS = (300, 310, 290, 305)
 # phase 4 installs versions of the served qwen3-8b cut to its first
 # INSTALL_LAYERS layers: the host's int8 encode of the whole model's 6.8 GB
-# manifest took 61-92 s a version on the H100 machine's host, and at 8
-# layers (2.17 G params) the two installs leave the script room in its
-# time limit
-INSTALL_LAYERS = 8
+# manifest took 61-92 s a version on the H100 machine's host; at 8 layers
+# (2.17 G params) the two manifests took 31.6 / 35.8 s, and with phase
+# 13 the whole script reached 1,044 s of its 1,200, so 4 layers (1.41 G)
+INSTALL_LAYERS = 4
 # phase 6: the trainer on Qwen3-8B's width, 8 of its 32 layers: 2.17 G
 # parameters x 16 bytes of trainer state = 34.7 GB; all 32 would need
 # ~109 GB on an 80 GB card
@@ -423,9 +446,11 @@ SSD_MAMBA2 = (1, 128, 24, 1, 64, 128, 64)
 SSD_MAMBA2_SERVE = (8, 1152, 24, 1, 64, 128, 64)
 SSD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
 # the scan at phase 12's train shapes (every row full, f32 strided slices
-# of one conv output): Hymba at B = 4 and Mamba2-130m at B = 8, L = 1152
+# of one conv output): Hymba at B = 4 and Mamba2-130m at B = 8, L = 1152;
+# and at phase 13's train_4k cell, Mamba2-130m at B = 16, L = 4096
 SSD_TRAIN = (("hymba train", (4, 1152, 50, 1, 64, 16, 64)),
-             ("mamba2-130m train", (8, 1152, 24, 1, 64, 128, 64)))
+             ("mamba2-130m train", (8, 1152, 24, 1, 64, 128, 64)),
+             ("mamba2-130m train_4k", (16, 4096, 24, 1, 64, 128, 64)))
 # phase 7: prompts of Hymba's mix (SSD_HYMBA_LENS: 1090 and 1150 pass the
 # 1024-token window in prefill, 1000 + 64 crosses it in decode)
 HYBRID_PROMPT_LENS = SSD_HYMBA_LENS
@@ -541,6 +566,33 @@ RL_REMOVE_AT = 20.0
 # the crashed run dies this long after the uninterrupted run's step 2
 # ended: after the boundary-2 checkpoint, inside step 3
 RL_CRASH_AFTER = 5.0
+# phase 13: the (arch x shape) cells (``configs/shapes.py``), each run at
+# one data-parallel device's rows: global_batch / the data axis of
+# ``launch/mesh.make_production_mesh`` (16), at least 1
+CELLS = (("qwen2-7b", "prefill_32k"), ("qwen2-7b", "decode_32k"),
+         ("mamba2-130m", "long_500k"), ("hymba-1.5b", "long_500k"),
+         ("mamba2-130m", "train_4k"))
+CELL_DATA_AXIS = 16
+CELL_PREFILL_ROWS = 2       # decode_32k: rows of each prefill step
+CELL_SERVE_STEPS = 4
+CELL_TRAIN_STEPS = 2
+CELL_SEED = 13
+# the kernels at the cells' shapes.  flash (B, H, K, S, d, causal,
+# window): qwen2-7b's prefill_32k rows, Hymba's long_500k prefill; held
+# against plain on the first and last FLASH_LONG_ROWS query rows
+FLASH_LONG = (("prefill_32k", (2, 28, 4, 32768, 128, True, 0)),
+              ("long_500k", (1, 25, 5, 524288, 64, True, 1024)))
+FLASH_LONG_ROWS = 128
+# decode_attention on decode_32k's slab (B, H, K, T, d; bf16 slab and q,
+# q pre-scaled), the lengths of its 4 serve steps
+SLAB_LONG = (8, 28, 4, 32896, 128)
+SLAB_LONG_LENS = (32769, 32770, 32771, 32772, 32772, 32771, 32770, 32769)
+# the scan at long_500k (b, L, H, G, P, N, chunk): held whole against the
+# plain chunked scan run in segments of SSD_LONG_SEGMENT positions
+# carrying the state (the sequential plain scan would take 524,288 steps)
+SSD_LONG = (("mamba2-130m long_500k", (1, 524288, 24, 1, 64, 128, 64)),
+            ("hymba long_500k", (1, 524288, 50, 1, 64, 16, 64)))
+SSD_LONG_SEGMENT = 32768
 
 
 def fail(msg: str):
@@ -1109,9 +1161,10 @@ def check_flash(torch, F, ref, kern):
     """``flash_attention`` in bf16 (its tensor-core path) against its plain
     version on every case of FLASH_CASES, inputs in the model's [B, S,
     heads, d] layout passed as head-major views; times and bounds.  The
-    feature cases run in f32 too (its CUDA-core path), untimed.  Returns
-    the summary row (the train shape, the worst bf16 error over all cases)
-    and every case's row."""
+    feature cases run in f32 too (its CUDA-core path), untimed; then the
+    cells' lengths (FLASH_LONG, ``flash_long``).  Returns the summary row
+    (the train shape, the worst bf16 error over the FLASH_CASES) and every
+    case's row."""
     g = torch.Generator(device="cuda").manual_seed(4)
     worst, rows = 0.0, {}
     for name, (B, H, K, S, d, causal, window, cap) in FLASH_CASES:
@@ -1172,7 +1225,81 @@ def check_flash(torch, F, ref, kern):
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         del q, k, v
         torch.cuda.empty_cache()
+    for name, case in FLASH_LONG:
+        rows[name] = flash_long(torch, F, kern, name, *case)
     return dict(rows["train"], max_abs_err=worst), rows
+
+
+def flash_rows_plain(torch, q, k, v, i0: int, i1: int, causal: bool,
+                     window: int):
+    """The plain attention of query rows i0..i1-1 against every key they
+    see, in f32 (q [B, H, S, d] unscaled, k/v [B, K, S, d]): the plain
+    version on a block of rows, where the whole [S, S] would not fit."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    j0 = max(0, i0 - window + 1) if window else 0
+    j1 = i1 if causal else S
+    qf = q[:, :, i0:i1].float() * d ** -0.5
+    kf = k[:, :, j0:j1].float().repeat_interleave(G, dim=1)
+    vf = v[:, :, j0:j1].float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    qi = torch.arange(i0, i1, device=q.device)[:, None]
+    kj = torch.arange(j0, j1, device=q.device)[None]
+    keep = torch.ones_like(qi - kj, dtype=torch.bool)
+    if causal:
+        keep &= kj <= qi
+    if window:
+        keep &= (qi - kj) < window
+    s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vf)
+
+
+def flash_long(torch, F, kern, name, B, H, K, S, d, causal, window):
+    """``flash_attention`` (bf16, head-major views of [B, S, heads, d]) at
+    a phase-13 cell's shape: the first and last FLASH_LONG_ROWS query rows
+    held against the plain attention of those rows at KERNEL_TOL, a
+    second launch bit-identical; timed against its bound and, where SDPA
+    takes the shape (no [S, S] mask: causal without a window), one SDPA
+    call.  The plain version cannot run whole (its [S, S] scores)."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device="cuda")
+               .bfloat16().transpose(1, 2) for n in (H, K, K))
+    opts = dict(causal=causal, window=window)
+    out = kern(q, k, v, **opts)
+    again = kern(q, k, v, **opts)
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        fail(f"flash_attention {name}: a second launch on the same inputs "
+             f"is not bit-identical")
+    del again
+    n = FLASH_LONG_ROWS
+    err = max(within(torch, out[:, :, i0:i0 + n],
+                     flash_rows_plain(torch, q, k, v, i0, i0 + n, causal,
+                                      window),
+                     KERNEL_TOL, f"flash_attention {name} rows {i0}+{n}")
+              for i0 in (0, S - n))
+    del out
+    ms = time_ms(lambda: kern(q, k, v, **opts), torch, iters=5)
+    lib_ms = None
+    if causal and not window:
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True),
+            torch, iters=5)
+    pairs = flash_pairs(S, causal, window)
+    nbytes = 2 * B * S * (2 * H + 2 * K) * d
+    flops = 4 * d * pairs * B * H
+    b_ms, b_by = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+    log(f"[kernels] flash_attention {name} B={B} H={H} K={K} S={S} d={d} "
+        f"causal={causal} window={window}: rows 0-{n - 1} and {S - n}-"
+        f"{S - 1} against the plain attention of those rows max_abs_err="
+        f"{err:.3e} (tol {KERNEL_TOL} abs + rel), a second launch "
+        f"bit-identical; kernel {ms:.4f} ms, plain n/a (its [S, S] scores), "
+        f"sdpa {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=None, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def check_slab_decode(torch, F, ref, kern):
@@ -1183,7 +1310,8 @@ def check_slab_decode(torch, F, ref, kern):
     it; held within one bf16 ulp, and in f32 within F32_KERNEL_TOL),
     timed there against one SDPA call on the same K/V; then the ring with
     an empty row and with a window of 256 (SLAB_RING_EDGE), and a second
-    launch that must be bit-identical."""
+    launch that must be bit-identical; then decode_32k's slab
+    (``slab_long``).  Returns (the ring's row, decode_32k's row)."""
     from repro_torch.kernels.decode_attention import plan_splits
     g = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
@@ -1272,7 +1400,57 @@ def check_slab_decode(torch, F, ref, kern):
         log(f"[kernels] decode_attention ring, {what}: lens={list(lens_l)} "
             f"window={window}: max_abs_err={err_e:.3e} (tol one bf16 ulp); "
             f"kernel {ms_e:.4f} ms, bound {b_e:.4f} ms ({by_e})")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+    row = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms)
+    return row, slab_long(torch, F, ref, kern)
+
+
+def slab_long(torch, F, ref, kern):
+    """``decode_attention`` on decode_32k's slab (SLAB_LONG: bf16 q, pre-
+    scaled, over a bf16 [B, T, K, d] slab read as views, the lengths of
+    its serve steps) held whole against its plain version at KERNEL_TOL,
+    a second launch bit-identical, timed against the plain version, one
+    SDPA call and the bound."""
+    B, H, K, T, d = SLAB_LONG
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q = (torch.randn(B, H, d, generator=g, device="cuda")
+         * d ** -0.5).bfloat16()
+    slab_k, slab_v = (torch.randn(B, T, K, d, generator=g, device="cuda")
+                      .bfloat16() for _ in range(2))
+    k, v = slab_k.transpose(1, 2), slab_v.transpose(1, 2)
+    lens = torch.tensor(SLAB_LONG_LENS, dtype=torch.int32, device="cuda")
+    out = kern(q, k, v, lens, scale=1.0)
+    again = kern(q, k, v, lens, scale=1.0)
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        fail("decode_attention decode_32k: a second launch on the same "
+             "inputs is not bit-identical")
+    err = within(torch, out, ref.decode_attention_ref(q, k, v, lens,
+                                                      scale=1.0),
+                 KERNEL_TOL, "decode_attention decode_32k")
+    del out, again
+    mask = (torch.arange(T, device="cuda")[None] < lens[:, None])[:, None,
+                                                                  None]
+    qd = q[:, :, None]
+    ms = time_ms(lambda: kern(q, k, v, lens, scale=1.0), torch)
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, lens,
+                                                        scale=1.0), torch,
+                       iters=5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qd, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), torch)
+    n_kv = sum(SLAB_LONG_LENS)
+    nbytes = 2 * n_kv * K * d * 2 + 2 * B * H * d * 2 + B * 4
+    flops = 4 * n_kv * H * d
+    b_ms, b_by = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+    log(f"[kernels] decode_attention decode_32k B={B} H={H} K={K} T={T} "
+        f"d={d} lens={list(SLAB_LONG_LENS)} (bf16 q and slab): "
+        f"max_abs_err={err:.3e} (tol {KERNEL_TOL} abs + rel), a second "
+        f"launch bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
+        f"B, {flops} flop)")
+    del q, slab_k, slab_v, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
 
 
@@ -1452,10 +1630,10 @@ def check_ssd(torch, ref, ops, kern):
     """``ssd_scan`` against the sequential recurrence at Mamba2-130m's
     geometry (f32 and bf16, each launched twice: bit-identical), at its
     served prefill (f32, timed), at Hymba's prefill (f32, timed against
-    the plain version too) and at phase 12's two train shapes (timed
-    against the plain version, and the recomputed backward timed).
-    Returns the summary row (Hymba's prefill) and every geometry's
-    numbers."""
+    the plain version too), at phase 12's two train shapes and phase 13's
+    train_4k (timed against the plain version, and the recomputed
+    backward timed) and at long_500k (SSD_LONG, ``ssd_long``).  Returns
+    the summary row (Hymba's prefill) and every geometry's numbers."""
     g = torch.Generator(device="cuda").manual_seed(6)
     b, L, H, G, P, N, chunk = SSD_MAMBA2
     for name, dt in (("float32", torch.float32),
@@ -1501,7 +1679,75 @@ def check_ssd(torch, ref, ops, kern):
         rows[what] = dict(ms=ms_t, rel_err=rel_t, max_abs_err=err_t,
                           plain_ms=plain_t, backward_ms=bwd_ms, bound=bd_t)
         del args, gy
+    for what, shape in SSD_LONG:
+        rows[what] = ssd_long(torch, g, kern, shape, what)
     return row, rows
+
+
+def ssd_chunked_segments(torch, x, dt, A, B, C, chunk: int, seg: int):
+    """The plain chunked scan (``models.ssm.ssd_chunked``) over a sequence
+    too long for it whole: segments of ``seg`` positions, each scanned
+    from a zero state, with the state entering it added to its outputs
+    (C_t . exp(cumsum(dt A))_t S_in) and carried past it (exp(sum dt A)
+    S_in + the segment's own state), the same recurrence.  Returns (y f32,
+    final state)."""
+    from repro_torch.models.ssm import ssd_chunked
+    b, L, H, P = x.shape
+    N, rep = B.shape[3], H // B.shape[2]
+    state = torch.zeros(b, H, P, N, device=x.device)
+    y = torch.empty(b, L, H, P, device=x.device)
+    for s0 in range(0, L, seg):
+        sl = slice(s0, s0 + seg)
+        ys, st = ssd_chunked(x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl],
+                             chunk=chunk)
+        cum = torch.cumsum(dt[:, sl].float() * A.float(), dim=1)  # [b,l,H]
+        Ch = C[:, sl].float().repeat_interleave(rep, dim=2)
+        ys += torch.einsum("blhn,bhpn->blhp", Ch, state) \
+            * torch.exp(cum)[..., None]
+        state = st + torch.exp(cum[:, -1])[:, :, None, None] * state
+        y[:, sl] = ys
+        del ys, st, cum, Ch
+    return y, state
+
+
+def ssd_long(torch, g, kern, shape, what: str):
+    """``ssd_scan`` at a long_500k cell's geometry (f32 strided slices,
+    one full row): y and the final state held whole against the plain
+    chunked scan run in segments (``ssd_chunked_segments``) within
+    SSD_TOL, a second launch bit-identical; timed against that plain scan
+    and the bound."""
+    b, L, H, G, P, N, chunk = shape
+    args = ssd_inputs(torch, g, b, L, H, G, P, N, torch.float32)
+    y, st = kern(*args, chunk=chunk)
+    y2, st2 = kern(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(st, st2)):
+        fail(f"ssd_scan {what}: a second launch is not bit-identical")
+    del y2, st2
+    t0 = time.perf_counter()
+    yr, sr = ssd_chunked_segments(torch, *args, chunk, SSD_LONG_SEGMENT)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rel = max(ssd_rel(torch, y, yr, SSD_TOL["float32"], f"ssd_scan {what} y"),
+              ssd_rel(torch, st, sr, SSD_TOL["float32"],
+                      f"ssd_scan {what} state"))
+    err = max(float((y - yr).abs().max()), float((st - sr).abs().max()))
+    del y, st, yr, sr
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: kern(*args, chunk=chunk), torch, iters=5)
+    bd = ssd_bound(b, L, H, G, P, N, chunk)
+    log(f"[kernels] ssd_scan {what} b={b} L={L} H={H} G={G} P={P} N={N} "
+        f"chunk={chunk} (f32 strided slices, one full row): max rel err "
+        f"{rel:.3e} (y and state, whole, against the plain chunked scan in "
+        f"segments of {SSD_LONG_SEGMENT}; tol {SSD_TOL['float32']}), "
+        f"max_abs_err={err:.3e}, second launch bit-identical; kernel "
+        f"{ms:.4f} ms, plain (chunked, segmented, one call) {plain_ms:.1f} "
+        f"ms, bound {bd['ms']:.4f} ms ({bd['by']}; {bd['bytes']} B, "
+        f"{bd['flops']} flop); library: none")
+    del args
+    torch.cuda.empty_cache()
+    return dict(ms=ms, rel_err=rel, max_abs_err=err, plain_ms=plain_ms,
+                bound=bd)
 
 
 # --------------------------------------------------------------------------- #
@@ -1838,10 +2084,12 @@ def graph_phase(tag: str):
     row: captures, replays, padded reuse and invalidations (deltas of
     ``graph_cache_stats()``), each capture's seconds and its engine's
     graph-pool bytes just after it (read by wrapping
-    ``InferenceEngine._capture``: a yardstick for this script only)."""
+    ``InferenceEngine._capture``: a yardstick for this script only), and
+    the phase's wall seconds."""
     from repro_torch.serving import engine as engine_mod
     cls = engine_mod.InferenceEngine
     capture, caps = cls._capture, []
+    t0 = time.perf_counter()
 
     def _capture(self, entry, bt):
         capture(self, entry, bt)
@@ -1856,7 +2104,8 @@ def graph_phase(tag: str):
     row = {k: s1[k] - s0[k] for k in s1}
     row.update(widths_registered=s1["entries"],
                capture_s=[c for c, _ in caps],
-               pool_bytes=[b for _, b in caps])
+               pool_bytes=[b for _, b in caps],
+               wall_s=time.perf_counter() - t0)
     secs = row["capture_s"]
     log(f"[graph] {tag}: captures {row['captures']}, replays "
         f"{row['replays']}, invalidations {row['invalidations']}, padded "
@@ -1865,7 +2114,8 @@ def graph_phase(tag: str):
         + (f"mean {sum(secs) / len(secs):.4f} max {max(secs):.4f}"
            if secs else "none")
         + f"; graph pool bytes after each capture, max "
-        f"{max(row['pool_bytes'], default=0)}")
+        f"{max(row['pool_bytes'], default=0)}; phase wall "
+        f"{row['wall_s']:.1f} s")
     GRAPHS[tag] = row
 
 
@@ -4435,6 +4685,409 @@ def train12_phase(torch, InferenceEngine, clock, ops, ref):
     return total, summary
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the (arch x shape) cells' step functions on the slab cache
+# --------------------------------------------------------------------------- #
+def cell_tokens(torch, cfg, rows: int, length: int, seed: int):
+    """[rows, length] int32 token ids drawn from ``seed``, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(3, cfg.vocab_size, (rows, length), generator=gen,
+                         dtype=torch.int32).cuda()
+
+
+def engine_prefill(torch, InferenceEngine, cfg, params, prompts):
+    """Greedy first tokens of ``prompts`` [n, L] and their last-position
+    logits through ``InferenceEngine``'s prefill: every prompt in one
+    dispatch, one slot each, the paged kernels on f32 pools for global
+    layers, f32 rings and SSM state.  The logits are read by wrapping the
+    engine module's ``logits_from_hidden`` (a yardstick for this script
+    only).  Returns (tokens [n] int32, logits [n, V] f32)."""
+    from repro_torch.rl.sampler import request_key
+    from repro_torch.serving import engine as engine_mod
+    n, L = prompts.shape
+    # pools for every prompt (2 * n * slab_len tokens) and a ring of the
+    # whole window
+    eng = InferenceEngine(cfg, params, max_batch=n, slab_len=(L + 16) // 2,
+                          page_size=16, prefill_chunk=n * L, horizon=1,
+                          temperature=0.0, device="cuda")
+    seen = []
+    unembed = engine_mod.logits_from_hidden
+
+    def logits_from_hidden(p, c, h):
+        seen.append(unembed(p, c, h))
+        return seen[-1]
+    for i in range(n):
+        eng.add_request(i, prompts[i].tolist(), request_key(0, i), L + 1, L)
+    engine_mod.logits_from_hidden = logits_from_hidden
+    try:
+        events = eng.step()
+    finally:
+        engine_mod.logits_from_hidden = unembed
+    if eng.n_prefill_dispatches != 1 or len(events) != n:
+        fail(f"{cfg.name}: the engine's prefill took "
+             f"{eng.n_prefill_dispatches} dispatches for {len(events)} "
+             f"first tokens")
+    toks = torch.tensor([e.token for e in sorted(events,
+                                                 key=lambda e: e.req_id)],
+                        dtype=torch.int32, device="cuda")
+    logits = seen[0][:n].clone()
+    del eng, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, logits
+
+
+def cell_gate(torch, what: str, tok, logits, want_tok, want_logits):
+    """Each row's logits within LOGIT_REL_TOL of max |want| of that row,
+    and its next token the oracle's, or a tie within that row's logit
+    difference (the oracle's logit of the token within max |delta| of the
+    oracle's largest).  Returns the largest relative difference."""
+    worst = 0.0
+    for r in range(logits.shape[0]):
+        got, want = logits[r].float(), want_logits[r].float()
+        if not torch.isfinite(got).all():
+            fail(f"{what}: row {r}'s logits are not finite")
+        d_max = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, d_max / scale)
+        if d_max > LOGIT_REL_TOL * scale:
+            fail(f"{what}: row {r}'s logits differ from the oracle's by "
+                 f"{d_max} of max |logit| {scale} (tol {LOGIT_REL_TOL})")
+        t, w = int(tok[r]), int(want_tok[r])
+        if t != w and float(want[w] - want[t]) > d_max:
+            fail(f"{what}: row {r}'s next token {t} is not the oracle's {w} "
+                 f"(oracle logits {float(want[t])} vs {float(want[w])}, "
+                 f"max |delta| {d_max})")
+        if t != w:
+            log(f"[cells] {what}: row {r} token {t} vs the oracle's {w}, a "
+                f"tie within max |delta logit| {d_max:.4e}")
+    return worst
+
+
+def cell_launches(cfg, what: str, n_prefill: int, n_decode: int,
+                  n_train_fwd: int = 0):
+    """Launches since the last reset against layers x the step functions
+    run: on the slab cache every attention layer (global slab, local or
+    hybrid ring) prefills and trains through ``flash_attention`` and
+    decodes through ``decode_attention``; every SSM layer prefills and
+    trains through ``ssd_scan``; the paged kernels and the dequant not at
+    all.  Fail unless equal."""
+    mixers = cfg.layer_mixers()
+    n_attn = sum(m in ("global", "local", "hybrid") for m in mixers)
+    n_ssm = sum(m in ("mamba", "hybrid") for m in mixers)
+    got = {k.__name__: k.launches for k in KERNELS}
+    want = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
+            "fused_dequant": 0,
+            "flash_attention": n_attn * (n_prefill + n_train_fwd),
+            "decode_attention": n_attn * n_decode,
+            "ssd_scan": n_ssm * (n_prefill + n_train_fwd)}
+    log(f"[cells] {what}: launches {got}, expected {want} (layers x "
+        f"{n_prefill} prefill steps, {n_decode} serve steps, "
+        f"{n_train_fwd} train-mode forwards)")
+    if got != want:
+        fail(f"{what}: kernel launches {got} != expected {want}")
+    return got
+
+
+def _cache_leaves(tree, names):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v, names)
+        elif k in names:
+            yield v
+
+
+def serve_cell(torch, cfg, params, cache, tokens, ops, ref, what: str,
+               clock):
+    """CELL_SERVE_STEPS serve steps from ``cache``, each held against the
+    same step under the plain attention (run first, on the same cache:
+    both write slot pos before reading it; the SSM state, which a step
+    reads and then rewrites, is restored after the plain step).  Returns
+    (cache, seconds of the kernel steps, worst logit difference)."""
+    from repro_torch.launch.steps import build_serve_step
+    serve = build_serve_step(cfg, return_logits=True)
+    secs, worst = 0.0, 0.0
+    for i in range(CELL_SERVE_STEPS):
+        state = [t.clone() for t in _cache_leaves(cache, ("conv", "ssm"))]
+        n0 = {k.__name__: k.launches for k in KERNELS}
+        with plain_attention(ops, ref):
+            tok_p, _, lg_p = serve(params, cache, tokens)
+        if {k.__name__: k.launches for k in KERNELS} != n0:
+            fail(f"{what}: the plain serve step launched a kernel")
+        for t, s in zip(_cache_leaves(cache, ("conv", "ssm")), state):
+            t.copy_(s)
+        del state
+        t0 = clock()
+        tok, cache, lg = serve(params, cache, tokens)
+        secs += clock() - t0
+        worst = max(worst, cell_gate(torch, f"{what} serve step {i + 1}",
+                                     tok, lg, tok_p, lg_p))
+        tokens = tok
+        del lg, lg_p
+    return cache, secs, worst
+
+
+def peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def cell_line(torch, what, rows, length, secs, tokens, extra=""):
+    log(f"[cells] {what}: {rows} rows x {length}, {secs:.3f} s, "
+        f"{tokens / secs:.1f} tokens/s, peak memory {peak_gb(torch):.2f} "
+        f"GB{extra}")
+
+
+def cells_qwen(torch, InferenceEngine, clock, ops, ref, cfg, params):
+    """Cells 1-2: qwen2-7b prefill_32k and decode_32k."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.specs import SLAB_MARGIN
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import kv_cache as kvc
+    out, total = {}, {k.__name__: 0 for k in KERNELS}
+    # cell 1: prefill_32k
+    shape = SHAPES["prefill_32k"]
+    rows, S = shape.global_batch // CELL_DATA_AXIS, shape.seq_len
+    slab = S + SLAB_MARGIN
+    prompts = cell_tokens(torch, cfg, rows, S, CELL_SEED)
+    t0 = clock()
+    want_tok, want_lg = engine_prefill(torch, InferenceEngine, cfg, params,
+                                       prompts)
+    t_oracle = clock() - t0
+    step = build_prefill_step(cfg, slab_len=slab, return_logits=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = clock()
+    tok, cache, lg = step(params, {"tokens": prompts})
+    secs = clock() - t0
+    launches = cell_launches(cfg, "qwen2-7b prefill_32k", 1, 0)
+    rel = cell_gate(torch, "qwen2-7b prefill_32k (vs the engine's paged "
+                    "prefill)", tok, lg, want_tok, want_lg)
+    cell_line(torch, "qwen2-7b prefill_32k", rows, S, secs, rows * S,
+              f"; slab {slab} slots bf16; next tokens {tok.tolist()} = the "
+              f"engine's {want_tok.tolist()}; logits within {rel:.3e} of "
+              f"max |logit| (tol {LOGIT_REL_TOL}); the engine's prefill "
+              f"{t_oracle:.3f} s")
+    out["prefill_32k"] = dict(rows=rows, length=S, seconds=secs,
+                              tokens_per_s=rows * S / secs,
+                              peak_gb=peak_gb(torch), logit_rel=rel,
+                              engine_s=t_oracle)
+    for k, n in launches.items():
+        total[k] += n
+    del cache, lg, want_lg, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # cell 2: decode_32k, prefilled 2 rows at a time into one 8-row slab
+    shape = SHAPES["decode_32k"]
+    rows, S = shape.global_batch // CELL_DATA_AXIS, shape.seq_len
+    slab = S + SLAB_MARGIN
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    big = kvc.init_cache(cfg, rows, slab, torch.bfloat16, device="cuda")
+    step = build_prefill_step(cfg, slab_len=slab)
+    tokens = torch.empty(rows, dtype=torch.int32, device="cuda")
+    t0 = clock()
+    n_pre = rows // CELL_PREFILL_ROWS
+    for i in range(n_pre):
+        r0 = i * CELL_PREFILL_ROWS
+        prompts = cell_tokens(torch, cfg, CELL_PREFILL_ROWS, S,
+                              CELL_SEED + 1 + i)
+        tok, cache = step(params, {"tokens": prompts})
+        kvc.update_batch(big, cache, r0)
+        placed = kvc.slice_batch(big, r0, CELL_PREFILL_ROWS)
+        if not (torch.equal(placed["pos"], cache["pos"]) and torch.equal(
+                placed["groups"]["sub0"]["k"], cache["groups"]["sub0"]["k"])):
+            fail("qwen2-7b decode_32k: rows placed by update_batch differ "
+                 "from the prefill's cache")
+        tokens[r0:r0 + CELL_PREFILL_ROWS] = tok
+        del cache, placed, prompts
+    pre_s = clock() - t0
+    big, secs, rel = serve_cell(torch, cfg, params, big, tokens, ops, ref,
+                                "qwen2-7b decode_32k", clock)
+    launches = cell_launches(cfg, "qwen2-7b decode_32k", n_pre,
+                             CELL_SERVE_STEPS)
+    if big["pos"].tolist() != [S + CELL_SERVE_STEPS] * rows:
+        fail(f"qwen2-7b decode_32k: pos {big['pos'].tolist()} after "
+             f"{CELL_SERVE_STEPS} serve steps")
+    cell_line(torch, "qwen2-7b decode_32k", rows, slab, secs,
+              rows * CELL_SERVE_STEPS,
+              f"; {n_pre} prefills of {CELL_PREFILL_ROWS} x {S} in "
+              f"{pre_s:.3f} s ({n_pre * CELL_PREFILL_ROWS * S / pre_s:.1f} "
+              f"tokens/s); {CELL_SERVE_STEPS} serve steps, logits within "
+              f"{rel:.3e} of the plain attention's (tol {LOGIT_REL_TOL})")
+    out["decode_32k"] = dict(rows=rows, length=slab, seconds=secs,
+                             tokens_per_s=rows * CELL_SERVE_STEPS / secs,
+                             prefill_s=pre_s, peak_gb=peak_gb(torch),
+                             logit_rel=rel)
+    for k, n in launches.items():
+        total[k] += n
+    del big
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def cell_long(torch, InferenceEngine, clock, ops, ref, arch: str):
+    """Cells 3-4: ``arch`` x long_500k, one row of 524,288 tokens: the
+    prefill step against the engine's prefill of the same prompt, then
+    CELL_SERVE_STEPS serve steps against plain."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.specs import SLAB_MARGIN
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch)
+    shape = SHAPES["long_500k"]
+    rows, S = max(1, shape.global_batch // CELL_DATA_AXIS), shape.seq_len
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        CELL_SEED), "cuda")
+    prompt = cell_tokens(torch, cfg, rows, S, CELL_SEED + 10)
+    t0 = clock()
+    want_tok, want_lg = engine_prefill(torch, InferenceEngine, cfg, params,
+                                       prompt)
+    t_oracle = clock() - t0
+    step = build_prefill_step(cfg, slab_len=S + SLAB_MARGIN,
+                              return_logits=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = clock()
+    tok, cache, lg = step(params, {"tokens": prompt})
+    pre_s = clock() - t0
+    rel_pre = cell_gate(torch, f"{arch} long_500k prefill (vs the engine's "
+                        f"prefill)", tok, lg, want_tok, want_lg)
+    del lg, want_lg, prompt
+    cache, secs, rel = serve_cell(torch, cfg, params, cache, tok, ops, ref,
+                                  f"{arch} long_500k", clock)
+    launches = cell_launches(cfg, f"{arch} long_500k", 1, CELL_SERVE_STEPS)
+    cell_line(torch, f"{arch} long_500k", rows, S, pre_s, rows * S,
+              f" (the prefill step; next token {tok.tolist()} = the "
+              f"engine's {want_tok.tolist()}, logits within {rel_pre:.3e} "
+              f"of max |logit|, the engine's prefill {t_oracle:.3f} s); "
+              f"{CELL_SERVE_STEPS} serve steps {secs:.3f} s "
+              f"({rows * CELL_SERVE_STEPS / secs:.1f} tokens/s), logits "
+              f"within {rel:.3e} of the plain path's (tol {LOGIT_REL_TOL})")
+    summary = dict(rows=rows, length=S, seconds=pre_s,
+                   tokens_per_s=rows * S / pre_s, serve_s=secs,
+                   serve_tokens_per_s=rows * CELL_SERVE_STEPS / secs,
+                   peak_gb=peak_gb(torch), logit_rel_prefill=rel_pre,
+                   logit_rel_serve=rel, engine_s=t_oracle)
+    del cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def cell_train(torch, clock, ops, ref):
+    """Cell 5: mamba2-130m x train_4k, 16 rows of 4,096: step 1's loss,
+    ratio_mean and grad norm with the kernels against plain (phase 12's
+    gates, scored against the plain pass's own logprobs), then
+    CELL_TRAIN_STEPS steps of ``build_train_step``."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.rl import grpo
+    cfg = get_config("mamba2-130m")
+    shape = SHAPES["train_4k"]
+    B, S = shape.global_batch // CELL_DATA_AXIS, shape.seq_len
+    torch.cuda.reset_peak_memory_stats()
+    state = grpo.init_train_state(init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(CELL_SEED), "cuda"),
+        "cuda")
+
+    def batch(i):
+        return synthetic_batch(cfg, torch.Generator().manual_seed(
+            CELL_SEED + i), B, S, "cuda")
+
+    b0 = batch(0)
+    with torch.no_grad(), plain_train(ops, ref):
+        b0["behavior_logprobs"] = grpo.policy_logprobs(
+            state["params"], cfg, b0["tokens"])[0]
+    reset_launches()
+    loss_k, met_k, g = grpo.loss_and_grads(state["params"], cfg, b0,
+                                           remat=True)
+    gn_k = leaf_norm(torch, g)
+    del g
+    with plain_train(ops, ref):
+        loss_p, _, g = grpo.loss_and_grads(state["params"], cfg, b0,
+                                           remat=True)
+    gn_p = leaf_norm(torch, g)
+    del g, b0
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    ratio_k = float(met_k["ratio_mean"])
+    scale = max(abs(loss_p), 1.0)
+    log(f"[cells] mamba2-130m train_4k step 1, kernels vs plain: loss "
+        f"{loss_k:.6e} vs {loss_p:.6e} (tol {TRAIN12_LOSS_REL_TOL} x "
+        f"{scale:.6e}), ratio_mean {ratio_k:.6e}, grad norm {gn_k:.6e} vs "
+        f"{gn_p:.6e} (rel tol {GRAD_NORM_REL_TOL})")
+    if not (math.isfinite(loss_k)
+            and abs(loss_k - loss_p) <= TRAIN12_LOSS_REL_TOL * scale
+            and abs(ratio_k - 1.0) <= TRAIN12_LOSS_REL_TOL):
+        fail("mamba2-130m train_4k: step 1's loss or logprobs with the "
+             "kernels disagree with the plain path's")
+    if not (gn_p > 0 and abs(gn_k - gn_p) <= GRAD_NORM_REL_TOL * gn_p):
+        fail("mamba2-130m train_4k: step 1's grad norm with the kernels "
+             "disagrees with the plain path's")
+    step = build_train_step(cfg, lr=TRAIN_LR)
+    steps = []
+    for i in range(CELL_TRAIN_STEPS):
+        b = batch(i + 1)
+        torch.cuda.synchronize()
+        t0 = clock()
+        state, m = step(state, b)
+        secs = clock() - t0
+        m = {k: float(v) for k, v in m.items()}
+        if not (math.isfinite(m["loss"]) and m["grad_norm"] > 0):
+            fail(f"mamba2-130m train_4k: step {i + 1} loss {m['loss']} "
+                 f"grad_norm {m['grad_norm']}")
+        steps.append(dict(m, seconds=secs, tokens_per_s=B * S / secs))
+        cell_line(torch, f"mamba2-130m train_4k step {i + 1}", B, S, secs,
+                  B * S, f"; loss {m['loss']:.6e}, grad_norm "
+                  f"{m['grad_norm']:.6e}")
+        del b
+    launches = cell_launches(cfg, "mamba2-130m train_4k", 0, 0,
+                             n_train_fwd=2 * (1 + CELL_TRAIN_STEPS))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(rows=B, length=S, loss_kernel=loss_k,
+                          loss_plain=loss_p, ratio_mean=ratio_k,
+                          grad_norm_kernel=gn_k, grad_norm_plain=gn_p,
+                          steps=steps, peak_gb=peak_gb(torch))
+
+
+def cells_phase(torch, InferenceEngine, clock, ops, ref):
+    """Phase 13: the five CELLS at full width, one data-parallel device's
+    rows each.  Returns (launches of the step functions, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    t_phase = clock()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-7b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        CELL_SEED), "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[cells] qwen2-7b: {cfg.n_layers} layers d={cfg.d_model} "
+        f"H={cfg.n_heads} K={cfg.n_kv_heads} dh={cfg.head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}; {n_params} params "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    total, summary = cells_qwen(torch, InferenceEngine, clock, ops, ref, cfg,
+                                params)
+    del params
+    for arch in ("mamba2-130m", "hymba-1.5b"):
+        launches, summary[f"{arch} long_500k"] = cell_long(
+            torch, InferenceEngine, clock, ops, ref, arch)
+        for k, n in launches.items():
+            total[k] += n
+    launches, summary["mamba2-130m train_4k"] = cell_train(torch, clock, ops,
+                                                           ref)
+    for k, n in launches.items():
+        total[k] += n
+    summary["seconds"] = clock() - t_phase
+    log(f"[cells] phase 13: {summary['seconds']:.1f} s; launches {total}")
+    return total, summary
+
+
 def _items(tree):
     from repro_torch.transfer.chunkstore import tree_items
     return list(tree_items(tree))
@@ -4498,7 +5151,7 @@ def main():
     pre, pre_cases = check_prefill(torch, F, ref, paged_prefill_attention)
     deq = check_dequant(torch, ref, fused_dequant)
     fla, fla_cases = check_flash(torch, F, ref, flash_attention)
-    slab = check_slab_decode(torch, F, ref, decode_attention)
+    slab, slab_long_row = check_slab_decode(torch, F, ref, decode_attention)
     gemma_rings = check_gemma_rings(torch, F, ref, decode_attention)
     served_paged = check_served_paged(torch, F, ref, paged_decode_attention,
                                       paged_prefill_attention)
@@ -4662,7 +5315,13 @@ def main():
         train12_launches, train12 = train12_phase(torch, InferenceEngine,
                                                   clock, ops, ref)
 
-    # ---- 13. summary ----
+    # ---- 13. the (arch x shape) cells' step functions ----
+    torch.cuda.empty_cache()
+    with graph_phase("13 cells"):
+        cells_launches, cells = cells_phase(torch, InferenceEngine, clock,
+                                            ops, ref)
+
+    # ---- 14. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -4682,14 +5341,15 @@ def main():
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
-        # phases 9-12 run the paged kernels and flash too (phase 11
-        # decode_attention, phase 12 ssd_scan): their launches add
+        # phases 9-13 run the paged kernels and flash too (phase 11
+        # decode_attention, phases 12-13 ssd_scan): their launches add
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces,
                          launches=(n[name] + rl_launches[name]
                                    + moe_launches[name]
                                    + gemma_launches[name]
-                                   + train12_launches[name]), **r))
+                                   + train12_launches[name]
+                                   + cells_launches[name]), **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -4703,7 +5363,8 @@ def main():
          "gemma_rings": gemma_rings, "served_paged": served_paged,
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
          "serve14b": serve14b, "rl": rl, "moe": moe_summary,
-         "gemma": gemma_summary, "train12": train12,
+         "gemma": gemma_summary, "train12": train12, "cells": cells,
+         "decode_32k_slab": slab_long_row,
          "graphs": GRAPHS,
          "serve_graph_engine": eng_graphs, "decode_profile": decode_profile,
          "prefill_profile": prefill_profile,

@@ -40,6 +40,10 @@ class ModelConfig:
     vocab_size: int
 
     pattern: Tuple[str, ...] = ("global",)
+    # logical head padding: q-heads padded to pad_heads (0 = none) at the
+    # tail of each GQA group, with zero output rows, so the model computes
+    # what the unpadded one does while the heads divide a 16-wide axis
+    pad_heads: int = 0
     window: int = 0                 # sliding window of local / hybrid mixers
     qkv_bias: bool = False
     qk_norm: bool = False
@@ -113,6 +117,10 @@ class ModelConfig:
                                    or self.n_heads % self.n_kv_heads):
             raise ValueError(f"{self.name}: n_heads must be a multiple of "
                              f"n_kv_heads")
+        if self.pad_heads and (self.pad_heads < self.n_heads
+                               or self.pad_heads % max(self.n_kv_heads, 1)):
+            raise ValueError(f"{self.name}: pad_heads must be at least "
+                             f"n_heads and a multiple of n_kv_heads")
         if self.has_ssm and self.ssm_state <= 0:
             raise ValueError(f"{self.name}: an SSM mixer needs ssm_state")
         if self.input_mode not in ("tokens", "embeds"):
@@ -124,6 +132,12 @@ class ModelConfig:
                              f"attention is a sliding window (window > 0)")
 
     # --- derived ---
+    @property
+    def n_heads_eff(self) -> int:
+        """Head count actually materialized (>= n_heads when pad_heads is
+        set); the padded heads sit at the tail of each GQA group."""
+        return self.pad_heads or self.n_heads
+
     @property
     def d_inner(self) -> int:
         """Mamba inner width."""
@@ -156,6 +170,12 @@ class ModelConfig:
     def is_decoder(self) -> bool:
         """Whether the arch has an autoregressive decode step."""
         return self.causal
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Decode memory O(1) / O(window) per token (long_500k runs)."""
+        return all(m in ("mamba", "local", "hybrid")
+                   for m in self.pattern + self.suffix_pattern)
 
     @property
     def n_groups(self) -> int:
@@ -267,6 +287,19 @@ def register(name: str):
         _REGISTRY[name] = fn
         return fn
     return deco
+
+
+def padded_variant(cfg: ModelConfig, axis: int = 16) -> ModelConfig:
+    """Smallest logical head padding making n_heads divisible by ``axis``
+    while keeping the GQA grouping; ``cfg`` unchanged if already divisible
+    or if padding would pass 2x the head count (the reference's rule)."""
+    H, K = cfg.n_heads, max(cfg.n_kv_heads, 1)
+    if H == 0 or H % axis == 0:
+        return cfg
+    for Hp in range(H + 1, 2 * H + 1):
+        if Hp % K == 0 and Hp % axis == 0:
+            return dataclasses.replace(cfg, pad_heads=Hp)
+    return cfg
 
 
 def get_config(name: str) -> ModelConfig:

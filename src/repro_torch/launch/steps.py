@@ -1,0 +1,84 @@
+"""Step functions of the (arch x shape) cells (port of
+``repro.launch.steps``), used by the dry run and by the card's smoke:
+
+  train_step(state, batch)            -> (state, metrics)
+  prefill_step(params, batch)         -> (next_tokens [B], cache)
+  serve_step(params, cache, tokens)   -> (next_tokens [B], cache)
+
+They run on the device their inputs lie on.  Next tokens are the greedy
+argmax (int32) of the last position's logits.  The cache is the slab
+cache (``models.kv_cache.init_cache``), written in place: the one a
+serve step returns holds the same leaves as the one it was given, with
+``pos`` advanced.  ``return_logits=True`` appends the last position's
+f32 logits [B, V] to what a prefill or serve step returns.
+
+An encoder-only config (hubert) has no cache and no decode step: its
+prefill step runs the bidirectional forward (train mode, no gradient)
+and returns the argmax with an empty cache, where the reference fills a
+slab that no step reads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch.specs import SLAB_MARGIN
+from repro_torch.models import kv_cache as kvc
+from repro_torch.models.transformer import forward, logits_from_hidden
+from repro_torch.rl import grpo
+
+
+def build_train_step(cfg: ModelConfig, *, lr: float = 1e-5,
+                     kl_coef: float = 0.0, remat: bool = True):
+    """GRPO steps for a decoder, ``supervised_loss`` steps for an encoder
+    (``rl.grpo.make_train_step``); ``remat`` recomputes each layer in the
+    backward pass, as the reference's runtime does by default."""
+    return grpo.make_train_step(cfg, lr=lr, kl_coef=kl_coef, remat=remat)
+
+
+def _greedy(params, cfg, hidden_last, return_logits: bool, *rest):
+    logits = logits_from_hidden(params, cfg, hidden_last)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    return (nxt, *rest, logits) if return_logits else (nxt, *rest)
+
+
+def build_prefill_step(cfg: ModelConfig, *, slab_len: int,
+                       cache_dtype=torch.bfloat16,
+                       return_logits: bool = False):
+    @torch.no_grad()
+    def prefill_step(params, batch: Dict):
+        tokens, embeds = batch.get("tokens"), batch.get("embeds")
+        if not cfg.is_decoder:
+            out = forward(params, cfg, tokens=tokens, embeds=embeds,
+                          mode="train")
+            return _greedy(params, cfg, out["hidden"][:, -1], return_logits,
+                           {})
+        x = tokens if tokens is not None else embeds
+        cache = kvc.init_cache(cfg, x.shape[0], slab_len, cache_dtype,
+                               device=x.device)
+        out = forward(params, cfg, tokens=tokens, embeds=embeds,
+                      cache=cache, mode="prefill")
+        return _greedy(params, cfg, out["hidden"][:, -1], return_logits,
+                       dict(cache, pos=out["pos"]))
+    return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig, *, return_logits: bool = False):
+    @torch.no_grad()
+    def serve_step(params, cache, tokens):
+        out = forward(params, cfg, tokens=tokens, cache=cache, mode="decode")
+        return _greedy(params, cfg, out["hidden"][:, 0], return_logits,
+                       dict(cache, pos=out["pos"]))
+    return serve_step
+
+
+def step_for_shape(cfg: ModelConfig, shape: ShapeSpec):
+    if shape.kind == "train":
+        return build_train_step(cfg)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, slab_len=shape.seq_len + SLAB_MARGIN)
+    return build_serve_step(cfg)

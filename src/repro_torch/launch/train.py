@@ -14,8 +14,10 @@ from the seed, and a decoder among them scores random tokens as well.
 Runs on the GPU unless ``--device cpu``.  Weights are random, drawn from
 ``--seed``; the batch of step i is drawn from a generator seeded with
 (seed, i), so a resumed run sees the batches the uninterrupted one would.
-One card, no mesh: the reference's ``--data`` / ``--model`` / ``--recipe``
-flags are refused.
+``--data`` / ``--model`` / ``--recipe`` are the reference's mesh flags: a
+1 x 1 mesh trains on one device exactly as without them (the reference's
+``mesh.size == 1`` branch); a larger mesh is refused, since the
+multi-rank sharded trainer is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import get_config
 from repro_torch.data import tokenizer as tok
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import init_params
 from repro_torch.rl import grpo
 
@@ -74,14 +77,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=5)
-    for flag in ("--data", "--model", "--recipe"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--recipe", default="fsdp_tp", choices=shd.RECIPES)
     args = ap.parse_args(argv)
-    given = [f"--{f}" for f in ("data", "model", "recipe")
-             if getattr(args, f) is not None]
-    if given:
-        ap.error(f"{', '.join(given)}: the port trains on one GPU; mesh "
-                 f"flags do not apply")
+    if args.data < 1 or args.model < 1:
+        ap.error("--data and --model must be at least 1")
+    if args.data * args.model > 1:
+        ap.error(f"a {args.data} x {args.model} mesh: the multi-rank "
+                 f"sharded trainer is not ported yet; the port trains on "
+                 f"one device (--data 1 --model 1)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

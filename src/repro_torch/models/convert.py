@@ -63,10 +63,10 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None) -> Dict:
         want["post_ln2"] = (G, D)
     for i in range(len(cfg.suffix_pattern)):
         got[f"suffix.{i}.attn.wq"] = shape("suffix", str(i), "attn", "wq")
-        want[f"suffix.{i}.attn.wq"] = (D, cfg.n_heads, cfg.head_dim)
+        want[f"suffix.{i}.attn.wq"] = (D, cfg.n_heads_eff, cfg.head_dim)
     if cfg.has_attention:
         got["attn.wq"] = shape(*layer, "attn", "wq")
-        want["attn.wq"] = (G, D, cfg.n_heads, cfg.head_dim)
+        want["attn.wq"] = (G, D, cfg.n_heads_eff, cfg.head_dim)
     if cfg.has_ssm:
         got["mamba.in_proj"] = shape(*layer, "mamba", "in_proj")
         want["mamba.in_proj"] = (G, D, 2 * cfg.d_inner + 2 * cfg.ssm_groups

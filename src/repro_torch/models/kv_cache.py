@@ -40,6 +40,14 @@ allocates new pools, so callers never keep a pool across it.
 ``gather_pages`` / ``scatter_pages`` and ``gather_slot_rows`` /
 ``scatter_slot_rows`` carry pages and per-slot rows to and from the host
 for KV migration, keyed as the reference's cache tree keys its leaves.
+
+The slab cache (``init_cache``) is the other layout: the reference's
+decode cache tree itself, ``pos`` beside ``prefix/{i}``, ``groups/sub{j}``
+(stacked over the groups) and ``suffix/{i}``, with a [B, T, K, dh] slab
+per global layer (position p at slot p), a ring per local or hybrid layer
+and conv + SSM state per mamba mixer.  The (arch x shape) cells' step
+functions (``launch/steps.py``) prefill into it and decode from it;
+``slice_batch`` / ``update_batch`` move rows between two of them.
 """
 
 from __future__ import annotations
@@ -432,12 +440,14 @@ def ring_positions(pos, W: int):
     return torch.where(p >= 0, p, torch.full_like(p, -1))
 
 
-def write_decode_kv(cache_k, cache_v, new_k, new_v, pos):
-    """Write one token's K/V into each row's ring at slot pos % W, in
-    place.  cache_k/v: [B, W, K, dh]; new_k/v: [B, K, dh]; pos: [B]."""
+def write_decode_kv(cache_k, cache_v, new_k, new_v, pos, *,
+                    ring: bool = True):
+    """Write one token's K/V at each row's position, in place: into a ring
+    at slot pos % W, or (``ring=False``) into a slab at slot pos.
+    cache_k/v: [B, W, K, dh]; new_k/v: [B, K, dh]; pos: [B]."""
     B, W = cache_k.shape[:2]
     b = torch.arange(B, device=cache_k.device)
-    slot = pos.long() % W
+    slot = pos.long() % W if ring else pos.long()
     cache_k.index_put_((b, slot), new_k.to(cache_k.dtype))
     cache_v.index_put_((b, slot), new_v.to(cache_v.dtype))
 
@@ -460,3 +470,99 @@ def prefill_fill_ring(cache_k, cache_v, k, v, lens=None):
     vv = v.gather(1, src).to(cache_v.dtype)
     cache_k.copy_(torch.where(valid, kk, cache_k))
     cache_v.copy_(torch.where(valid, vv, cache_v))
+
+
+# --------------------------------------------------------------------------- #
+# the slab cache: the reference's decode cache tree, for the (arch x shape)
+# cells' step functions (``launch/steps.py``)
+# --------------------------------------------------------------------------- #
+def attn_cache_shape(cfg, mixer: str, batch: int, slab_len: int):
+    """[B, T, K, dh]: a global layer's slab of ``slab_len`` slots, a local
+    or hybrid layer's ring of min(window, slab_len)."""
+    if mixer == "global":
+        T = slab_len
+    else:
+        T = min(cfg.window, slab_len) if cfg.window else slab_len
+    return (batch, T, cfg.n_kv_heads, cfg.head_dim)
+
+
+def init_layer_cache(cfg, mixer: str, batch: int, slab_len: int, dtype,
+                     device, lead: Tuple[int, ...] = ()) -> Dict:
+    """One layer's zeroed leaves (``lead``: a leading group axis): k / v
+    in ``dtype`` for attention, f32 conv and SSM state for a mamba
+    mixer."""
+    c: Dict = {}
+    if mixer in ("global", "local", "hybrid"):
+        shape = lead + attn_cache_shape(cfg, mixer, batch, slab_len)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if mixer in ("mamba", "hybrid"):
+        c["conv"] = torch.zeros(lead + (batch, cfg.ssm_conv - 1,
+                                        cfg.conv_dim), device=device)
+        c["ssm"] = torch.zeros(lead + (batch, cfg.ssm_nheads,
+                                       cfg.ssm_headdim, cfg.ssm_state),
+                               device=device)
+    return c
+
+
+def init_cache(cfg, batch: int, slab_len: int, dtype=torch.bfloat16,
+               device=None) -> Dict:
+    """Fresh slab cache for the whole model, the reference's tree:
+    ``pos`` [B] int32, ``prefix/{i}``, ``groups/sub{j}`` (leaves stacked
+    on a leading group axis) and ``suffix/{i}``, each layer's leaves those
+    of ``init_layer_cache``.  ``device=None`` means CUDA (raises when
+    absent); ``torch.device("meta")`` allocates nothing."""
+    device = resolve_device(device)
+    mixers = cfg.layer_mixers()
+    mk = functools.partial(init_layer_cache, cfg, batch=batch,
+                           slab_len=slab_len, dtype=dtype, device=device)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "prefix": {str(i): mk(mixers[i])
+                       for i in range(cfg.first_k_dense)},
+            "groups": {f"sub{j}": mk(mixer, lead=(cfg.n_groups,))
+                       for j, mixer in enumerate(cfg.pattern)},
+            "suffix": {str(i): mk(mixer)
+                       for i, mixer in enumerate(cfg.suffix_pattern)}}
+
+
+def is_slab_cache(cache) -> bool:
+    return "groups" in cache
+
+
+def _map_rows(cache, fn, *rest):
+    """``fn(leaf, batch axis, *leaves of rest)`` over a slab cache's
+    leaves (a group-stacked leaf's batch axis is 1)."""
+    def walk(t, rs, axis):
+        return {k: walk(v, [r[k] for r in rs], 1 if k == "groups" else axis)
+                if isinstance(v, dict) else fn(v, axis, *(r[k] for r in rs))
+                for k, v in t.items()}
+    return walk(cache, list(rest), 0)
+
+
+def slice_batch(cache, idx: int, size: int = 1) -> Dict:
+    """Rows idx .. idx + size - 1 of every leaf of a slab cache (views)."""
+    return _map_rows(cache, lambda c, ax: c.narrow(ax, idx, size))
+
+
+def update_batch(cache, row, idx: int) -> Dict:
+    """Write the rows of ``row`` (a slab cache sliced by
+    :func:`slice_batch`, or prefilled with its batch) back at batch
+    position ``idx``, in place; returns ``cache``."""
+    def put(c, ax, r):
+        c.narrow(ax, idx, r.shape[ax]).copy_(r)
+        return c
+    _map_rows(cache, put, row)
+    return cache
+
+
+def slab_positions(pos, T: int):
+    """[B, T]: slot t holds position t if t < pos else -1."""
+    t = torch.arange(T, dtype=torch.int64, device=pos.device)[None, :]
+    return torch.where(t < pos.long()[:, None], t, torch.full_like(t, -1))
+
+
+def prefill_fill_slab(cache_k, cache_v, k, v):
+    """Place prefill K/V [B, L, K, dh] at slab slots 0..L-1, in place."""
+    L = k.shape[1]
+    cache_k[:, :L].copy_(k)
+    cache_v[:, :L].copy_(v)

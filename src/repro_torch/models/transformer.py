@@ -31,7 +31,13 @@ local or hybrid layer's attention is the sliding window, with RoPE at
 (``kv_cache``): a prefill (always the whole context) attends through the
 flash kernel with the window and fills the ring; a decode step attends the
 ring through the slab decode kernel, whose valid slots are the first
-min(pos + 1, W).  Global layers keep the paged pools.  Mamba mixers scan
+min(pos + 1, W).  Global layers keep the paged pools, or, given no
+``paged`` and a slab cache (``kv_cache.init_cache``, the reference's
+tree), a [B, T, K, dh] slab: a prefill attends through the flash kernel
+and fills slots 0..S-1, a decode step writes slot pos and attends slots
+0..pos through the slab decode kernel (the reference attends a slab with
+its jnp ``attention_decode``).  ``prefill`` / ``decode_step`` are the
+slab cache's entry points.  Mamba mixers scan
 through ``ops.ssd`` in train and prefill (``models.ssm``); a hybrid layer
 trains its attention and SSM branches together.
 """
@@ -69,7 +75,7 @@ def _init_layers(cfg: ModelConfig, g, dt, device, L, mixer: str,
                  mlp_kind: str, d_ff: int) -> Dict:
     """The params of ``L`` layers stacked on a leading axis (``L=None``:
     one layer, no axis), with ``mixer`` and ``mlp_kind``."""
-    D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    D, H, K, dh = cfg.d_model, cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
     lead = () if L is None else (L,)
 
     def zeros(*shape, dtype=torch.float32):
@@ -81,6 +87,12 @@ def _init_layers(cfg: ModelConfig, g, dt, device, L, mixer: str,
                 "wk": dense_init(g, (D, K, dh), D, dt, device, L),
                 "wv": dense_init(g, (D, K, dh), D, dt, device, L),
                 "wo": dense_init(g, (H, dh, D), H * dh, dt, device, L)}
+        if cfg.pad_heads:
+            # the heads at the tail of each GQA group are padding: zero
+            # output rows, so they contribute nothing
+            alive = (torch.arange(H, device=device) % (H // K)
+                     < cfg.n_heads // K)
+            attn["wo"].mul_(alive[:, None, None].to(dt))
         if cfg.qkv_bias:
             attn.update(bq=zeros(H, dh, dtype=dt), bk=zeros(K, dh, dtype=dt),
                         bv=zeros(K, dh, dtype=dt))
@@ -184,7 +196,7 @@ def _layer_params(params, cfg: ModelConfig, i: int):
 def _attn_apply(p, h, cfg: ModelConfig, local: bool, mode: str, lc,
                 positions, lens, paged):
     B, S, D = h.shape
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, K, dh = cfg.n_heads_eff, cfg.n_kv_heads, cfg.head_dim
     q = (h @ p["wq"].reshape(D, H * dh)).view(B, S, H, dh)
     k = (h @ p["wk"].reshape(D, K * dh)).view(B, S, K, dh)
     v = (h @ p["wv"].reshape(D, K * dh)).view(B, S, K, dh)
@@ -201,20 +213,26 @@ def _attn_apply(p, h, cfg: ModelConfig, local: bool, mode: str, lc,
     q = apply_rope(q, positions, inv)
     k = apply_rope(k, positions, inv)
     wo = p["wo"].reshape(H * dh, D)
-    if mode == "train" or (local and mode == "prefill"):
+    # a global layer without pages keeps a slab: position p at slot p
+    slab = paged is None and not local
+    if mode == "train" or (mode == "prefill" and (local or slab)):
         # unscaled q: the flash attention scales by dh**-0.5 itself
         out = ops.attention_bshd(q, k, v, causal=cfg.causal,
                                  window=cfg.window if local and cfg.causal
                                  else 0, cap=cfg.attn_softcap)
-        if mode == "prefill":
+        if mode == "prefill" and local:
             kvc.prefill_fill_ring(lc["k"], lc["v"], k, v, lens)
+        elif mode == "prefill":
+            kvc.prefill_fill_slab(lc["k"], lc["v"], k, v)
         return out.reshape(B, S, H * dh) @ wo
     q = q * (dh ** -0.5)
-    if local:                                            # ring decode
+    if local or slab:                                    # ring / slab decode
         pos = positions[:, 0]
-        kvc.write_decode_kv(lc["k"], lc["v"], k[:, 0], v[:, 0], pos)
-        # W <= window, so after writing pos the ring holds exactly the
-        # positions in the window, in its first min(pos + 1, W) slots
+        kvc.write_decode_kv(lc["k"], lc["v"], k[:, 0], v[:, 0], pos,
+                            ring=local)
+        # a ring has W <= window slots, so after writing pos it holds
+        # exactly the positions in the window, in its first min(pos + 1,
+        # W) slots; a slab holds positions 0..pos in its first pos + 1
         W = lc["k"].shape[1]
         lengths = torch.clamp(pos + 1, max=W).to(torch.int32)
         out = ops.decode_bshd(q, lc["k"], lc["v"], lengths,
@@ -327,7 +345,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, mode: str,
              rings and SSM state IN PLACE into ``cache``, whose per-slot
              leaves hold one row per prefill row.
     paged["block_tables"]: [B, nb] int32, padded with the garbage page
-    (global attention only).
+    (global attention only).  With a slab cache (``kv_cache.init_cache``)
+    ``paged`` is None and each layer reads its leaves from the cache's
+    tree.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
@@ -372,7 +392,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, mode: str,
             x, a = checkpoint(layer, x, use_reentrant=False) if remat \
                 else layer(x)
         else:
-            lc = {k: cache[k][j] for k, j in slots.items()}
+            lc = (_layer_params(cache, cfg, i) if kvc.is_slab_cache(cache)
+                  else {k: cache[k][j] for k, j in slots.items()})
             x, a = _apply_layer(p, x, cfg, mixer, kind, mode, lc, positions,
                                 lens, paged, seq_mask)
         if a is not None:
@@ -413,3 +434,31 @@ def token_logprobs(params, cfg: ModelConfig, hidden, targets,
     return torch.cat([checkpoint(one, hidden[:, i:i + block],
                                  targets[:, i:i + block], use_reentrant=False)
                       for i in range(0, S, block)], dim=1)
+
+
+# --------------------------------------------------------------------------- #
+# entry points on the slab cache
+# --------------------------------------------------------------------------- #
+def prefill(params, cfg: ModelConfig, tokens=None, embeds=None,
+            seq_mask=None, cache=None, slab_len: Optional[int] = None,
+            cache_dtype=torch.bfloat16) -> Dict:
+    """Prefill a whole context into a slab cache (``kv_cache.init_cache``,
+    made here with ``slab_len`` slots, default the context's length, when
+    ``cache`` is None).  Returns {"hidden": [B, S, D], "cache": the cache
+    with ``pos`` set to each row's length}; the cache's other leaves are
+    written in place."""
+    x = tokens if tokens is not None else embeds
+    if cache is None:
+        cache = kvc.init_cache(cfg, x.shape[0], slab_len or x.shape[1],
+                               cache_dtype, device=x.device)
+    out = forward(params, cfg, tokens=tokens, embeds=embeds, mode="prefill",
+                  cache=cache, seq_mask=seq_mask)
+    return {"hidden": out["hidden"], "cache": dict(cache, pos=out["pos"])}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache) -> Dict:
+    """One token a row ([B] int) against a slab cache at its ``pos``.
+    Returns {"hidden": [B, 1, D], "cache": the cache with ``pos`` + 1};
+    the new K/V and SSM state are written into its leaves in place."""
+    out = forward(params, cfg, tokens=tokens, mode="decode", cache=cache)
+    return {"hidden": out["hidden"], "cache": dict(cache, pos=out["pos"])}

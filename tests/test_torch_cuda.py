@@ -29,7 +29,12 @@ of 256 and at gemma2's G = 2 with a softcap of 50, and a tiny gemma3's
 decode horizon as a graph; the flash attention at hubert's d = 80
 (bidirectional), and the gradients of ``ops.ssd`` (the kernel's forward,
 the recomputed plain backward) against autograd through the plain
-scan.  The MoE layer with drops gives the same bits on
+scan; and at the (arch x shape) cells' lengths, the flash attention at S
+= 32,768 (G = 7) and at S = 524,288 with a window (first and last 128
+query rows against the plain attention of those rows), the slab decode
+over decode_32k's slab of 32,896 slots, and the scan over 524,288
+positions against the plain chunked scan run in segments.  The MoE layer
+with drops gives the same bits on
 a second launch and the CPU's drop set.  The engine's decode horizon as a
 CUDA graph, on a tiny dense, a tiny MoE and a tiny hybrid config: replayed tokens and logprobs
 bit-equal to eager H=8 and to eager H=1 at temperature 0 and 1, and
@@ -724,6 +729,108 @@ def test_ssd_function_grads_match_plain_autograd_on_card(cuda, b, L, H, G,
         assert _rel(g, w) < SSD_TOL["float32"]
     for g, w in zip(got, want):
         assert _rel(g, w) < 1e-4
+
+
+# ----------------- the (arch x shape) cells' kernel shapes --------------- #
+# The inputs here are drawn on the card from seeded torch generators: numpy
+# would spend seconds drawing the 524,288-position ones on the host.
+CELL_FLASH = [(2, 28, 4, 32768, 128, True, 0),       # qwen2-7b prefill_32k
+              (1, 25, 5, 524288, 64, True, 1024)]    # hymba long_500k
+CELL_SSD = [(1, 524288, 24, 1, 64, 128, 64),         # mamba2-130m long_500k
+            (1, 524288, 50, 1, 64, 16, 64)]          # hymba long_500k
+
+
+def _flash_rows_plain(q, k, v, i0, i1, causal, window):
+    """The plain attention of query rows i0..i1-1 against every key they
+    see, f32 (q [B, H, S, d] unscaled): the whole [S, S] would not fit."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    j0 = max(0, i0 - window + 1) if window else 0
+    j1 = i1 if causal else S
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i0:i1].float() * d ** -0.5,
+                     k[:, :, j0:j1].float().repeat_interleave(G, dim=1))
+    qi = torch.arange(i0, i1, device=q.device)[:, None]
+    kj = torch.arange(j0, j1, device=q.device)[None]
+    keep = torch.ones_like(qi - kj, dtype=torch.bool)
+    if causal:
+        keep &= kj <= qi
+    if window:
+        keep &= (qi - kj) < window
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v[:, :, j0:j1].float().repeat_interleave(G, dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CELL_FLASH)
+def test_flash_at_cell_shapes_on_card(cuda, case):
+    """bf16 flash at the cells' lengths (S = 32,768 with G = 7; S =
+    524,288 with a window of 1024, d = 64), head-major views of [B, S,
+    heads, d]: the first and last 128 query rows within the bf16 gate of
+    the plain attention of those rows, a second launch bit-identical."""
+    B, H, K, S, d, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(25)
+    q, k, v = (torch.randn(B, S, n, d, generator=g, device=cuda)
+               .bfloat16().transpose(1, 2) for n in (H, K, K))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    tol = FLASH_TOL["bfloat16"]
+    for i0 in (0, S - 128):
+        want = _flash_rows_plain(q, k, v, i0, i0 + 128, causal, window)
+        got = out[:, :, i0:i0 + 128].float()
+        assert bool(((got - want).abs() <= tol * (1 + want.abs())).all())
+
+
+@pytest.mark.cuda
+def test_slab_decode_at_decode_32k_on_card(cuda):
+    """decode_attention on decode_32k's 8-row bf16 slab of 32,896 slots
+    (q pre-scaled, scale 1.0, lengths 32,769-32,772) within 2e-2 of its
+    plain version, whole."""
+    B, H, K, T, d = 8, 28, 4, 32896, 128
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q = (torch.randn(B, H, d, generator=g, device=cuda) * d ** -0.5
+         ).bfloat16()
+    k, v = (torch.randn(B, T, K, d, generator=g, device=cuda).bfloat16()
+            .transpose(1, 2) for _ in range(2))
+    lens = torch.tensor([32769, 32770, 32771, 32772] * 2, dtype=torch.int32,
+                        device=cuda)
+    out = decode_attention(q, k, v, lens, scale=1.0)
+    want = ref.decode_attention_ref(q, k, v, lens, scale=1.0)
+    assert _err(out, want) <= FLASH_TOL["bfloat16"] * (
+        1 + float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CELL_SSD)
+def test_ssd_at_long_500k_on_card(cuda, case):
+    """The scan over 524,288 positions (8,192 chunks) in f32 against the
+    plain chunked scan run in segments of 32,768 carrying the state (the
+    sequential plain scan would take 524,288 steps): y and the final state
+    within a relative 2e-5."""
+    from repro_torch.models.ssm import ssd_chunked
+    b, L, H, G, P, N, chunk = case
+    g = torch.Generator(device=cuda).manual_seed(27)
+    x = torch.randn(b, L, H, P, generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=g,
+                                                  device=cuda))
+    A = -torch.exp(torch.randn(H, generator=g, device=cuda) * 0.3)
+    Bm, Cm = (torch.randn(b, L, G, N, generator=g, device=cuda)
+              for _ in range(2))
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    state = torch.zeros(b, H, P, N, device=cuda)
+    rep, seg = H // G, 32768
+    for s0 in range(0, L, seg):
+        sl = slice(s0, s0 + seg)
+        ys, ss = ssd_chunked(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl],
+                             chunk=chunk)
+        cum = torch.cumsum(dt[:, sl] * A, dim=1)
+        ys += torch.einsum("blhn,bhpn->blhp",
+                           Cm[:, sl].repeat_interleave(rep, dim=2),
+                           state) * torch.exp(cum)[..., None]
+        state = ss + torch.exp(cum[:, -1])[:, :, None, None] * state
+        assert _rel(y[:, sl], ys) < SSD_TOL["float32"]
+    assert _rel(st, state) < SSD_TOL["float32"]
 
 
 @pytest.mark.cuda
