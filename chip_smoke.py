@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 with its table padded to 2 nb and rows appended (splits
                 fixed in position space), and both paged kernels on a
                 second launch; the paged decode timed at split lengths
-                of 32, 64 and 128 positions (SPLIT_SWEEP); both paged
+                of 64, 128 and 256 positions (SPLIT_SWEEP); both paged
                 kernels again at the shapes phase 11 serves
                 (SERVED_PAGED: decode tables as wide as the rows' last
                 positions, up to 4232; the whole mix prefilled in one
@@ -58,7 +58,10 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 S=524,288 with a window of 1024 (the first and last 128
                 query rows against the plain attention of those rows;
                 SDPA where it takes the shape), ``decode_attention`` on
-                decode_32k's slab (B=8, T=32,896, bf16, whole), the scan
+                decode_32k's slab (B=8, T=32,896, bf16, whole; its split
+                count, CTAs and SPLIT_CAP logged, and timed at each
+                SPLIT_CAP of SPLIT_CAP_SWEEP, every one held against the
+                plain version), the scan
                 over 524,288 positions (Mamba2's and Hymba's heads, whole,
                 against the plain chunked scan in segments carrying the
                 state); max error against the stated
@@ -300,9 +303,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNELS = []        # the kernel wrappers, each with its ``launches`` count
 GRAPHS = {}         # phase -> its horizon-cache row (``graph_phase``)
-# time_ms: clock cycles the card spins before each timed call, ~0.1 ms at
-# the H100's ~1.8 GHz, more than a wrapper's host time
-SPIN_CYCLES = 200_000
+# time_ms: clock cycles the card spins before each timed call, ~0.5 ms at
+# the H100's ~1.8-2 GHz, more than a wrapper's host time even when the
+# host is slow (at 200,000 cycles, ~0.1 ms, a decode kernel's timed mean
+# now and then came out up to twice that of its repeat)
+SPIN_CYCLES = 1_000_000
 
 # H100 SXM published dense peaks: HBM3 bandwidth; the TF32 tensor-core rate
 # (the card's fastest for products with an f32 pool operand), the bf16
@@ -421,8 +426,9 @@ DECODE_CASES = (("qwen3-8b", 32, 8, 128, 0.0), ("qwen3-32b", 40, 8, 128, 0.0),
 # with page 0 and three rows appended (a full doubled table, one position,
 # a ragged length); the original rows' outputs must not change by a bit
 DECODE_EXTRA_LENS = (1024, 1, 100)
-# split lengths of the paged decode timed against each other
-SPLIT_SWEEP = (32, 64, 128)
+# split lengths of the paged decode timed against each other: multiples
+# of 64, the tensor-core body's largest tile
+SPLIT_SWEEP = (64, 128, 256)
 # paged prefill at every GQA geometry the port registers, (name, H, K, C,
 # d, cap), then a single-query chunk and a ragged one at Qwen3-8B's
 PREFILL_CASES = (("qwen3-8b", 32, 8, 128, 128, 0.0),
@@ -587,6 +593,10 @@ FLASH_LONG_ROWS = 128
 # q pre-scaled), the lengths of its 4 serve steps
 SLAB_LONG = (8, 28, 4, 32896, 128)
 SLAB_LONG_LENS = (32769, 32770, 32771, 32772, 32772, 32771, 32770, 32769)
+# the slab planner's longest split (decode_attention.SPLIT_CAP), timed at
+# decode_32k's slab against each other: 129, 65, 33 and 17 splits a row,
+# and 9 at 4096 (two CTAs an SM alone, the plan before the cap)
+SPLIT_CAP_SWEEP = (256, 512, 1024, 2048, 4096)
 # the scan at long_500k (b, L, H, G, P, N, chunk): held whole against the
 # plain chunked scan run in segments of SSD_LONG_SEGMENT positions
 # carrying the state (the sequential plain scan would take 524,288 steps)
@@ -749,6 +759,9 @@ def check_decode(torch, F, ref, kern):
         flops = 4 * n_kv * H * d                # bf16 q x f32 pool: TF32
         b_ms, b_by = bound(nbytes, [(flops, TF32_FLOP_PER_S)])
         lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        passes = kernel_passes(torch, lambda: kern(q, kp, vp, bt, lens,
+                                                   scale=1.0, cap=cap),
+                               DECODE_PASSES, n=20)
         log(f"[kernels] paged_decode_attention {name} B={B} H={H} K={K} "
             f"G={H // K} d={d} cap={cap} ps={ps} nb={nb} lens={lens_l} "
             f"(splits of "
@@ -758,10 +771,12 @@ def check_decode(torch, F, ref, kern):
             f"{len(DECODE_EXTRA_LENS)} rows added, and on a second launch; "
             f"kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {lib_s}, bound "
-            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop); device ms "
+            f"a call by kernel (profiler, L2 flushed): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
         rows[name] = dict(max_abs_err=max(err, errm), ms=ms,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=lib_ms)
+                          library_ms=lib_ms, passes_ms=passes)
         del q, kp, vp, kpm, qm, out, outm, want, wantm, kd, vd, qd
         torch.cuda.empty_cache()
     # the summary carries Qwen3-8B and the worst error of every case
@@ -1410,8 +1425,13 @@ def slab_long(torch, F, ref, kern):
     scaled, over a bf16 [B, T, K, d] slab read as views, the lengths of
     its serve steps) held whole against its plain version at KERNEL_TOL,
     a second launch bit-identical, timed against the plain version, one
-    SDPA call and the bound."""
+    SDPA call and the bound; its split count, CTAs and SPLIT_CAP logged.
+    Then the planner's SPLIT_CAP swept over SPLIT_CAP_SWEEP, timed in
+    turns (each value twice, in both orders), each held at KERNEL_TOL;
+    the constant is restored afterwards."""
+    import repro_torch.kernels.decode_attention as da
     B, H, K, T, d = SLAB_LONG
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(15)
     q = (torch.randn(B, H, d, generator=g, device="cuda")
          * d ** -0.5).bfloat16()
@@ -1425,9 +1445,8 @@ def slab_long(torch, F, ref, kern):
     if not torch.equal(again, out):
         fail("decode_attention decode_32k: a second launch on the same "
              "inputs is not bit-identical")
-    err = within(torch, out, ref.decode_attention_ref(q, k, v, lens,
-                                                      scale=1.0),
-                 KERNEL_TOL, "decode_attention decode_32k")
+    want = ref.decode_attention_ref(q, k, v, lens, scale=1.0)
+    err = within(torch, out, want, KERNEL_TOL, "decode_attention decode_32k")
     del out, again
     mask = (torch.arange(T, device="cuda")[None] < lens[:, None])[:, None,
                                                                   None]
@@ -1442,16 +1461,45 @@ def slab_long(torch, F, ref, kern):
     nbytes = 2 * n_kv * K * d * 2 + 2 * B * H * d * 2 + B * 4
     flops = 4 * n_kv * H * d
     b_ms, b_by = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+    passes = kernel_passes(torch, lambda: kern(q, k, v, lens, scale=1.0),
+                           DECODE_PASSES, n=10)
+    n_split = da.plan_splits(B, K, T, sms)
+    # bf16 q: one CTA per (split, block of 8 query heads of a KV head, row)
+    ctas = n_split * K * -(-(H // K) // 8) * B
     log(f"[kernels] decode_attention decode_32k B={B} H={H} K={K} T={T} "
-        f"d={d} lens={list(SLAB_LONG_LENS)} (bf16 q and slab): "
+        f"d={d} lens={list(SLAB_LONG_LENS)} (bf16 q and slab; {n_split} "
+        f"splits a row, {ctas} CTAs, SPLIT_CAP {da.SPLIT_CAP}): "
         f"max_abs_err={err:.3e} (tol {KERNEL_TOL} abs + rel), a second "
         f"launch bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
-        f"B, {flops} flop)")
-    del q, slab_k, slab_v, k, v
+        f"B, {flops} flop); device ms a call by kernel (profiler, L2 "
+        f"flushed): " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+    keep = da.SPLIT_CAP
+    sweep = {c: dict(n_split=0, ms=[]) for c in SPLIT_CAP_SWEEP}
+    try:
+        for cap_n in SPLIT_CAP_SWEEP + SPLIT_CAP_SWEEP[::-1]:
+            da.SPLIT_CAP = cap_n
+            sweep[cap_n]["n_split"] = da.plan_splits(B, K, T, sms)
+            got = kern(q, k, v, lens, scale=1.0)
+            torch.cuda.synchronize()
+            within(torch, got, want, KERNEL_TOL,
+                   f"decode_attention decode_32k SPLIT_CAP {cap_n}")
+            del got
+            sweep[cap_n]["ms"].append(time_ms(
+                lambda: kern(q, k, v, lens, scale=1.0), torch, iters=30))
+    finally:
+        da.SPLIT_CAP = keep
+    log("[kernels] decode_attention decode_32k SPLIT_CAP sweep (within "
+        f"{KERNEL_TOL} of plain at each): "
+        + ", ".join(f"{c} ({r['n_split']} splits): "
+                    f"{' / '.join(f'{t:.4f}' for t in r['ms'])} ms"
+                    for c, r in sweep.items())
+        + f"; sdpa {lib_ms:.4f} ms (the planner caps at {keep})")
+    del q, slab_k, slab_v, k, v, want
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, n_split=n_split, ctas=ctas,
+                split_cap=keep, cap_sweep=sweep, passes_ms=passes)
 
 
 def check_gemma_rings(torch, F, ref, kern):
@@ -1565,9 +1613,10 @@ def ssd_bound(b, L, H, G, P, N, chunk):
                 f32_by=f32_by)
 
 
-def ssd_passes(torch, fn, n: int = 5):
-    """Device ms of each of the scan's kernels, one call of ``fn`` (the
-    mean of ``n`` calls under torch.profiler, L2 flushed before each)."""
+def kernel_passes(torch, fn, pattern: str, n: int = 5):
+    """Device ms of each kernel whose name matches ``pattern``, one call of
+    ``fn`` (the mean of ``n`` calls under torch.profiler, L2 flushed
+    before each)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1579,10 +1628,14 @@ def ssd_passes(torch, fn, n: int = 5):
         torch.cuda.synchronize()
     out = {}
     for ms, _, name in device_rows(prof):
-        m = re.search(r"ssd_\w+_kernel", name)
+        m = re.search(pattern, name)
         if m:
             out[m.group(0)] = out.get(m.group(0), 0.0) + ms / n
     return out
+
+
+# the decode kernels' two launches: kernel 1 (either wrapper's) and the merge
+DECODE_PASSES = r"\w+_decode_split_kernel|split_merge_kernel"
 
 
 def ssd_served(torch, g, ref, kern, shape, what: str,
@@ -1607,7 +1660,8 @@ def ssd_served(torch, g, ref, kern, shape, what: str,
     err = max(float((y - yr).abs().max()), float((st - sr).abs().max()))
     del y, st, y2, st2, yr, sr
     ms = time_ms(lambda: kern(*args, chunk=chunk), torch)
-    passes = ssd_passes(torch, lambda: kern(*args, chunk=chunk))
+    passes = kernel_passes(torch, lambda: kern(*args, chunk=chunk),
+                           r"ssd_\w+_kernel")
     bd = ssd_bound(b, L, H, G, P, N, chunk)
     log(f"[kernels] ssd_scan {what} b={b} L={L} H={H} G={G} P={P} N={N} "
         f"chunk={chunk} (f32 strided slices, lens="

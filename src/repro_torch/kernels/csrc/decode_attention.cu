@@ -13,31 +13,30 @@
 // elements for its n live slots and does about 4 * G flops per element
 // read (G = H / K query heads per KV head), far below the H100's ~295
 // flops per byte, so the least time is (live K/V + q + out) / 3.35 TB/s.
-// The ring is f32 and an f32 q is held to 2e-5, which rules out TF32 tensor
-// cores; the work is bytes-bound anyway.
+// At decode_32k's slab (8 rows of ~32,770 bf16 slots, G = 7) that is
+// 0.16 ms for 537 MB; the kernel has to keep the card's memory busy, not
+// its arithmetic.
 //
 // Design (flash-decoding): the Pallas kernel streams KV blocks along a
-// sequential grid axis with (m, l, acc) in VMEM scratch; here the slots of
-// a row are split over the grid too, so that B * K rows of KV heads fill
-// the card.  Kernel 1 runs one CTA per (split, KV head, row): split s
-// walks its share [lo_s, hi_s) of the row's live slots [lo, hi) =
-// [max(0, length - window), min(length, T)) in tiles of 32 slots, loaded by
-// 16-byte cp.async into a double-buffered shared-memory ring while the
-// previous tile is computed, and writes (m, l, acc[d]) per query head into
-// f32 scratch (m = -inf, l = 0, acc = 0 for a split with no slots).  The G
-// (<= 32) query heads of the KV head share each tile: their q sits in
-// shared memory, warp w takes heads w, w + 4, ...; for Q K^T a lane owns
-// one slot's whole key row (no shuffle reduction per score), for P V a
-// lane owns d / 32 output dims.  Kernel 2 merges a row's splits in a fixed
-// order (no atomics: the result does not depend on which split ends
-// first); a row with no live slot writes exact zeros.  The host picks the
-// split count from B, K, T and the SM count alone
-// (decode_attention.py:plan_splits), so a row's result does not depend on
-// the other rows' lengths.  k/v are read
-// through their strides (head dim dense, 16-byte aligned rows), so the
-// model's [B, W, K, d] ring is read in place with no transpose copy.
-// Both kernels' bodies are split_decode.cuh's, shared with the paged
-// decode (paged_attention.cu), which splits at fixed positions instead.
+// sequential grid axis with (m, l, acc) in VMEM scratch; here the slots of a
+// row are split over the grid too, so that B * K rows of KV heads fill the
+// card.  Kernel 1 runs one CTA per (split, KV head, row): split s walks its
+// share [lo_s, hi_s) of the row's live slots [lo, hi) = [max(0, length -
+// window), min(length, T)) and writes (m, l, acc[d]) per query head into f32
+// scratch (m = -inf, l = 0, acc = 0 for a split with no slots); kernel 2 merges
+// a row's splits in a fixed order (no atomics: the result does not depend on
+// which split ends first); a row with no live slot writes exact zeros.  Kernel
+// 1's bodies are split_decode.cuh's, shared with the paged decode
+// (paged_attention.cu): bf16 q on the tensor cores (mma.sync; a warp's 16
+// positions as the M rows and the G heads of a KV head as the N columns, each
+// warp streaming its own quarter of every tile through a cp.async ring), f32 q
+// on the CUDA cores (held to 2e-5, which the tensor cores' TF32 cannot promise;
+// the work is bytes-bound anyway).  The host picks the split count from B, K, T
+// and the SM count alone (decode_attention.py:plan_splits: two CTAs an SM, and
+// no split longer than SPLIT_CAP slots), so a row's result does not depend on
+// the other rows' lengths.  k/v are read through their strides (head dim dense,
+// 16-byte aligned rows), so the model's [B, W, K, d] ring is read in place with
+// no transpose copy.
 
 #include "split_decode.cuh"
 
@@ -71,16 +70,15 @@ struct SlabRows {
   __device__ __forceinline__ const TKV* v(int p) const { return vb + p * v_st; }
 };
 
+// HPW: the CUDA-core body's head slots a warp (f32 q); 0 for bf16 q,
+// whose tensor-core body takes a block of up to 8 heads a CTA.
 template <typename TQ, typename TKV, int D, int HPW>
 __global__ void __launch_bounds__(kThreads)
 slab_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                          const TKV* __restrict__ v,
                          const int32_t* __restrict__ lengths, SlabArgs a) {
-  using L = SplitTile<TKV, D>;
   extern __shared__ __align__(16) uint8_t smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::SMEM_KV);   // [G][D]
-
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int G = a.H / a.K;
 
   // this split's share of the row's live slots
@@ -91,29 +89,54 @@ slab_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int s_lo = min(lo + split * per, hi);
   const int s_hi = min(s_lo + per, hi);
 
-  const float qscale = q_scale(a.scale, a.cap);
-  for (int e = threadIdx.x; e < G * D; e += kThreads)
-    qs[e] = to_f(q[b * a.q_sb + (long long)(kh * G + e / D) * a.q_sh +
-                   e % D]) * qscale;
-
-  const SlabRows<TKV> rows{
-      static_cast<const TKV*>(k) + b * a.k_sb + kh * a.k_sh,
-      static_cast<const TKV*>(v) + b * a.v_sb + kh * a.v_sh, a.k_st, a.v_st};
-  attend_split<TKV, D, HPW>(smem, rows, s_lo, s_hi, G, a.cap,
-                            (long long)b * a.H + kh * G, a.n_split, split,
-                            a.ml, a.acc);
+  if constexpr (sizeof(TQ) == 2) {
+    const int n_hb = head_blocks(G);
+    const int kh = blockIdx.y / n_hb;
+    const int h0 = kh * G + (blockIdx.y % n_hb) * kHeadBlock;   // first head
+    const SlabRows<TKV> rows{
+        static_cast<const TKV*>(k) + b * a.k_sb + kh * a.k_sh,
+        static_cast<const TKV*>(v) + b * a.v_sb + kh * a.v_sh, a.k_st,
+        a.v_st};
+    attend_split_mma<TKV, D>(smem, rows, s_lo, s_hi,
+                             q + b * a.q_sb + h0 * a.q_sh, a.q_sh,
+                             min(kHeadBlock, kh * G + G - h0), a.scale, a.cap,
+                             (long long)b * a.H + h0, a.n_split, split, a.ml,
+                             a.acc);
+  } else {
+    using L = SplitTile<D>;
+    const int kh = blockIdx.y;
+    float* qs = reinterpret_cast<float*>(smem + L::SMEM_KV);   // [G][D]
+    const float qscale = q_scale(a.scale, a.cap);
+    for (int e = threadIdx.x; e < G * D; e += kThreads)
+      qs[e] = to_f(q[b * a.q_sb + (long long)(kh * G + e / D) * a.q_sh +
+                     e % D]) * qscale;
+    const SlabRows<TKV> rows{
+        static_cast<const TKV*>(k) + b * a.k_sb + kh * a.k_sh,
+        static_cast<const TKV*>(v) + b * a.v_sb + kh * a.v_sh, a.k_st, a.v_st};
+    attend_split<D, HPW>(smem, rows, s_lo, s_hi, G, a.cap,
+                         (long long)b * a.H + kh * G, a.n_split, split,
+                         a.ml, a.acc);
+  }
 }
 
 template <typename TQ, typename TKV, int D, int HPW>
 int launch_split(const SlabArgs& a) {
-  using L = SplitTile<TKV, D>;
+  using R = MmaRing<TKV, D>;
+  constexpr bool mma = sizeof(TQ) == 2;
+  constexpr int smem_max = mma ? R::BYTES : SplitTile<D>::SMEM_MAX;
   auto split = slab_decode_split_kernel<TQ, TKV, D, HPW>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(split),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_MAX);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid(a.n_split, a.K, a.B);
-  split<<<grid, kThreads, L::smem(a.H / a.K), a.stream>>>(
+  const int G = a.H / a.K;
+  // the longest split has ceil(T / n_split) slots: a warp walks at most
+  // that many tiles, and the ring holds no more stages than that
+  const int per = (a.T + a.n_split - 1) / a.n_split;
+  const int smem = mma ? R::smem((per + R::TILE - 1) / R::TILE)
+                       : SplitTile<D>::smem(G);
+  dim3 grid(a.n_split, mma ? a.K * head_blocks(G) : a.K, a.B);
+  split<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.lengths, a);
   return static_cast<int>(cudaGetLastError());
@@ -122,11 +145,15 @@ int launch_split(const SlabArgs& a) {
 template <typename TQ, typename TKV, int D>
 int launch(const SlabArgs& a) {
   int e = -1;
-  switch (heads_per_warp(a.H / a.K)) {
-    case 1: e = launch_split<TQ, TKV, D, 1>(a); break;
-    case 2: e = launch_split<TQ, TKV, D, 2>(a); break;
-    case 4: e = launch_split<TQ, TKV, D, 4>(a); break;
-    case 8: e = launch_split<TQ, TKV, D, 8>(a); break;
+  if constexpr (sizeof(TQ) == 2) {
+    e = launch_split<TQ, TKV, D, 0>(a);
+  } else {
+    switch (heads_per_warp(a.H / a.K)) {
+      case 1: e = launch_split<TQ, TKV, D, 1>(a); break;
+      case 2: e = launch_split<TQ, TKV, D, 2>(a); break;
+      case 4: e = launch_split<TQ, TKV, D, 4>(a); break;
+      case 8: e = launch_split<TQ, TKV, D, 8>(a); break;
+    }
   }
   if (e != 0) return e;
   split_merge_kernel<TQ, D><<<a.B * a.H, D, 0, a.stream>>>(

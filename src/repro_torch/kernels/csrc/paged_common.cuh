@@ -1,6 +1,6 @@
-// Device helpers shared by the attention kernels: conversions, 16-byte
-// cp.async, the paged pool's row addressing, and the CUDA-core tile
-// attention of the f32 paths (paged prefill, flash).
+// Device helpers shared by the paged attention kernels: the paged pool's
+// row addressing and the CUDA-core tile attention of the f32 paths (paged
+// prefill, flash).
 //
 // The CUDA-core paths stream a row's KV through shared memory in tiles of TT
 // positions (K and V as f32, 32 KB per tile pair whatever the head width)
@@ -12,27 +12,15 @@
 // shuffles.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace paged {
 
+// the conversions and copies of sm90_common.cuh, unqualified here and in
+// every file that uses this namespace
+using namespace sm90;
+
 constexpr float kNegInf = -1.0e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Positions per shared-memory tile: 2 * TT * D * 4 bytes = 32 KB.
 template <int D>
@@ -130,28 +118,6 @@ __device__ __forceinline__ void load_page_tile(float* ks, float* vs,
     ks[e] = to_f(kp[off]);
     vs[e] = to_f(vp[off]);
   }
-}
-
-// 16-byte asynchronous copies global -> shared.  The zfill form copies
-// nothing and writes 16 zero bytes when `valid` is false (src must still be
-// a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
-                                                 bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Position p of one (row, KV head h) of a paged pool [P, ps, K, D]: the

@@ -90,14 +90,15 @@
 // nothing; dt = 0 leaves the state exactly as it was, so right-padded
 // prefill rows carry their state through the padding.
 
-#include "paged_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-using paged::cp_async16_zfill;
-using paged::cp_async_commit;
-using paged::cp_async_wait;
-using paged::to_f;
+using sm90::cp_async16_zfill;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::mma_tf32;
+using sm90::to_f;
 
 constexpr int kCH = 64;              // positions per chunk tile
 constexpr int kPP = 64;              // head-dim (P) tile
@@ -154,15 +155,6 @@ __device__ __forceinline__ AFrag split4(float a0, float a1, float a2,
   split(a2, f.big[2], f.small[2]);
   split(a3, f.big[3], f.small[3]);
   return f;
-}
-
-// D (16 x 8, f32) += A (16 x 8, tf32) B (8 x 8, tf32)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The 3xTF32 products of R row tiles (A fragments a[r]) against NB column

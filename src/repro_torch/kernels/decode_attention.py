@@ -22,7 +22,12 @@ from repro_torch.kernels.ref import decode_attention_ref  # noqa: F401
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 8 + [ctypes.c_int]
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-TILE = 32          # slots per shared-memory tile of the kernel
+TILE = 32          # slots of the kernel's smallest tile
+# Longest split of a row's slots: past it a long slab gets more splits, so
+# that each CTA walks at most this many slots and the card holds more of
+# them at once.  Chosen by a sweep of 256, 512, 1,024 and 2,048 slots at
+# decode_32k's slab (chip_smoke.py's slab_long; PERF.md section 6).
+SPLIT_CAP = 2048
 
 
 def _require(cond: bool, msg: str):
@@ -32,11 +37,12 @@ def _require(cond: bool, msg: str):
 
 def plan_splits(B: int, K: int, T: int, sms: int) -> int:
     """Splits of each row's slots: enough CTAs, B * K * n_split, for two
-    on each of the device's ``sms`` SMs, but no split shorter than one tile
-    of a full row.  A function of the shapes and the device alone, so a
-    row's result never depends on the other rows' lengths (H=8 decodes the
-    same tokens as H=1)."""
-    want = -(-2 * sms // max(B * K, 1))
+    on each of the device's ``sms`` SMs, and enough that no split is longer
+    than ``SPLIT_CAP`` slots of a full row, but none shorter than one
+    ``TILE``.  A function of the shapes and the device alone, so a row's
+    result never depends on the other rows' lengths (H=8 decodes the same
+    tokens as H=1)."""
+    want = max(-(-2 * sms // max(B * K, 1)), -(-T // SPLIT_CAP))
     return max(1, min(want, -(-T // TILE)))
 
 
@@ -54,7 +60,8 @@ def decode_attention(q, k, v, lengths, *, window: int = 0, cap: float = 0.0,
     view is read in place); lengths: [B] int32 (0 allowed => zeros).
     Query b attends slots t < lengths[b], with ``window`` only the last
     ``window`` of them; the slots are split ``plan_splits(B, K, T, SMs)``
-    ways and the splits merged in a second launch.  (q, k/v) dtypes: (f32,
+    ways and the splits merged in a second launch.  bf16 q runs on the
+    tensor cores, f32 q on the CUDA cores.  (q, k/v) dtypes: (f32,
     f32), (bf16, f32) or (bf16, bf16); H a multiple of K with H / K <= 32;
     d in HEAD_DIMS (64, 128, 256).  ``scale`` defaults to d**-0.5.
     Returns [B, H, d] in q's dtype."""

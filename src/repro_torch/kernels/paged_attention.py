@@ -27,10 +27,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
 # Positions per split of a row, fixed in position space so that a row's
 # summation order depends on its own length alone, never on the table
 # width nb (a bucket that changes between horizons and across a migration),
-# the batch or the card.  A multiple of the kernel's 32-position tile; of
-# 32, 64 and 128, 64 is the fastest at serving contexts of a few hundred
-# positions, while rows of thousands favour 128 (chip_smoke.py times all
-# three; PERF.md section 6).
+# the batch or the card.  A multiple of 64, the kernel's largest tile (its
+# C entry refuses anything else); chosen by chip_smoke.py's sweep over 64,
+# 128 and 256 at serving contexts of a few hundred positions and at rows
+# of thousands (PERF.md section 6).
 SPLIT = 64
 
 

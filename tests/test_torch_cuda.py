@@ -33,7 +33,11 @@ scan; and at the (arch x shape) cells' lengths, the flash attention at S
 = 32,768 (G = 7) and at S = 524,288 with a window (first and last 128
 query rows against the plain attention of those rows), the slab decode
 over decode_32k's slab of 32,896 slots, and the scan over 524,288
-positions against the plain chunked scan run in segments.  The MoE layer
+positions against the plain chunked scan run in segments; both decodes'
+tensor-core body at G = 1, 2, 5, 7, 16 and 32 x d = 64 / 128 / 256 over
+bf16 and f32 K/V (over f32 also within one bf16 ulp of the value), a long
+bf16 slab split dozens of ways, and its rows unchanged when rows are
+appended where the split cap sets the split count.  The MoE layer
 with drops gives the same bits on
 a second launch and the CPU's drop set.  The engine's decode horizon as a
 CUDA graph, on a tiny dense, a tiny MoE and a tiny hybrid config: replayed tokens and logprobs
@@ -52,7 +56,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import tokenizer as tok
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention, plan_splits
+from repro_torch.kernels.decode_attention import (SPLIT_CAP, decode_attention,
+                                                  plan_splits)
 from repro_torch.kernels.dequant import fused_dequant
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -278,6 +283,115 @@ def test_slab_cases_split_past_their_live_slots():
     assert splits[(4, 6, 3, 3, 128, 2, 10.0)] == 1
     assert max(splits.values()) > 1
     assert splits[(5, 25, 5, 1024, 64, 256, 0.0)] >= 2
+
+
+# ------------- the decodes' tensor-core body (bf16 q), at every G ---------- #
+# G = 1 (the MoE configs), 2 (gemma), 5 / 7 (Hymba, qwen2-7b), and 16 and 32,
+# which fill one and two blocks of the 16 mma rows; d 64 / 128 / 256; over
+# bf16 and f32 K/V.  Over f32 K/V the products are split TF32, so the bf16
+# output also holds the rings' gate: one bf16 ulp of |want| + 2e-5.
+MMA_GROUPS = [1, 2, 5, 7, 16, 32]
+
+
+def _mma_gate(got, want, kvdt):
+    assert _err(got, want) <= TOL["bfloat16"]
+    if kvdt == "float32":
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= BF16_ULP * want.float().abs() + TOL["float32"])
+                    .all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("G", MMA_GROUPS)
+def test_mma_paged_decode_on_card(cuda, G, d, kvdt):
+    """bf16 q over the paged pool at every G and head dim: q pre-scaled
+    as the engine calls it, rows of 0, 1, a mid-tile length and the full
+    table (several splits of SPLIT positions); a relaunch bit-identical."""
+    B, K, ps, nb = 4, 2, 16, 12
+    q, kp, vp, bt, lens = _decode_inputs(B, G * K, K, ps, nb, d, seed=31)
+    lens[:] = [0, 1, 77, nb * ps]
+    args = (_th(q * d ** -0.5, "bfloat16", cuda), _th(kp, kvdt, cuda),
+            _th(vp, kvdt, cuda), _th(bt, "int32", cuda),
+            _th(lens, "int32", cuda))
+    got = paged_decode_attention(*args, scale=1.0)
+    again = paged_decode_attention(*args, scale=1.0)
+    torch.cuda.synchronize()
+    _mma_gate(got, ref.paged_decode_attention_ref(*args, scale=1.0), kvdt)
+    assert float(got[0].float().abs().max()) == 0.0
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("G", MMA_GROUPS)
+def test_mma_slab_decode_on_card(cuda, G, d, kvdt):
+    """bf16 q over a [B, T, K, d] ring read as views at every G and head
+    dim, with a window on one call: rows of 0, 1, a mid-tile length and
+    the whole ring; a relaunch bit-identical."""
+    B, K, T = 4, 2, 300
+    q, k, v, lens = _slab_inputs(B, G * K, K, T, d, seed=32)
+    lens[:] = [0, 1, 77, T]
+    q = _th(q * d ** -0.5, "bfloat16", cuda)
+    k, v = (_th(a, kvdt, cuda).transpose(1, 2).contiguous().transpose(1, 2)
+            for a in (k, v))
+    lens = _th(lens, "int32", cuda)
+    for window in (0, 100):
+        got = decode_attention(q, k, v, lens, window=window, scale=1.0)
+        again = decode_attention(q, k, v, lens, window=window, scale=1.0)
+        torch.cuda.synchronize()
+        _mma_gate(got, ref.decode_attention_ref(q, k, v, lens, window=window,
+                                                scale=1.0), kvdt)
+        assert float(got[0].float().abs().max()) == 0.0
+        assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_long_bf16_slab_with_many_splits_on_card(cuda):
+    """A long bf16 slab (B 2, H 28, K 4, T 8,192, ragged lengths) split
+    plan_splits ways (dozens a row): within 1e-2 of the plain version, a
+    relaunch bit-identical."""
+    B, H, K, T, d = 2, 28, 4, 8192, 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan_splits(B, K, T, sms) >= -(-T // SPLIT_CAP)
+    g = torch.Generator(device=cuda).manual_seed(33)
+    q = (torch.randn(B, H, d, generator=g, device=cuda) * d ** -0.5
+         ).bfloat16()
+    k, v = (torch.randn(B, T, K, d, generator=g, device=cuda).bfloat16()
+            .transpose(1, 2) for _ in range(2))
+    lens = torch.tensor([T, 5001], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, lens, scale=1.0)
+    again = decode_attention(q, k, v, lens, scale=1.0)
+    torch.cuda.synchronize()
+    assert _err(got, ref.decode_attention_ref(q, k, v, lens, scale=1.0)) \
+        <= TOL["bfloat16"]
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_long_slab_rows_keep_their_bits_when_rows_are_appended(cuda):
+    """Where SPLIT_CAP sets a long slab's split count (B rows of T 8,192
+    and more), appending rows of other lengths leaves the first rows'
+    outputs bit for bit: their splits, and so their sums, are the same."""
+    K, T, d, H = 4, 8192, 128, 28
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_cap = -(-T // SPLIT_CAP)
+    B = max(2, -(-2 * sms // (K * n_cap)))
+    assert plan_splits(B, K, T, sms) == plan_splits(B + 3, K, T, sms) \
+        == n_cap
+    g = torch.Generator(device=cuda).manual_seed(34)
+    q = (torch.randn(B + 3, H, d, generator=g, device=cuda) * d ** -0.5
+         ).bfloat16()
+    k, v = (torch.randn(B + 3, T, K, d, generator=g, device=cuda)
+            .bfloat16().transpose(1, 2) for _ in range(2))
+    lens = torch.randint(1, T + 1, (B + 3,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    got = decode_attention(q[:B], k[:B], v[:B], lens[:B], scale=1.0)
+    grown = decode_attention(q, k, v, lens, scale=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(grown[:B], got)
 
 
 # ----------------------------- flash attention ---------------------------- #

@@ -15,8 +15,11 @@ for the paged versions and 2e-2 for flash (one bf16 rounding of the
 output).  The split-K decodes' and the tensor-core prefill's arithmetic is
 emulated in plain PyTorch and held to the same references: the paged
 decode's fixed-length splits at 2e-5, the prefill's TF32 / bf16 roundings
-at its gate of 2e-2 or one bf16 ulp of the value.  The flash gradient is held against ``jax.grad`` of the
-reference's oracle in f32.
+at its gate of 2e-2 or one bf16 ulp of the value; the decodes' tensor-core
+body's split plan, warp order (within 2e-5) and split bf16 / TF32
+roundings (within the card tests' tolerances and the rings' one-ulp
+gate).  The flash gradient is held against ``jax.grad`` of the reference's
+oracle in f32.
 The CUDA kernels are held against the plain versions on the card in
 ``tests/test_torch_cuda.py``.
 """
@@ -36,7 +39,8 @@ from repro.kernels.paged_attention import \
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as pallas_prefill
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.decode_attention import (decode_attention,
+from repro_torch.kernels.decode_attention import (SPLIT_CAP,
+                                                  decode_attention,
                                                   plan_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  tma_layout_ok)
@@ -44,6 +48,10 @@ from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.models.attention import (attention_paged_decode,
                                           attention_paged_prefill)
+# the card tests' decode cases, drawn by the same _decode_inputs /
+# _slab_inputs as this file's
+from test_torch_cuda import DECODE_CASES as CARD_DECODE_CASES
+from test_torch_cuda import SLAB_CASES as CARD_SLAB_CASES
 
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # test_kernels.py:16
@@ -350,13 +358,48 @@ def split_range(lo: int, hi: int, n_split: int, split: int):
     return s_lo, min(s_lo + per, hi)
 
 
-def _attend_splits(qs, k, v, ranges, cap):
+def warp_slices(lo: int, hi: int, pw: int):
+    """Each of the 4 warps' slices of a split's positions [lo, hi), in the
+    order it walks them, as csrc/split_decode.cuh's tensor-core body deals
+    them: tiles of 4 * pw positions from lo, warp w takes the w-th pw of
+    every tile (pw = 16; 8 against f32 K/V at d = 256)."""
+    return [[(p, min(p + pw, hi)) for p in range(lo + w * pw, hi, 4 * pw)]
+            for w in range(4)]
+
+
+def _attend_warps(x, v, lo, hi, pw):
+    """(m, l, acc) of one split [lo, hi) as the tensor-core body keeps it:
+    each warp an online softmax over its slices in order (m starting at
+    -1e30), then the four warps merged in warp order; x: the split's
+    scores in the exp2 domain, v: its value rows."""
+    parts = []
+    for slices in warp_slices(lo, hi, pw):
+        m, l, acc = -1e30, 0.0, torch.zeros(v.shape[1])
+        for a, b in slices:
+            xs = x[a - lo:b - lo]
+            m_new = max(m, float(xs.max()))
+            corr = 2.0 ** (m - m_new)
+            p = torch.exp2(xs - m_new)
+            l = l * corr + float(p.sum())
+            acc = acc * corr + p @ v[a - lo:b - lo]
+            m = m_new
+        parts.append((m, l, acc))
+    mx = max(m for m, _, _ in parts)
+    l, acc = 0.0, torch.zeros(v.shape[1])
+    for m, lw, aw in parts:
+        w = 2.0 ** (m - mx)
+        l, acc = l + lw * w, acc + aw * w
+    return mx, l, acc
+
+
+def _attend_splits(qs, k, v, ranges, cap, pw=None):
     """One (row, head) as the split-K decode kernels compute it, in plain
     f32 PyTorch (tests only): each range [lo, hi) of positions keeps
     (m, l, acc) of its own in the exp2 domain (m = -inf, l = 0 when it is
-    empty); the ranges are merged in order; zeros when none holds a
-    position.  qs: [d] q with the kernels' scale folded in (times log2 e
-    unless capped); k / v: [T, d]."""
+    empty), over the whole range at once or, with ``pw``, warp by warp as
+    ``_attend_warps`` deals it; the ranges are merged in order; zeros when
+    none holds a position.  qs: [d] q with the kernels' scale folded in
+    (times log2 e unless capped); k / v: [T, d]."""
     cap_x = (lambda x: cap * torch.tanh(x / cap) * LOG2E) if cap else \
         (lambda x: x)
     parts = []
@@ -365,6 +408,9 @@ def _attend_splits(qs, k, v, ranges, cap):
             parts.append((float("-inf"), 0.0, torch.zeros(k.shape[1])))
             continue
         x = cap_x(k[lo:hi].float() @ qs)
+        if pw:
+            parts.append(_attend_warps(x, v[lo:hi].float(), lo, hi, pw))
+            continue
         m = x.max()
         p = torch.exp2(x - m)
         parts.append((float(m), float(p.sum()), p @ v[lo:hi].float()))
@@ -377,9 +423,11 @@ def _attend_splits(qs, k, v, ranges, cap):
     return sum(a * wi for (_, _, a), wi in zip(live, w)) / lsum
 
 
-def _split_merge_decode(q, k, v, lengths, *, window, cap, scale, n_split):
+def _split_merge_decode(q, k, v, lengths, *, window, cap, scale, n_split,
+                        pw=None):
     """decode_attention as csrc/decode_attention.cu computes it: each row's
-    live slots [lo, hi) split ``n_split`` ways by ``split_range``."""
+    live slots [lo, hi) split ``n_split`` ways by ``split_range``; with
+    ``pw`` each split's slots dealt to 4 warps in slices of ``pw``."""
     B, H, d = q.shape
     K, T = k.shape[1], k.shape[2]
     G = H // K
@@ -392,7 +440,7 @@ def _split_merge_decode(q, k, v, lengths, *, window, cap, scale, n_split):
         ranges = [split_range(lo, hi, n_split, sp) for sp in range(n_split)]
         for h in range(H):
             out[b, h] = _attend_splits(qs[b, h], k[b, h // G], v[b, h // G],
-                                       ranges, cap)
+                                       ranges, cap, pw)
     return out
 
 
@@ -432,9 +480,10 @@ def test_split_merge_decode_matches_reference(B, H, K, T, d, window, cap,
 
 
 def test_split_planner_is_a_function_of_the_shapes():
-    """Enough CTAs for two per SM where the slab allows it, never a split
-    shorter than one 32-slot tile of a full row, at least one; and the
-    split ranges tile a row's live slots in order."""
+    """Enough CTAs for two per SM where the slab allows it and no split
+    longer than SPLIT_CAP slots, never a split shorter than one 32-slot
+    tile of a full row, at least one; and the split ranges tile a row's
+    live slots in order."""
     assert plan_splits(8, 5, 1024, H100_SMS) == 7      # Hymba's ring
     for B, K, T in [(8, 5, 1024), (1, 1, 4096), (10, 8, 512), (64, 8, 2048),
                     (1, 2, 16), (3, 1, 0), (300, 4, 1024)]:
@@ -444,13 +493,68 @@ def test_split_planner_is_a_function_of_the_shapes():
             assert n <= max(1, -(-T // 32))
             if T >= 32 * n and n < -(-T // 32):
                 assert B * K * n >= 2 * sms
-            assert B * K * (n - 1) < 2 * sms or n == 1
+                assert T <= SPLIT_CAP * n
+            # the least count with two CTAs an SM and no split longer than
+            # SPLIT_CAP slots: one split fewer misses one of the two
+            assert n == 1 or B * K * (n - 1) < 2 * sms or \
+                T > SPLIT_CAP * (n - 1)
     for lo, hi in [(0, 0), (0, 1), (3, 200), (0, 1024), (7, 9)]:
         for n in (1, 2, 5, 7, 40):
             got = [split_range(lo, hi, n, s) for s in range(n)]
             cover = [p for a, b in got for p in range(a, b)]
             assert cover == list(range(lo, hi))
             assert all(a <= b for a, b in got)
+
+
+# the planner's cap: decode_32k's slab (B 8, K 4, T 32,896), Hymba's ring,
+# a short slab and the same shapes at other head counts
+PLAN_CASES = [(8, 4, 32896), (8, 5, 1024), (2, 4, 8192), (1, 1, 4096),
+              (10, 8, 512)]
+
+
+@pytest.mark.parametrize("B,K,T", PLAN_CASES)
+def test_split_planner_caps_a_split(B, K, T):
+    """With SPLIT_CAP a long slab gets at least ceil(T / SPLIT_CAP)
+    splits (decode_32k's 17 at a cap of 2,048), Hymba's ring keeps its 7,
+    and the plan is a function of (B, K, T, SMs) alone: no head count or
+    length enters it, and every call gives the same count."""
+    n = plan_splits(B, K, T, H100_SMS)
+    assert n == plan_splits(B, K, T, H100_SMS)
+    assert n >= min(-(-T // SPLIT_CAP), -(-T // 32))
+    assert -(-T // n) <= max(SPLIT_CAP, 32)
+    if (B, K, T) == (8, 5, 1024):
+        assert n == 7
+    if (B, K, T) == (8, 4, 32896):
+        assert n == max(-(-2 * H100_SMS // 32), -(-T // SPLIT_CAP))
+
+
+WARP_CASES = [(2, 4, 2, 512, 64, 0, 0.0), (3, 10, 2, 256, 64, 48, 20.0)]
+
+
+@pytest.mark.parametrize("pw", [8, 16])
+@pytest.mark.parametrize("n_split", [1, 7, 129, 300])
+@pytest.mark.parametrize("B,H,K,T,d,window,cap", WARP_CASES)
+def test_warp_sliced_split_decode_matches_reference(B, H, K, T, d, window,
+                                                    cap, n_split, pw):
+    """The tensor-core body's order, in f32: a split's tiles dealt to 4
+    warps in slices of pw (16; 8 over f32 K/V at d = 256), each warp's
+    (m, l, acc) merged in warp order, then the splits in split order; at
+    1 to hundreds of splits a row (more than a row has slots), within 2e-5
+    of the port's plain version and of the reference's Pallas kernel in
+    interpret mode; an empty row writes zeros."""
+    q, k, v, lens = _slab_inputs(B, H, K, T, d, seed=13)
+    lens[0] = 0
+    lens[-1] = T
+    t = [torch.from_numpy(a) for a in (q, k, v, lens)]
+    got = _split_merge_decode(*t, window=window, cap=cap, scale=d ** -0.5,
+                              n_split=n_split, pw=pw)
+    want = ref.decode_attention_ref(*t, window=window, cap=cap)
+    assert _err(got, want.numpy()) <= 2e-5
+    assert float(got[0].abs().max()) == 0.0
+    pallas = pallas_slab_decode(*(jnp.asarray(a) for a in (q, k, v, lens)),
+                                window=window, cap=cap,
+                                block_k=min(64, T), interpret=True)
+    assert _err(got, pallas) <= 2e-5
 
 
 # ------------- paged decode split at fixed positions, in plain PyTorch ------ #
@@ -629,6 +733,155 @@ def test_tf32_round_is_round_to_nearest_ties_away():
     r = tf32_round(y)
     assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
     assert float(((r - y).abs() / y.abs()).max()) <= 2.0 ** -11
+
+
+# ------------ the decodes' tensor-core roundings, in plain PyTorch --------- #
+def tf32_split(x):
+    """x as big + small TF32 operands, as sm90::split_tf32 splits it: big =
+    tf32(x), small = x - big, of which the tensor core may read only the
+    top 19 bits (here truncated: the larger loss, 2**-21 of |x|)."""
+    big = tf32_round(x)
+    small = (x.float() - big).contiguous().view(torch.int32)
+    return big, (small & ~0x1FFF).view(torch.float32)
+
+
+def _mma_decode(q, k, v, lengths, *, window, cap, scale, mode):
+    """Decode attention over a dense [B, K, T, d] K/V with the roundings of
+    csrc/split_decode.cuh's tensor-core body (bf16 q), in plain PyTorch
+    (tests only), each row's live slots in one softmax: ``bf16`` (bf16
+    K/V as the kernel runs them: P as bf16 big + small parts, P V = Ps V +
+    Pb V), ``bf16_once`` (P rounded once to bf16), ``tf32`` (f32 K/V with
+    K, V and P each rounded once to TF32) or ``split`` (f32 K/V as the
+    kernel runs them: K, V and P split into big + small TF32 parts, Q K^T
+    = Q Kb + Q Ks, P V = Ps Vb + Pb Vs + Pb Vb); l the sum of the
+    unrounded P; f32 sums; the output rounded to q's dtype."""
+    B, H, d = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    kf, vf = k.float(), v.float()
+    if mode == "tf32":
+        kf = tf32_round(kf)
+    elif mode == "split":
+        kf = sum(tf32_split(kf))
+    s = torch.einsum("bkgd,bktd->bkgt", q.float().reshape(B, K, G, d),
+                     kf) * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    t, n = torch.arange(T)[None], lengths.long()[:, None]
+    live = t < n
+    if window:
+        live &= t >= n - window
+    s = s.masked_fill(~live[:, None, None], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True).clamp(min=-1e30))
+    pv = lambda a, b: torch.einsum("bkgt,bktd->bkgd", a, b)
+    l = p.sum(-1, keepdim=True)
+    if mode == "bf16":
+        pb = p.bfloat16().float()
+        o = pv((p - pb).bfloat16().float(), vf) + pv(pb, vf)
+    elif mode == "bf16_once":
+        o = pv(p.bfloat16().float(), vf)
+    elif mode == "tf32":
+        o = pv(tf32_round(p), tf32_round(vf))
+    else:
+        (pb, ps), (vb, vs) = tf32_split(p), tf32_split(vf)
+        o = pv(ps, vb) + pv(pb, vs) + pv(pb, vb)
+    o = torch.where(l > 0, o / l.clamp(min=1e-30), torch.zeros_like(o))
+    return o.reshape(B, H, d).to(q.dtype)
+
+
+# (K/V dtype, emulated roundings) the kernel runs: bf16 P as big + small
+# against bf16 K/V, split TF32 against f32 K/V
+MMA_MODES = [("bfloat16", "bf16"), ("float32", "split")]
+
+
+def _card_decode_case(case, kvdt):
+    """(q, k, v, lengths, window, cap, d, want) of a card test's decode
+    case: bf16 q, K/V in kvdt as [B, K, T, d] (a paged pool gathered
+    through its table), the card test's lengths, and the plain version's
+    output."""
+    if case[0] == "paged":
+        B, H, K, ps, nb, d, cap = case[1:]
+        q, kp, vp, bt, lens = _decode_inputs(B, H, K, ps, nb, d)
+        tp = [_th(a, kvdt) for a in (kp, vp)]
+        tq, ti = _th(q, "bfloat16"), [torch.from_numpy(a) for a in (bt, lens)]
+        want = ref.paged_decode_attention_ref(tq, *tp, *ti, cap=cap)
+        k, v = (ref._gather(a, ti[0]).transpose(1, 2) for a in tp)
+        return tq, k, v, ti[1].clamp(max=nb * ps), 0, cap, d, want
+    B, H, K, T, d, window, cap = case[1:]
+    q, k, v, lens = _slab_inputs(B, H, K, T, d)
+    lens[0] = 0
+    lens[3::2] = 1
+    tq, lens_t = _th(q, "bfloat16"), torch.from_numpy(lens)
+    k, v = _th(k, kvdt), _th(v, kvdt)
+    want = ref.decode_attention_ref(tq, k, v, lens_t, window=window, cap=cap)
+    return tq, k, v, lens_t, window, cap, d, want
+
+
+@pytest.mark.parametrize("kvdt,mode", MMA_MODES)
+@pytest.mark.parametrize("case", [("paged",) + c for c in CARD_DECODE_CASES]
+                         + [("slab",) + c for c in CARD_SLAB_CASES])
+def test_mma_decode_rounding_within_card_tolerance(case, kvdt, mode):
+    """bf16 q through the tensor-core roundings stays within the card
+    tests' 1e-2 of the port's plain version on their DECODE_CASES (the
+    pool gathered through the table) and SLAB_CASES inputs, unscaled q
+    with the default scale as the card tests draw them."""
+    q, k, v, lens, window, cap, d, want = _card_decode_case(case, kvdt)
+    got = _mma_decode(q, k, v, lens, window=window, cap=cap,
+                      scale=d ** -0.5, mode=mode)
+    assert got.dtype == torch.bfloat16
+    assert _err(got, want.float().numpy()) <= TOL["bfloat16"]
+    assert float(got[0].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kvdt,mode,once", [("bfloat16", "bf16", "bf16_once"),
+                                            ("float32", "split", "tf32")])
+def test_operands_rounded_once_miss_the_card_tolerance(kvdt, mode, once):
+    """Why the tensor-core body splits its operands: rounded once (P to
+    bf16 against bf16 K/V; K, V and P to TF32 against f32), an output of
+    a row of one to three slots (|out| up to ~4) moves by a bf16 ulp of
+    itself, 0.0156, past the card tests' 1e-2; split into big + small it
+    does not."""
+    q, k, v, lens, window, cap, d, want = _card_decode_case(
+        ("slab", 4, 6, 3, 3, 128, 2, 10.0), kvdt)
+    errs = {m: _err(_mma_decode(q, k, v, lens, window=window, cap=cap,
+                                scale=d ** -0.5, mode=m),
+                    want.float().numpy())
+            for m in (mode, once)}
+    assert errs[mode] <= TOL["bfloat16"] < errs[once]
+
+
+# the rings phase 7 and phase 11 decode, (B, H, K, W, d, cap): Hymba's,
+# gemma3-4b's at d = 256 and gemma2-27b's with its softcap
+RINGS = [(8, 25, 5, 1024, 64, 0.0), (8, 8, 4, 1024, 256, 0.0),
+         (4, 32, 16, 4096, 128, 50.0)]
+RING_LENS = {1024: [1, 1024, 17, 200, 513, 800, 1000, 1023],
+             4096: [4096, 1, 333, 2900]}
+
+
+@pytest.mark.parametrize("B,H,K,W,d,cap", RINGS)
+def test_split_tf32_holds_the_ring_gate(B, H, K, W, d, cap):
+    """bf16 q (pre-scaled, scale 1.0) over an f32 ring: the split TF32
+    products the kernel runs hold chip_smoke.py's ring gate (one bf16 ulp
+    of |want| + 2e-5 against the plain version, everywhere); one TF32
+    rounding of K, V and P would not on Hymba's ring (outputs near zero
+    move by ~1e-4), which is why the kernel splits."""
+    rs = np.random.RandomState(21)
+    q = torch.from_numpy(rs.randn(B, H, d).astype(np.float32)
+                         * d ** -0.5).bfloat16()
+    k, v = (torch.from_numpy(rs.randn(B, W, K, d).astype(np.float32))
+            .transpose(1, 2) for _ in range(2))
+    lens = torch.tensor(RING_LENS[W], dtype=torch.int32)
+    want = ref.decode_attention_ref(q, k, v, lens, scale=1.0, cap=cap).float()
+
+    def misses(mode):
+        got = _mma_decode(q, k, v, lens, window=0, cap=cap, scale=1.0,
+                          mode=mode).float()
+        return int(((got - want).abs()
+                    > 2 ** -7 * want.abs() + 2e-5).sum())
+
+    assert misses("split") == 0
+    if d == 64:
+        assert misses("tf32") > 0
 
 
 def _attention_views(monkeypatch, cfg, run):
