@@ -20,8 +20,8 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 ulp of |want|); the paged decode's outputs bit-identical
                 with its table padded to 2 nb and rows appended (splits
                 fixed in position space), and both paged kernels on a
-                second launch; the paged decode timed at split lengths
-                of 64, 128 and 256 positions (SPLIT_SWEEP); both paged
+                second launch; the paged decode on rows up to 4,096
+                positions, timed at its split length; both paged
                 kernels again at the shapes phase 11 serves
                 (SERVED_PAGED: decode tables as wide as the rows' last
                 positions, up to 4232; the whole mix prefilled in one
@@ -59,9 +59,7 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 query rows against the plain attention of those rows;
                 SDPA where it takes the shape), ``decode_attention`` on
                 decode_32k's slab (B=8, T=32,896, bf16, whole; its split
-                count, CTAs and SPLIT_CAP logged, and timed at each
-                SPLIT_CAP of SPLIT_CAP_SWEEP, every one held against the
-                plain version), the scan
+                count, CTAs and SPLIT_CAP logged), the scan
                 over 524,288 positions (Mamba2's and Hymba's heads, whole,
                 against the plain chunked scan in segments carrying the
                 state); max error against the stated
@@ -72,24 +70,34 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 generator) served through ``InferenceEngine``: 2 GRPO groups
                 of 4 plus 2 single requests, ~300-token prompts,
                 prefill_chunk 256, 64 new tokens, H=8 greedy (launch counts
-                read from this run; each decode horizon one CUDA graph
-                replay after the key's eager first horizon and capture),
+                read from this run; each decode horizon and each prefill
+                dispatch one CUDA graph replay after the key's eager first
+                dispatch and capture),
                 the same eagerly (tokens and logprobs bit-equal, decode
                 tok/s of both), then H=1 greedy (must emit the same
                 tokens) and H=8 at temperature 1 with graphs and eagerly
                 (bit-equal); one steady horizon of 10 rows under
                 torch.profiler with graphs and eagerly (wall, device busy,
                 idle share, host launch calls: one ``cudaGraphLaunch`` and
-                no kernel launch with graphs; each decode kernel's
-                profiler count equal to its wrapper's launches; the
+                no kernel launch with graphs; each attention and scan
+                kernel's profiler count equal to its wrapper's launches,
+                replays included, here and in every profiled prefill
+                and serve step; the
                 window opened by PROBE_BURST spin kernels, which
                 take the profiler's loss of a window's first records,
-                and the step PROFILE_PAD_S inside both of its ends); one
-                prefill dispatch of the 4 prompts profiled (``[profile]
-                qwen3-8b prefill``); one prefill's logits with the kernels
+                and the step PROFILE_PAD_S inside both of its ends); the 4
+                prompts' prefill (one dispatch, 4 x 384) PREFILL_ROUNDS
+                times in a graph engine (warm-up, capture, replay) and in
+                an eager one: first tokens, logprobs and every cache leaf
+                bit-equal, the last round profiled in both (``[profile]
+                qwen3-8b prefill (replay / eager)``: wall, device busy,
+                idle share), then the graph engine's KV headroom with its
+                prefill graph held and dropped (the dropped graphs' pool
+                must go back to the device whole); one prefill's logits with the kernels
                 against the plain attention; a ``[graph]`` line for this
-                and each later phase (captures, replays, invalidations,
-                padded reuse, capture seconds, graph-pool bytes);
+                and each later phase (horizon and prefill captures and
+                replays, invalidations, padded and chunk-pad reuse,
+                capture seconds, graph-pool bytes);
   4. install  — on qwen3-8b cut to its first INSTALL_LAYERS (4) layers
                 (the host's int8 encode of the whole model's manifests
                 would take most of the time limit), the trainer side
@@ -159,16 +167,18 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 tokens with zero prefill; then ``mamba2-130m`` at full
                 width through the same mix, H=8 equal to H=1, and its
                 prefill's and decode step's logits against the plain
-                versions; for both, one prefill dispatch under
-                torch.profiler (``[profile] <arch> prefill``: wall and
-                device busy time, the scan's kernels and their share, the
-                top five rows); for Mamba2, the plain prefill again with
+                versions; for both, the mix's prefill dispatch held and
+                profiled as phase 3's, replay against eager (``[profile]
+                <arch> prefill``: wall, device busy, the scan's kernels
+                and their share, the top five rows); for Mamba2, the
+                plain prefill again with
                 its scan's y moved by SCAN_PERTURBATION of max |y|, its
                 logits gap logged beside the kernels' (not a gate);
   8. serve14b — ``qwen3-14b`` at full width (48 layers, 48 / 8 heads: G =
                 6, random weights from a seeded generator, ~36 GB in bf16):
                 one GRPO group of 4 and two single requests on ~300-token
-                prompts, prefill_chunk 256, 16 new tokens, greedy H=8 then
+                prompts, prefill_chunk 256, 16 new tokens, greedy H=8 with
+                graphs, eagerly (tokens and logprobs bit-equal) and at
                 H=1 (same tokens), launches = layers x dispatches, prefill
                 and decode tokens/s and peak memory; one prefill's and one
                 decode step's logits with the kernels against the plain
@@ -186,6 +196,9 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 responses, params and optimizer state must equal the
                 uninterrupted run's bit for bit; chaos invariants and the
                 accounting identity; launches = layers x dispatches;
+                only the crashed run writes its checkpoints (the resume
+                reads them): the uninterrupted and streamed runs keep the
+                boundaries and their event-clock charge but write nothing;
                 then a fourth run with streamed collection, whose
                 responses, staleness, rewards, params and optimizer state
                 must equal the uninterrupted (batch) run's, with overlap
@@ -203,7 +216,8 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 included), eagerly (tokens and logprobs bit-equal), H=1
                 (same tokens); one steady horizon profiled with graphs and
                 eagerly, the eager one split into expert bmm, router and
-                paged decode attention; one prefill's and one decode
+                paged decode attention; the mix's prefill dispatch held
+                and profiled as phase 3's; one prefill's and one decode
                 step's logits against the plain attention (``[moe]``
                 lines: prefill and decode tok/s, capture seconds, graph-
                 pool bytes, peak memory); qwen2-moe-a2.7b's batch migrated
@@ -229,9 +243,11 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 dispatches for ``decode_attention`` and
                 ``flash_attention``), eagerly (tokens and logprobs
                 bit-equal) and at H=1 (same tokens); one steady horizon
-                profiled with graphs and eagerly, and one prefill
-                dispatch (``[profile] <arch> prefill``: the paged
-                prefill's and flash's shares); the longest prompt's
+                profiled with graphs and eagerly, and the mix's prefill
+                dispatch held and profiled as phase 3's (``[profile]
+                <arch> prefill``: the paged prefill's and flash's shares;
+                the phase's peak memory with that graph captured); the
+                longest prompt's
                 prefill and one decode step's logits against the plain
                 attention; gemma3-4b's batch migrated mid-generation
                 through a codec-none KV manifest of pages and ring rows
@@ -261,7 +277,8 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 loss finite; then llava-next-34b served as configured (60
                 layers, 68.8 GB of bf16 weights): the phase-3 prompts as 4
                 single requests, H=8 greedy with graphs (launches =
-                layers x dispatches), a steady horizon profiled with
+                layers x dispatches) and eagerly (tokens and logprobs
+                bit-equal), a steady horizon profiled with
                 graphs and eagerly, one prefill's and one decode step's
                 logits against the plain attention;
  13. cells    — the (arch x shape) cells' step functions
@@ -271,10 +288,15 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 last logits against InferenceEngine's paged prefill of the
                 same prompts), decode_32k (four 2-row prefills placed into
                 an 8-row slab of 32,896 slots through ``slice_batch`` /
-                ``update_batch``, then 4 serve steps, each against the
-                same step under the plain attention), mamba2-130m and
+                ``update_batch``, then 4 serve steps through the captured
+                step, ``CapturedServeStep`` (warm-up, capture, replays),
+                each against the same step under the plain attention and
+                bit-equal to the eager step, ``build_serve_step``, on the
+                same cache: tokens, logits, every leaf; the last step
+                profiled both ways: wall, device busy, idle share),
+                mamba2-130m and
                 hymba-1.5b long_500k (1 x 524,288: the prefill against the
-                engine's, 4 serve steps against plain), mamba2-130m
+                engine's, 4 serve steps as decode_32k's), mamba2-130m
                 train_4k (16 x 4,096: step 1's loss and grad norm with the
                 kernels against plain, then 2 train steps); launches
                 exact; ``[cells]`` lines (rows, length, seconds, tokens/s,
@@ -344,6 +366,9 @@ DEQUANT_TOL = 1e-6
 DEQUANT_SHAPES = (("mlp.wi", 32 * 4096, 12288), ("embed", 151936, 4096),
                   ("attn.wq", 32 * 4096 * 32, 128), ("final_norm", 4096, 1))
 NEW_TOKENS = 64
+# a prefill key's dispatches held against eager ones: the eager warm-up,
+# the capture (and its replay), then a pure replay, which is profiled
+PREFILL_ROUNDS = 3
 PROMPT_LENS = (300, 310, 290, 305)
 # phase 4 installs versions of the served qwen3-8b cut to its first
 # INSTALL_LAYERS layers: the host's int8 encode of the whole model's 6.8 GB
@@ -426,9 +451,6 @@ DECODE_CASES = (("qwen3-8b", 32, 8, 128, 0.0), ("qwen3-32b", 40, 8, 128, 0.0),
 # with page 0 and three rows appended (a full doubled table, one position,
 # a ragged length); the original rows' outputs must not change by a bit
 DECODE_EXTRA_LENS = (1024, 1, 100)
-# split lengths of the paged decode timed against each other: multiples
-# of 64, the tensor-core body's largest tile
-SPLIT_SWEEP = (64, 128, 256)
 # paged prefill at every GQA geometry the port registers, (name, H, K, C,
 # d, cap), then a single-query chunk and a ragged one at Qwen3-8B's
 PREFILL_CASES = (("qwen3-8b", 32, 8, 128, 128, 0.0),
@@ -593,10 +615,6 @@ FLASH_LONG_ROWS = 128
 # q pre-scaled), the lengths of its 4 serve steps
 SLAB_LONG = (8, 28, 4, 32896, 128)
 SLAB_LONG_LENS = (32769, 32770, 32771, 32772, 32772, 32771, 32770, 32769)
-# the slab planner's longest split (decode_attention.SPLIT_CAP), timed at
-# decode_32k's slab against each other: 129, 65, 33 and 17 splits a row,
-# and 9 at 4096 (two CTAs an SM alone, the plan before the cap)
-SPLIT_CAP_SWEEP = (256, 512, 1024, 2048, 4096)
 # the scan at long_500k (b, L, H, G, P, N, chunk): held whole against the
 # plain chunked scan run in segments of SSD_LONG_SEGMENT positions
 # carrying the state (the sequential plain scan would take 524,288 steps)
@@ -784,50 +802,35 @@ def check_decode(torch, F, ref, kern):
     return dict(rows["qwen3-8b"], max_abs_err=worst), rows
 
 
-def sweep_decode_split(torch, ref, kern):
-    """The paged decode's split length, measured: Qwen3-8B's heads at B =
-    10 with check_decode's lengths (nb = 32) and with long rows (up to 4096
-    positions, nb = 256), each timed at SPLIT_SWEEP positions a split in
-    turns (each length twice, in both orders); every length within
-    KERNEL_TOL of the plain version.  The wrapper's SPLIT is restored."""
+def check_decode_long(torch, ref, kern):
+    """The paged decode on long rows: Qwen3-8B's heads at B = 10 with rows
+    up to 4,096 positions (nb = 256), within KERNEL_TOL of the plain
+    version and timed at the wrapper's split length (PR 26 settled SPLIT
+    at 64 by a sweep over 64 / 128 / 256 here; ``PERF.md`` §6)."""
     import repro_torch.kernels.paged_attention as pa
-    keep = pa.SPLIT
-    B, H, K, d, ps = 10, 32, 8, 128, 16
-    for name, nb, lens_l in (
-            ("check_decode's lengths", 32,
-             [0, 16, 17, 32, 300, 317, 350, 372, 511, 512]),
-            ("long rows", 256,
-             [4096, 3000, 2048, 1500, 1000, 777, 512, 300, 100, 1])):
-        g = torch.Generator(device="cuda").manual_seed(7)
-        P = 1 + B * nb
-        q = torch.randn(B, H, d, generator=g, device="cuda").bfloat16()
-        kp = torch.randn(P, ps, K, d, generator=g, device="cuda")
-        vp = torch.randn(P, ps, K, d, generator=g, device="cuda")
-        bt = (torch.randperm(P - 1, generator=g, device="cuda")[:B * nb] + 1) \
-            .reshape(B, nb).to(torch.int32)
-        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens, scale=1.0)
-        times = {n: [] for n in SPLIT_SWEEP}
-        try:
-            for n in SPLIT_SWEEP + SPLIT_SWEEP[::-1]:
-                pa.SPLIT = n
-                out = kern(q, kp, vp, bt, lens, scale=1.0)
-                torch.cuda.synchronize()
-                err = float((out.float() - want.float()).abs().max())
-                if err > KERNEL_TOL:
-                    fail(f"paged_decode_attention split {n}: max err {err}")
-                times[n].append(time_ms(
-                    lambda: kern(q, kp, vp, bt, lens, scale=1.0), torch,
-                    iters=50))
-        finally:
-            pa.SPLIT = keep
-        log(f"[kernels] paged_decode_attention split length, {name} (B={B} "
-            f"H={H} K={K} nb={nb} lens={lens_l}): "
-            + ", ".join(f"{n}: {' / '.join(f'{t:.4f}' for t in ts)} ms"
-                        for n, ts in times.items())
-            + f" (the wrapper splits every {keep})")
-        del q, kp, vp, bt, want, out
-        torch.cuda.empty_cache()
+    B, H, K, d, ps, nb = 10, 32, 8, 128, 16, 256
+    lens_l = [4096, 3000, 2048, 1500, 1000, 777, 512, 300, 100, 1]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    P = 1 + B * nb
+    q = torch.randn(B, H, d, generator=g, device="cuda").bfloat16()
+    kp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+    vp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+    bt = (torch.randperm(P - 1, generator=g, device="cuda")[:B * nb] + 1) \
+        .reshape(B, nb).to(torch.int32)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens, scale=1.0)
+    out = kern(q, kp, vp, bt, lens, scale=1.0)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    if err > KERNEL_TOL:
+        fail(f"paged_decode_attention long rows: max err {err}")
+    ms = time_ms(lambda: kern(q, kp, vp, bt, lens, scale=1.0), torch,
+                 iters=50)
+    log(f"[kernels] paged_decode_attention long rows (B={B} H={H} K={K} "
+        f"nb={nb} lens={lens_l}, split every {pa.SPLIT}): max_abs_err="
+        f"{err:.3e} (tol {KERNEL_TOL}); kernel {ms:.4f} ms")
+    del q, kp, vp, bt, want, out
+    torch.cuda.empty_cache()
 
 
 def check_prefill(torch, F, ref, kern):
@@ -1425,10 +1428,8 @@ def slab_long(torch, F, ref, kern):
     scaled, over a bf16 [B, T, K, d] slab read as views, the lengths of
     its serve steps) held whole against its plain version at KERNEL_TOL,
     a second launch bit-identical, timed against the plain version, one
-    SDPA call and the bound; its split count, CTAs and SPLIT_CAP logged.
-    Then the planner's SPLIT_CAP swept over SPLIT_CAP_SWEEP, timed in
-    turns (each value twice, in both orders), each held at KERNEL_TOL;
-    the constant is restored afterwards."""
+    SDPA call and the bound; its split count, CTAs and SPLIT_CAP logged
+    (PR 26 settled the cap at 2,048 by a sweep over 256-4,096 here)."""
     import repro_torch.kernels.decode_attention as da
     B, H, K, T, d = SLAB_LONG
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1474,32 +1475,11 @@ def slab_long(torch, F, ref, kern):
         f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
         f"B, {flops} flop); device ms a call by kernel (profiler, L2 "
         f"flushed): " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
-    keep = da.SPLIT_CAP
-    sweep = {c: dict(n_split=0, ms=[]) for c in SPLIT_CAP_SWEEP}
-    try:
-        for cap_n in SPLIT_CAP_SWEEP + SPLIT_CAP_SWEEP[::-1]:
-            da.SPLIT_CAP = cap_n
-            sweep[cap_n]["n_split"] = da.plan_splits(B, K, T, sms)
-            got = kern(q, k, v, lens, scale=1.0)
-            torch.cuda.synchronize()
-            within(torch, got, want, KERNEL_TOL,
-                   f"decode_attention decode_32k SPLIT_CAP {cap_n}")
-            del got
-            sweep[cap_n]["ms"].append(time_ms(
-                lambda: kern(q, k, v, lens, scale=1.0), torch, iters=30))
-    finally:
-        da.SPLIT_CAP = keep
-    log("[kernels] decode_attention decode_32k SPLIT_CAP sweep (within "
-        f"{KERNEL_TOL} of plain at each): "
-        + ", ".join(f"{c} ({r['n_split']} splits): "
-                    f"{' / '.join(f'{t:.4f}' for t in r['ms'])} ms"
-                    for c, r in sweep.items())
-        + f"; sdpa {lib_ms:.4f} ms (the planner caps at {keep})")
     del q, slab_k, slab_v, k, v, want
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, n_split=n_split, ctas=ctas,
-                split_cap=keep, cap_sweep=sweep, passes_ms=passes)
+                split_cap=da.SPLIT_CAP, passes_ms=passes)
 
 
 def check_gemma_rings(torch, F, ref, kern):
@@ -1950,9 +1930,16 @@ def serve_eager(torch, cfg, graph_out, eager, graph_tok_s: float,
 GRAPH_LAUNCH_API = "cudaGraphLaunch"
 KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                       "cuLaunchKernel", "cuLaunchKernelEx")
-# each decode wrapper's first kernel (one launch of it a wrapper call)
-DECODE_KERNEL_NAMES = {"paged_decode_attention": "paged_decode_split_kernel",
-                       "decode_attention": "slab_decode_split_kernel"}
+# the kernel each attention and scan wrapper launches once a call (its
+# first, where a call launches more than one), as the profiler names it
+PROFILED_KERNEL_NAMES = {
+    "paged_decode_attention": ("paged_decode_split_kernel",),
+    "decode_attention": ("slab_decode_split_kernel",),
+    "paged_prefill_attention": ("paged_prefill_f32_kernel",
+                                "paged_prefill_mma_kernel"),
+    "flash_attention": ("flash_attention_f32_kernel",
+                        "flash_attention_tma_kernel"),
+    "ssd_scan": ("ssd_state_passing_kernel",)}
 # torch.profiler on the H100 (torch 2.11, CUDA 12.8) drops the first
 # device records of a profiling window, more of them the older the
 # process: in a whole run of this script 0-2 in phase 3 and 50-55 in
@@ -1998,6 +1985,20 @@ def probe_offsets(prof, probes):
     return out
 
 
+def hold_profiled_launches(rows, launches: dict, what: str, note: str = ""):
+    """Each attention and scan wrapper's launches in a profiled span
+    (``launches``: its counter's delta, replays included) against the
+    profiler's count of its kernel in ``rows`` (``device_rows``): fail
+    unless every one is equal, zero included."""
+    seen = {w: sum(c for _, c, n in rows if any(k in n for k in names))
+            for w, names in PROFILED_KERNEL_NAMES.items()}
+    bad = {w: (launches.get(w, 0), n) for w, n in seen.items()
+           if n != launches.get(w, 0)}
+    if bad:
+        fail(f"{what}: wrapper launches against the profiler's kernels "
+             f"(wrapper, profiler) {bad}" + (f" ({note})" if note else ""))
+
+
 def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
                    tag: str = "[profile]", breakdown=None):
     """Where one steady decode horizon's time goes: torch.profiler over one
@@ -2008,8 +2009,9 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     kernels (how many of them the profile lost is logged) and the step
     runs PROFILE_PAD_S inside both of its ends, with clock probes before
     and after it (logged: the device stamp less the host launch time).
-    Host launch calls counted (one ``cudaGraphLaunch`` and no kernel
-    launch with graphs; the probes' own launches taken out); each decode
+    Host launch calls counted with graphs (one ``cudaGraphLaunch`` and no
+    kernel launch; the probes' own launches taken out; an eager horizon
+    without a breakdown is profiled for CUDA activity only); each decode
     wrapper's launch count gated against the profiler's count of its
     kernel, which must be equal.  The profiled step's (request, token,
     logprob) events are kept in the result, for ``hold_graph_profile``.
@@ -2031,8 +2033,13 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     s0 = graph_cache_stats()
     probes = []
     reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # host activity only where it is read: the graph horizon's launch calls
+    # and a breakdown's ranges (an eager horizon's ~25,000 host op records
+    # cost the profiler 14-25 s to parse, PR 27)
+    acts = [ProfilerActivity.CUDA]
+    if eng.cuda_graphs or breakdown is not None:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         clock_probe(torch, probes, PROBE_BURST)
         time.sleep(PROFILE_PAD_S)
         clock_probe(torch, probes)
@@ -2067,16 +2074,14 @@ def profile_decode(torch, cfg, eng, prompts, n_rows: int, what: str,
     api["cudaLaunchKernel"] -= min(len(probes), api["cudaLaunchKernel"])
     n_kernel_api = sum(api[k] for k in KERNEL_LAUNCH_APIS)
     rows = [r for r in device_rows(prof) if PROBE_KERNEL not in r[2]]
-    for wrapper, kname in DECODE_KERNEL_NAMES.items():
-        seen = sum(c for _, c, n in rows if kname in n)
-        if launches[wrapper] and seen != launches[wrapper]:
-            fail(f"{cfg.name} profiled horizon ({mode}): {wrapper} counted "
-                 f"{launches[wrapper]} launches, the profiler {seen} "
-                 f"{kname} ({offsets_s})")
+    hold_profiled_launches(rows, launches,
+                           f"{cfg.name} profiled horizon ({mode})", offsets_s)
     busy_ms = sum(r[0] for r in rows)
-    log(f"{tag} one decode horizon ({what}, {mode}): host launch calls "
-        f"{api}; decode kernels in the profile equal the wrappers' "
-        f"launch counts; {offsets_s}")
+    calls = (f"host launch calls {api}" if ProfilerActivity.CPU in acts
+             else "host activity not profiled")
+    log(f"{tag} one decode horizon ({what}, {mode}): {calls}; attention "
+        f"and scan kernels in the profile equal the wrappers' launch counts; "
+        f"{offsets_s}")
     if eng.cuda_graphs and (api[GRAPH_LAUNCH_API] != 1 or n_kernel_api):
         fail(f"{cfg.name}: the profiled graph horizon made "
              f"{api[GRAPH_LAUNCH_API]} graph launches and {n_kernel_api} "
@@ -2134,41 +2139,52 @@ def profile_decode_pair(torch, cfg, make, prompts, n_rows: int, what: str,
 
 @contextlib.contextmanager
 def graph_phase(tag: str):
-    """The horizon cache over one phase, as a ``[graph]`` line and a GRAPHS
-    row: captures, replays, padded reuse and invalidations (deltas of
-    ``graph_cache_stats()``), each capture's seconds and its engine's
-    graph-pool bytes just after it (read by wrapping
-    ``InferenceEngine._capture``: a yardstick for this script only), and
-    the phase's wall seconds."""
+    """The graph cache over one phase, as a ``[graph]`` line and a GRAPHS
+    row: horizon captures and replays, prefill captures and replays,
+    padded and chunk-pad reuse and invalidations (deltas of
+    ``graph_cache_stats()``), each capture's kind, seconds and its
+    engine's graph-pool bytes just after it (read by wrapping
+    ``InferenceEngine._run_entry``: a yardstick for this script only),
+    and the phase's wall seconds."""
     from repro_torch.serving import engine as engine_mod
     cls = engine_mod.InferenceEngine
-    capture, caps = cls._capture, []
+    run, caps = cls._run_entry, []
     t0 = time.perf_counter()
 
-    def _capture(self, entry, bt):
-        capture(self, entry, bt)
-        caps.append((self.graph_capture_s[-1], self.graph_pool_bytes()))
+    def _run_entry(self, entry, first, body, kind):
+        secs = self.prefill_capture_s if kind == "prefill" \
+            else self.graph_capture_s
+        n = len(secs)
+        out = run(self, entry, first, body, kind)
+        if len(secs) > n:
+            caps.append((kind, secs[-1], self.graph_pool_bytes()))
+        return out
     s0 = engine_mod.graph_cache_stats()
-    cls._capture = _capture
+    cls._run_entry = _run_entry
     try:
         yield
     finally:
-        cls._capture = capture
+        cls._run_entry = run
     s1 = engine_mod.graph_cache_stats()
     row = {k: s1[k] - s0[k] for k in s1}
     row.update(widths_registered=s1["entries"],
-               capture_s=[c for c, _ in caps],
-               pool_bytes=[b for _, b in caps],
+               capture_s=[c for k, c, _ in caps if k == "decode"],
+               prefill_capture_s=[c for k, c, _ in caps if k == "prefill"],
+               pool_bytes=[b for _, _, b in caps],
                wall_s=time.perf_counter() - t0)
-    secs = row["capture_s"]
-    log(f"[graph] {tag}: captures {row['captures']}, replays "
-        f"{row['replays']}, invalidations {row['invalidations']}, padded "
-        f"reuse {row['padded_reuse']}, widths registered "
-        f"{row['widths_registered']}; capture s "
-        + (f"mean {sum(secs) / len(secs):.4f} max {max(secs):.4f}"
-           if secs else "none")
-        + f"; graph pool bytes after each capture, max "
-        f"{max(row['pool_bytes'], default=0)}; phase wall "
+
+    def secs(xs):
+        return (f"mean {sum(xs) / len(xs):.4f} max {max(xs):.4f}" if xs
+                else "none")
+    log(f"[graph] {tag}: horizons: captures {row['captures']}, replays "
+        f"{row['replays']}, capture s {secs(row['capture_s'])}; prefills: "
+        f"captures {row['prefill_captures']}, replays "
+        f"{row['prefill_replays']}, capture s "
+        f"{secs(row['prefill_capture_s'])}; invalidations "
+        f"{row['invalidations']}, padded reuse {row['padded_reuse']}, chunk "
+        f"pad reuse {row['chunk_pad_reuse']}, widths registered "
+        f"{row['widths_registered']}; graph pool bytes after each capture, "
+        f"max {max(row['pool_bytes'], default=0)}; phase wall "
         f"{row['wall_s']:.1f} s")
     GRAPHS[tag] = row
 
@@ -3072,60 +3088,182 @@ def serve_hybrid(torch, InferenceEngine, cfg, params, prompts, *, horizon,
     return eng, out, wall, launches
 
 
-def profile_prefill(torch, cfg, eng, prompts):
-    """Where one prefill dispatch's time goes: torch.profiler over the
-    ``step()`` of a fresh engine that prefills the whole mix in one
-    dispatch (untimed, like the train profile): wall and device busy time,
-    the device time and share of the prefill's attention kernel (the
-    dense family; with local layers, the flash kernel's too) or of the
-    ``ssd_scan`` kernels, the top five rows."""
+def engine_cache_host(cache):
+    """Host copies of an engine cache's leaves, the pools' garbage page
+    (page 0, which padding rows write in no fixed order) left out."""
+    return {k: (v[:, 1:] if k.endswith("_pages") else v).cpu()
+            for k, v in cache.items()}
+
+
+def prefill_rounds(torch, cfg, eng, prompts, what: str):
+    """PREFILL_ROUNDS times: admit ``prompts`` as single requests, one
+    ``step()`` (their one prefill dispatch: with graphs the key's eager
+    warm-up, its capture and replay, then a pure replay), then drop them;
+    launches checked at every round (layers x one dispatch), the last
+    round's step under torch.profiler (CUDA activity; its window opened
+    by PROBE_BURST spin kernels, PROFILE_PAD_S before the step), wall by
+    the host's clock, each wrapper's launches in it held to the
+    profiler's count of its kernel (``hold_profiled_launches``).  With
+    graphs the last round must be one prefill replay and nothing
+    captured.  Returns (each round's first-token
+    events, the engine's cache on the host after the last round, the
+    profile's (device rows, wall ms))."""
     from torch.profiler import ProfilerActivity, profile
-    admit_singles(eng, prompts)
-    torch.cuda.synchronize()
-    reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
+
+    from repro_torch.serving.engine import graph_cache_stats
+    events = []
+    for r in range(PREFILL_ROUNDS):
+        rids = admit_singles(eng, prompts)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = check_launches(cfg, eng, f"{cfg.name} profiled prefill",
-                              eng.n_decode_dispatches,
-                              eng.n_prefill_dispatches)
-    if eng.n_prefill_dispatches != 1 or eng.n_decode_dispatches:
-        fail(f"{cfg.name} profiled prefill: {eng.n_prefill_dispatches} "
-             f"prefill and {eng.n_decode_dispatches} decode dispatches")
-    tag = f"[profile] {cfg.name} prefill"
-    rows = device_rows(prof)
-    busy_ms = sum(r[0] for r in rows)
-    if busy_ms <= 0:
-        log(f"{tag}: wall {wall_ms:.2f} ms; device time not measured (the "
-            f"profiler reported no CUDA kernels)")
-        return None
-    wrapper, key = (("ssd_scan", "ssd_") if cfg.has_ssm else
-                    ("paged_prefill_attention", "paged_prefill"))
-    scan = [r for r in rows if key in r[2]]
-    scan_ms, scan_n = sum(r[0] for r in scan), sum(r[1] for r in scan)
-    log(f"{tag} (one dispatch of {eng.n_prefill_tokens} tokens in "
-        f"{len(prompts)} rows, profiler on, not timed elsewhere): wall "
-        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; {wrapper} kernels {scan_ms:.3f} ms "
-        f"in {scan_n} kernels ({launches[wrapper]} launches), "
-        f"{scan_ms / busy_ms:.3f} of device busy")
-    flash_ms = None
-    if cfg.mixed:
-        flash_ms = sum(r[0] for r in rows if "flash_attention" in r[2])
-        log(f"{tag}   flash_attention kernels {flash_ms:.3f} ms "
-            f"({launches['flash_attention']} launches), "
-            f"{flash_ms / busy_ms:.3f} of device busy")
-    top = sorted(rows, reverse=True)[:5]
-    for ms, count, name in top:
-        log(f"{tag}   {ms:9.3f} ms {count:6d}x  {name[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms, kernel=wrapper,
-                kernel_ms=scan_ms, kernel_count=scan_n,
-                kernel_share=scan_ms / busy_ms, flash_ms=flash_ms,
-                top=[dict(ms=ms, count=c, name=n) for ms, c, n in top])
+        n0, s0 = eng.n_prefill_dispatches, graph_cache_stats()
+        reset_launches()
+        if r < PREFILL_ROUNDS - 1:
+            evs = eng.step()
+        else:
+            probes = []
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                clock_probe(torch, probes, PROBE_BURST)
+                time.sleep(PROFILE_PAD_S)
+                t0 = time.perf_counter()
+                evs = eng.step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            s1 = graph_cache_stats()
+            if eng.cuda_graphs and (
+                    s1["prefill_replays"] != s0["prefill_replays"] + 1
+                    or s1["prefill_captures"] != s0["prefill_captures"]):
+                fail(f"{cfg.name}: the profiled prefill dispatch was not one "
+                     f"replay of a captured graph ({s0} -> {s1})")
+        launches = check_launches(
+            cfg, eng, f"{cfg.name} {what} prefill round {r + 1}", 0, 1)
+        if eng.n_prefill_dispatches != n0 + 1 or len(evs) != len(prompts):
+            fail(f"{cfg.name} {what}: round {r + 1} took "
+                 f"{eng.n_prefill_dispatches - n0} prefill dispatches for "
+                 f"{len(evs)} first tokens")
+        events.append(sorted((e.req_id, e.token, e.logprob) for e in evs))
+        for rid in rids:
+            eng.drop_request(rid)
+    torch.cuda.synchronize()
+    if eng.cuda_graphs and len(eng.prefill_capture_s) != 1:
+        fail(f"{cfg.name}: {len(eng.prefill_capture_s)} prefill captures "
+             f"in {PREFILL_ROUNDS} dispatches at one key (want 1)")
+    rows = [r for r in device_rows(prof) if PROBE_KERNEL not in r[2]]
+    hold_profiled_launches(rows, launches,
+                           f"{cfg.name} profiled prefill dispatch ({what})")
+    return events, engine_cache_host(eng.cache), (rows, wall_ms)
+
+
+def kv_headroom(torch, cfg, eng):
+    """The KV room a pool growth of ``eng`` has, with its captured prefill
+    graph held and once ``_grow_pool``'s drop has freed it: the device's
+    free bytes both ways (the allocator's cache emptied), the bytes of one
+    page over every pool leaf, and the largest pool a growth can reach
+    (it allocates the new pool beside the old one: free / page bytes).
+    Fails unless the drop returns every segment of the graph pool."""
+    page_bytes = sum(v.nbytes // v.shape[1] for k, v in eng.cache.items()
+                     if k.endswith("_pages"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_with = torch.cuda.mem_get_info()[0]
+    old = eng._graph_pool
+    eng._drop_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_without = torch.cuda.mem_get_info()[0]
+    if old.bytes():
+        fail(f"{cfg.name}: {old.bytes()} B of the dropped prefill graphs' "
+             f"pool stayed reserved after empty_cache")
+    return dict(free_with=free_with, free_without=free_without,
+                page_bytes=page_bytes, pages=eng.alloc.num_pages,
+                growable_with=page_bytes and free_with // page_bytes,
+                growable_without=page_bytes and free_without // page_bytes)
+
+
+def prefill_replay_pair(torch, cfg, make, prompts, tag: str = "[profile]"):
+    """The mix's prefill, every prompt in one dispatch, PREFILL_ROUNDS
+    times (``prefill_rounds``) in a graph engine and in an eager one
+    (``cuda_graphs=False``) built alike by ``make(graphs)``: each round's
+    first tokens and logprobs, and after the last round (the graph
+    engine's a pure replay) every cache leaf (pages, rings, conv and SSM
+    rows, ``pos``; the garbage page aside), bit-equal.  Both last rounds
+    profiled: wall, device busy, idle share, the prefill kernel's share
+    (the paged prefill, or the scan for an SSM model; flash too with
+    local layers), the replay's top five rows.  Returns the summary."""
+    out, held = {}, {}
+    n_tok = sum(len(p) for p in prompts)
+    for graphs in (True, False):
+        mode = "replay" if graphs else "eager"
+        eng = make(graphs)
+        events, cache, (rows, wall_ms) = prefill_rounds(torch, cfg, eng,
+                                                        prompts, mode)
+        pool = eng.graph_pool_bytes() if graphs else 0
+        if graphs:
+            headroom = kv_headroom(torch, cfg, eng)
+        held[mode] = (events, cache)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        busy_ms = sum(r[0] for r in rows)
+        wrapper, key = (("ssd_scan", "ssd_") if cfg.has_ssm else
+                        ("paged_prefill_attention", "paged_prefill"))
+        krows = [r for r in rows if key in r[2]]
+        k_ms = sum(r[0] for r in krows)
+        row = dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel=wrapper,
+                   kernel_ms=k_ms, kernel_count=sum(r[1] for r in krows),
+                   kernels=sum(r[1] for r in rows), pool_bytes=pool)
+        if busy_ms > 0:
+            row.update(idle_share=1 - busy_ms / wall_ms,
+                       kernel_share=k_ms / busy_ms)
+        if cfg.mixed:
+            row["flash_ms"] = sum(r[0] for r in rows
+                                  if "flash_attention" in r[2])
+        if graphs:
+            row["top"] = [dict(ms=ms, count=c, name=n)
+                          for ms, c, n in sorted(rows, reverse=True)[:5]]
+        out[mode] = row
+    (ev_g, c_g), (ev_e, c_e) = held["replay"], held["eager"]
+    if ev_g != ev_e:
+        bad = [r + 1 for r, (a, b) in enumerate(zip(ev_g, ev_e)) if a != b]
+        fail(f"{cfg.name}: prefill first tokens / logprobs with graphs "
+             f"differ from eager ones in rounds {bad}")
+    diff = [k for k in c_e if not torch.equal(c_g[k], c_e[k])]
+    if sorted(c_g) != sorted(c_e) or diff:
+        fail(f"{cfg.name}: after the prefill replay the cache leaves {diff} "
+             f"differ from the eager engine's")
+    del held, c_g, c_e
+    g, e = out["replay"], out["eager"]
+    log(f"{tag} {cfg.name} prefill (one dispatch of {n_tok} tokens in "
+        f"{len(prompts)} rows, {PREFILL_ROUNDS} rounds a engine): the "
+        f"replay's first tokens, logprobs, pages, per-slot rows and pos "
+        f"bit-equal to the eager engine's in every round; each profiled "
+        f"dispatch's kernels equal its wrappers' launches; graph pool "
+        f"{g['pool_bytes']} B")
+    h = headroom
+    log(f"{tag} {cfg.name} KV headroom: device free {h['free_with']} B "
+        f"with the prefill graph held, {h['free_without']} B once it is "
+        f"dropped (as a pool growth drops it; its pool fully returned); "
+        + (f"{h['page_bytes']} B a page: a growth from {h['pages']} pages "
+           f"can reach {h['growable_with']} pages with the graph held, "
+           f"{h['growable_without']} without" if h["page_bytes"]
+           else "no page pool (per-slot state only)"))
+    for mode, r in out.items():
+        if r["busy_ms"] <= 0:
+            log(f"{tag} {cfg.name} prefill ({mode}): wall {r['wall_ms']:.2f} "
+                f"ms; device time not measured (the profiler reported no "
+                f"CUDA kernels)")
+            continue
+        log(f"{tag} {cfg.name} prefill ({mode}, profiled): wall "
+            f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.2f} ms, "
+            f"idle share {r['idle_share']:.3f}; {r['kernel']} kernels "
+            f"{r['kernel_ms']:.3f} ms in {r['kernel_count']} kernels, "
+            f"{r['kernel_share']:.3f} of device busy"
+            + (f"; flash_attention {r['flash_ms']:.3f} ms"
+               if "flash_ms" in r else "")
+            + f"; {r['kernels']} kernels in all")
+    for t in g.get("top", []):
+        log(f"{tag}   {t['ms']:9.3f} ms {t['count']:6d}x  {t['name'][:90]}")
+    out["headroom"] = headroom
+    return out
 
 
 @contextlib.contextmanager
@@ -3358,9 +3496,9 @@ def hybrid_phase(torch, InferenceEngine, clock, ops, ref):
             f"dispatches)")
         del eng1
         torch.cuda.empty_cache()
-        row["prefill_profile"] = profile_prefill(
-            torch, cfg, make_hybrid_engine(InferenceEngine, cfg, params),
-            prompts)
+        row["prefill_profile"] = prefill_replay_pair(
+            torch, cfg, lambda graphs: make_hybrid_engine(
+                InferenceEngine, cfg, params, cuda_graphs=graphs), prompts)
         torch.cuda.empty_cache()
         row["profile"] = profile_decode_pair(
             torch, cfg, lambda graphs: make_hybrid_engine(
@@ -3433,9 +3571,9 @@ def serve14b_phase(torch, InferenceEngine, ops, ref):
                                    generator=rs).tolist()
                for n in SERVE14B_PROMPT_LENS]
 
-    def run(horizon, tracer=None):
+    def run(horizon, tracer=None, cuda_graphs=True):
         eng = make_engine(InferenceEngine, cfg, params, horizon=horizon,
-                          tracer=tracer)
+                          tracer=tracer, cuda_graphs=cuda_graphs)
         p0 = prompts[0]
         eng.add_group([(j, request_key(0, j),
                         len(p0) + SERVE14B_NEW_TOKENS) for j in range(4)],
@@ -3449,7 +3587,8 @@ def serve14b_phase(torch, InferenceEngine, ops, ref):
         out, _ = drive(eng, rids)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = check_launches(cfg, eng, f"{cfg.name} greedy H={horizon}",
+        launches = check_launches(cfg, eng, f"{cfg.name} greedy H={horizon}"
+                                  f"{'' if cuda_graphs else ' eager'}",
                                   eng.n_decode_dispatches,
                                   eng.n_prefill_dispatches)
         for r, evs in out.items():
@@ -3474,6 +3613,10 @@ def serve14b_phase(torch, InferenceEngine, ops, ref):
                decode_tok_s=n_dec / t_dec, peak_gb=peak_gb, wall_s=wall,
                launches=launches)
     del eng
+    torch.cuda.empty_cache()
+    row["eager"] = serve_eager(torch, cfg, greedy8, run(8, Tracer(clock),
+                                                        cuda_graphs=False),
+                               row["decode_tok_s"], "[serve14b]")
     torch.cuda.empty_cache()
     eng1, greedy1, wall1, _ = run(1)
     same = {r: [t for t, _ in v] for r, v in greedy1.items()} == \
@@ -3591,11 +3734,16 @@ def launch_counts():
 
 
 def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
-               resume=False, device="cuda", collection="batch"):
+               resume=False, device="cuda", collection="batch",
+               ckpt_writes=True):
     """One TorchRLHarness on RL_RUNNER / RL_HARNESS (a seeded FaultPlan
     carrying the trainer crash, if any) with the capacity ``trace`` loaded;
     returns (harness, recorder, construction seconds: the resume's load
-    and restore when ``resume``)."""
+    and restore when ``resume``).  ``ckpt_writes=False``: a run whose
+    checkpoints nothing reads keeps its checkpoint boundaries, and the
+    event-clock charge the runner makes at each (``_save_checkpoint``
+    charges the trainer-state snapshot whatever the store does), but its
+    ``RecoveryStore.save`` neither hashes nor writes a chunk."""
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.hybrid_runtime import RunnerConfig
     from repro_torch.rl.harness import TorchRLHarness
@@ -3605,6 +3753,11 @@ def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
     t0 = clock()
     h = TorchRLHarness(cfg, rc, resume=resume, device=device, **RL_HARNESS)
     t_build = clock() - t0
+    if not ckpt_writes:
+        def save(step, run_state, payload):
+            return dict(step=step, n_chunks=0, n_chunks_written=0,
+                        n_chunks_reused=0, bytes_written=0, torn=False)
+        h.runner.recovery.save = save
     rec = RLRecorder(h, clock)
     h.runner.load_trace(trace)
     return h, rec, t_build
@@ -3712,9 +3865,12 @@ def rl_phase(torch, clock):
                 f"tokens, launches {st['launches']}")
         for sv in rec.saves:
             log(f"[rl] {tag} checkpoint at boundary {sv['step']}: "
-                f"{sv['bytes_written']} B written in {sv['n_chunks_written']}"
-                f" chunks, {sv['n_chunks_reused']} reused, "
-                f"{sv['seconds']:.3f} s")
+                + (f"{sv['bytes_written']} B written in "
+                   f"{sv['n_chunks_written']} chunks, "
+                   f"{sv['n_chunks_reused']} reused, " if sv["n_chunks"]
+                   else "not written (no later run reads it; the event "
+                   "clock's charge kept), ")
+                + f"{sv['seconds']:.3f} s")
         m = metrics[-1] if metrics else {}
         log(f"[rl] {tag}: {len(rec.engines)} engines built, "
             f"{rec.n_train} train forwards, preemptions {rec.preempts}, "
@@ -3757,7 +3913,8 @@ def rl_phase(torch, clock):
 
     # 1. uninterrupted
     torch.cuda.reset_peak_memory_stats()
-    h0, rec0, _ = rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir))
+    h0, rec0, _ = rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir),
+                             ckpt_writes=False)
     n_params = sum(t.numel() for t in adamw.tree_leaves(h0.params))
     log(f"[rl] {cfg.name} at full width (d={cfg.d_model} H={cfg.n_heads} "
         f"K={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff}, tied), "
@@ -3793,6 +3950,7 @@ def rl_phase(torch, clock):
     else:
         fail("rl: the crashed run did not crash")
     summary("crashed", h1, rec1, h1.runner.metrics)
+    ckpt_bytes = h1.runner.registry.counters.get("ckpt.bytes_written", 0)
     if h1.runner.step_idx != RL_STEPS - 1:
         fail(f"rl: the crash at {crash_t:.4f} did not land in step "
              f"{RL_STEPS} (step_idx {h1.runner.step_idx})")
@@ -3825,20 +3983,19 @@ def rl_phase(torch, clock):
 
     # 4. streamed collection, against the uninterrupted (batch) run
     h3, rec3, _ = rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir),
-                             collection="streamed")
+                             collection="streamed", ckpt_writes=False)
     m3, rw3 = h3.run(RL_STEPS)
     summary("streamed", h3, rec3, m3)
     check_run("streamed", h3, rec3, m3, RL_STEPS)
     streamed = streamed_gates(torch, h0, rw0, h3, m3, rw3, n_rows)
     launches = launch_counts()
     torch.use_deterministic_algorithms(False)
-    ckpt_bytes = h0.runner.registry.counters.get("ckpt.bytes_written", 0)
     t_phase = clock() - t_phase
     log(f"[rl] resumed run: same {len(h2.runner.journal.response_set())} "
         f"responses as the uninterrupted run, params and optimizer state "
         f"bit-equal ({len(_items(h2.params)) + len(_items(h2.opt))} leaves),"
         f" step rewards {rw2}; checkpoint bytes written "
-        f"(uninterrupted run, ckpt.bytes_written) {ckpt_bytes}; phase "
+        f"(crashed run, ckpt.bytes_written) {ckpt_bytes}; phase "
         f"{t_phase:.1f} s, peak memory {peak0:.2f} GB (uninterrupted run)")
     out = dict(n_params=n_params, phase_s=t_phase, peak_gb=peak0,
                crash_t=crash_t, resume_s=t_resume, ckpt_bytes=ckpt_bytes,
@@ -4017,6 +4174,10 @@ def moe_serve(torch, InferenceEngine, cfg, params, prompts, clock, ops,
             "[moe]", breakdown=moe_breakdown)
     hold_graph_profile(cfg, row["profile"], "[moe]")
     torch.cuda.empty_cache()
+    row["prefill_profile"] = prefill_replay_pair(
+        torch, cfg, lambda graphs: make_engine(
+            InferenceEngine, cfg, params, cuda_graphs=graphs,
+            prefill_chunk=sum(PROMPT_LENS)), prompts, "[moe]")
     got, step, step_plain = model_logits(torch, cfg, params, prompts[0],
                                          ops, ref)
     with plain_attention(ops, ref):
@@ -4340,9 +4501,9 @@ def gemma_phase(torch, InferenceEngine, clock, ops, ref):
             f"contexts {min(mix['lens'])}-{max(mix['lens'])}", "[gemma]")
         gc.collect()
         torch.cuda.empty_cache()
-        row["prefill_profile"] = profile_prefill(
-            torch, cfg, make_gemma_engine(InferenceEngine, cfg, params),
-            prompts)
+        row["prefill_profile"] = prefill_replay_pair(
+            torch, cfg, lambda graphs: make_gemma_engine(
+                InferenceEngine, cfg, params, cuda_graphs=graphs), prompts)
         gc.collect()
         torch.cuda.empty_cache()
         longest = max(prompts, key=len)
@@ -4365,7 +4526,13 @@ def gemma_phase(torch, InferenceEngine, clock, ops, ref):
                 make=make_gemma_engine, tag="[gemma]", new=mix["new"])
         row["peak_gb_phase"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[gemma] {cfg.name}: peak memory over its runs "
-            f"{row['peak_gb_phase']:.2f} GB")
+            f"{row['peak_gb_phase']:.2f} GB (with a prefill graph of the "
+            f"whole mix captured: graph pool "
+            f"{row['prefill_profile']['replay']['pool_bytes']} B; device "
+            f"free {row['prefill_profile']['headroom']['free_with']} B "
+            f"with it held, "
+            f"{row['prefill_profile']['headroom']['free_without']} B "
+            f"dropped)")
         summary[arch] = row
         del params
         gc.collect()
@@ -4661,20 +4828,26 @@ def llava_serve(torch, InferenceEngine, clock, ops, ref):
     prompts = [[1] + torch.randint(3, cfg.vocab_size, (n - 1,),
                                    generator=rs).tolist()
                for n in PROMPT_LENS]
-    tracer = Tracer(clock)
-    eng = make_llava_engine(InferenceEngine, cfg, params, tracer=tracer)
-    rids = admit_singles(eng, prompts, LLAVA_NEW_TOKENS)
-    reset_launches()
-    t0 = time.perf_counter()
-    out, _ = drive(eng, rids)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = check_launches(cfg, eng, f"{cfg.name} greedy H=8",
-                              eng.n_decode_dispatches,
-                              eng.n_prefill_dispatches)
-    for r, evs in out.items():
-        if not all(math.isfinite(lp) for _, lp in evs):
-            fail(f"{cfg.name}: request {r} has a non-finite logprob")
+    def run(cuda_graphs=True):
+        eng = make_llava_engine(InferenceEngine, cfg, params,
+                                tracer=Tracer(clock), cuda_graphs=cuda_graphs)
+        rids = admit_singles(eng, prompts, LLAVA_NEW_TOKENS)
+        reset_launches()
+        t0 = time.perf_counter()
+        out, _ = drive(eng, rids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_launches(cfg, eng, f"{cfg.name} greedy H=8"
+                                  f"{'' if cuda_graphs else ' eager'}",
+                                  eng.n_decode_dispatches,
+                                  eng.n_prefill_dispatches)
+        for r, evs in out.items():
+            if not all(math.isfinite(lp) for _, lp in evs):
+                fail(f"{cfg.name}: request {r} has a non-finite logprob")
+        return eng, out, wall, launches
+
+    eng, out, wall, launches = run()
+    tracer = eng.tracer
     spans = tracer.spans()
     t_pre = sum(sp.duration for sp in spans if sp.name == "engine.prefill")
     t_dec = sum(sp.duration for sp in spans if sp.name == "engine.decode")
@@ -4692,6 +4865,10 @@ def llava_serve(torch, InferenceEngine, clock, ops, ref):
         f"s; capture {sum(eng.graph_capture_s):.3f} s; peak memory "
         f"{row['peak_gb']:.2f} GB")
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["eager"] = serve_eager(torch, cfg, out, run(cuda_graphs=False),
+                               row["decode_tok_s"], "[train12]")
     gc.collect()
     torch.cuda.empty_cache()
     row["profile"] = profile_decode_pair(
@@ -4851,34 +5028,137 @@ def _cache_leaves(tree, names):
             yield v
 
 
+def profiled_call(torch, fn, what: str):
+    """``fn()`` under torch.profiler (CUDA activity; the window opened by
+    PROBE_BURST spin kernels, PROFILE_PAD_S before the call), each
+    wrapper's launches in it held to the profiler's count of its kernel
+    (``hold_profiled_launches``): (its result, wall ms by the host's
+    clock, device busy ms, kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    probes = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        clock_probe(torch, probes, PROBE_BURST)
+        time.sleep(PROFILE_PAD_S)
+        n0 = launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        n1 = launch_counts()
+    rows = [r for r in device_rows(prof) if PROBE_KERNEL not in r[2]]
+    hold_profiled_launches(rows, {k: n1[k] - n0[k] for k in n1}, what)
+    return out, wall_ms, sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
 def serve_cell(torch, cfg, params, cache, tokens, ops, ref, what: str,
                clock):
-    """CELL_SERVE_STEPS serve steps from ``cache``, each held against the
-    same step under the plain attention (run first, on the same cache:
-    both write slot pos before reading it; the SSM state, which a step
-    reads and then rewrites, is restored after the plain step).  Returns
-    (cache, seconds of the kernel steps, worst logit difference)."""
-    from repro_torch.launch.steps import build_serve_step
+    """CELL_SERVE_STEPS serve steps from ``cache`` through
+    ``CapturedServeStep`` (the first its eager warm-up, the second its
+    capture and replay, the rest replays), each held against the same
+    step under the plain attention and against ``build_serve_step``'s
+    eager step with the kernels, both run first on the same cache (each
+    step writes slot pos before reading it; the SSM state, which a step
+    reads and then rewrites, is restored after each): next tokens and
+    logits bit-equal to the eager step's, every cache leaf after it
+    bit-equal to the eager step's, ``pos`` advanced in place; tokens and
+    logits within LOGIT_REL_TOL of plain.  The last step (a replay) and
+    its eager step profiled: wall, device busy, idle share (their walls
+    the profiled calls' own), each with its wrappers' launches held to
+    the profiler's kernels.  Returns (cache, seconds of the captured
+    steps, worst logit difference, the steps' walls and profiles)."""
+    from repro_torch.launch.steps import CapturedServeStep, build_serve_step
     serve = build_serve_step(cfg, return_logits=True)
+    captured = CapturedServeStep(cfg, return_logits=True)
+    pos = cache["pos"]
     secs, worst = 0.0, 0.0
+    walls = dict(captured=[], eager=[])
+    prof = {}
     for i in range(CELL_SERVE_STEPS):
+        last = i == CELL_SERVE_STEPS - 1
         state = [t.clone() for t in _cache_leaves(cache, ("conv", "ssm"))]
+
+        def restore():
+            for t, s in zip(_cache_leaves(cache, ("conv", "ssm")), state):
+                t.copy_(s)
         n0 = {k.__name__: k.launches for k in KERNELS}
         with plain_attention(ops, ref):
             tok_p, _, lg_p = serve(params, cache, tokens)
         if {k.__name__: k.launches for k in KERNELS} != n0:
             fail(f"{what}: the plain serve step launched a kernel")
-        for t, s in zip(_cache_leaves(cache, ("conv", "ssm")), state):
-            t.copy_(s)
+        restore()
+        if last:
+            res = profiled_call(torch, lambda: serve(params, cache, tokens),
+                                f"{what} eager serve step {i + 1}")
+            (tok_e, c_e, lg_e), prof["eager"] = res[0], res[1:]
+            walls["eager"].append(res[1] / 1e3)
+        else:
+            t0 = clock()
+            tok_e, c_e, lg_e = serve(params, cache, tokens)
+            walls["eager"].append(clock() - t0)
+        after = {k: v.clone() for k, v in _cache_items(cache)}
+        restore()
         del state
-        t0 = clock()
-        tok, cache, lg = serve(params, cache, tokens)
-        secs += clock() - t0
+        if last:
+            res = profiled_call(torch,
+                                lambda: captured(params, cache, tokens),
+                                f"{what} captured serve step {i + 1}")
+            (tok, out_cache, lg), prof["captured"] = res[0], res[1:]
+            walls["captured"].append(res[1] / 1e3)
+        else:
+            t0 = clock()
+            tok, out_cache, lg = captured(params, cache, tokens)
+            walls["captured"].append(clock() - t0)
+        secs += walls["captured"][-1]
+        if out_cache is not cache or cache["pos"] is not pos \
+                or not torch.equal(pos, c_e["pos"]):
+            fail(f"{what} serve step {i + 1}: the captured step did not "
+                 f"advance pos in place in the cache it was given")
+        if not (torch.equal(tok, tok_e) and torch.equal(lg, lg_e)):
+            fail(f"{what} serve step {i + 1}: the captured step's tokens / "
+                 f"logits differ from the eager step's")
+        diff = [k for k, v in _cache_items(cache)
+                if k in after and not torch.equal(v, after[k])]
+        if diff:
+            fail(f"{what} serve step {i + 1}: cache leaves {diff} differ "
+                 f"from the eager step's")
+        del after, c_e, lg_e
         worst = max(worst, cell_gate(torch, f"{what} serve step {i + 1}",
                                      tok, lg, tok_p, lg_p))
         tokens = tok
         del lg, lg_p
-    return cache, secs, worst
+    if captured.captures != 1 or captured.replays != CELL_SERVE_STEPS - 1:
+        fail(f"{what}: the captured step captured {captured.captures} and "
+             f"replayed {captured.replays} times in {CELL_SERVE_STEPS} "
+             f"steps (want 1 and {CELL_SERVE_STEPS - 1})")
+    steps = dict(walls_s=walls, capture_s=captured.capture_s)
+    for mode, (wall_ms, busy_ms, n) in prof.items():
+        steps[mode] = dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n,
+                           idle_share=1 - busy_ms / wall_ms if busy_ms
+                           else None)
+    log(f"[cells] {what} serve steps: the captured step's tokens, logits "
+        f"and cache bit-equal to the eager step's at each of "
+        f"{CELL_SERVE_STEPS} (1 capture, {captured.capture_s[0]:.3f} s); "
+        f"walls s captured "
+        + " / ".join(f"{t:.4f}" for t in walls["captured"]) + ", eager "
+        + " / ".join(f"{t:.4f}" for t in walls["eager"])
+        + "; step " + str(CELL_SERVE_STEPS) + " profiled (its kernels "
+        "equal the wrappers' launches): "
+        + ", ".join(f"{m} wall {r['wall_ms']:.2f} ms, device busy "
+                    f"{r['busy_ms']:.2f} ms, idle share "
+                    + (f"{r['idle_share']:.3f}" if r["idle_share"]
+                       is not None else "not measured")
+                    + f" ({r['kernels']} kernels)"
+                    for m, r in ((m, steps[m]) for m in ("captured",
+                                                         "eager"))))
+    return cache, secs, worst, steps
+
+
+def _cache_items(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _cache_items(v, f"{path}/{k}")
+        elif k != "pos":
+            yield f"{path}/{k}", v
 
 
 def peak_gb(torch) -> float:
@@ -4956,10 +5236,12 @@ def cells_qwen(torch, InferenceEngine, clock, ops, ref, cfg, params):
         tokens[r0:r0 + CELL_PREFILL_ROWS] = tok
         del cache, placed, prompts
     pre_s = clock() - t0
-    big, secs, rel = serve_cell(torch, cfg, params, big, tokens, ops, ref,
-                                "qwen2-7b decode_32k", clock)
+    big, secs, rel, serve_steps = serve_cell(
+        torch, cfg, params, big, tokens, ops, ref, "qwen2-7b decode_32k",
+        clock)
+    # each serve step runs the kernels twice: the eager step, the captured
     launches = cell_launches(cfg, "qwen2-7b decode_32k", n_pre,
-                             CELL_SERVE_STEPS)
+                             2 * CELL_SERVE_STEPS)
     if big["pos"].tolist() != [S + CELL_SERVE_STEPS] * rows:
         fail(f"qwen2-7b decode_32k: pos {big['pos'].tolist()} after "
              f"{CELL_SERVE_STEPS} serve steps")
@@ -4972,7 +5254,7 @@ def cells_qwen(torch, InferenceEngine, clock, ops, ref, cfg, params):
     out["decode_32k"] = dict(rows=rows, length=slab, seconds=secs,
                              tokens_per_s=rows * CELL_SERVE_STEPS / secs,
                              prefill_s=pre_s, peak_gb=peak_gb(torch),
-                             logit_rel=rel)
+                             logit_rel=rel, serve_steps=serve_steps)
     for k, n in launches.items():
         total[k] += n
     del big
@@ -5009,9 +5291,10 @@ def cell_long(torch, InferenceEngine, clock, ops, ref, arch: str):
     rel_pre = cell_gate(torch, f"{arch} long_500k prefill (vs the engine's "
                         f"prefill)", tok, lg, want_tok, want_lg)
     del lg, want_lg, prompt
-    cache, secs, rel = serve_cell(torch, cfg, params, cache, tok, ops, ref,
-                                  f"{arch} long_500k", clock)
-    launches = cell_launches(cfg, f"{arch} long_500k", 1, CELL_SERVE_STEPS)
+    cache, secs, rel, serve_steps = serve_cell(
+        torch, cfg, params, cache, tok, ops, ref, f"{arch} long_500k", clock)
+    launches = cell_launches(cfg, f"{arch} long_500k", 1,
+                             2 * CELL_SERVE_STEPS)
     cell_line(torch, f"{arch} long_500k", rows, S, pre_s, rows * S,
               f" (the prefill step; next token {tok.tolist()} = the "
               f"engine's {want_tok.tolist()}, logits within {rel_pre:.3e} "
@@ -5023,7 +5306,8 @@ def cell_long(torch, InferenceEngine, clock, ops, ref, arch: str):
                    tokens_per_s=rows * S / pre_s, serve_s=secs,
                    serve_tokens_per_s=rows * CELL_SERVE_STEPS / secs,
                    peak_gb=peak_gb(torch), logit_rel_prefill=rel_pre,
-                   logit_rel_serve=rel, engine_s=t_oracle)
+                   logit_rel_serve=rel, engine_s=t_oracle,
+                   serve_steps=serve_steps)
     del cache, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5201,7 +5485,7 @@ def main():
         torch.cuda.synchronize()
     del warm
     dec, dec_cases = check_decode(torch, F, ref, paged_decode_attention)
-    sweep_decode_split(torch, ref, paged_decode_attention)
+    check_decode_long(torch, ref, paged_decode_attention)
     pre, pre_cases = check_prefill(torch, F, ref, paged_prefill_attention)
     deq = check_dequant(torch, ref, fused_dequant)
     fla, fla_cases = check_flash(torch, F, ref, flash_attention)
@@ -5255,8 +5539,11 @@ def main():
             fail("engine: GRPO prompt sharing did not prefill each prompt once")
         eng_graphs = dict(captures=len(eng.graph_capture_s),
                           capture_s=eng.graph_capture_s,
+                          prefill_captures=len(eng.prefill_capture_s),
+                          prefill_capture_s=eng.prefill_capture_s,
                           pool_bytes=eng.graph_pool_bytes(),
-                          entries=len(eng._graphs))
+                          entries=len(eng._graphs),
+                          prefill_entries=len(eng._prefill_graphs))
         log(f"[graph] greedy H=8 engine: {eng_graphs}")
         del eng
         torch.cuda.empty_cache()
@@ -5296,9 +5583,10 @@ def main():
             torch, cfg, lambda graphs: make_engine(InferenceEngine, cfg, params,
                                                    cuda_graphs=graphs),
             prompts, 10, "H=8, 10 rows, contexts ~300-370")
-        prefill_profile = profile_prefill(
-            torch, cfg, make_engine(InferenceEngine, cfg, params,
-                                    prefill_chunk=sum(PROMPT_LENS)), prompts)
+        prefill_profile = prefill_replay_pair(
+            torch, cfg, lambda graphs: make_engine(
+                InferenceEngine, cfg, params, cuda_graphs=graphs,
+                prefill_chunk=sum(PROMPT_LENS)), prompts)
     torch.cuda.empty_cache()
 
     got, step, step_plain = model_logits(torch, cfg, params, prompts[0],

@@ -391,17 +391,46 @@ def gather_rows(cache, idx) -> Dict:
     return rows
 
 
+def _fixed_targets(idx, B: int):
+    """(targets, sources) [n] for a fixed-shape write of n rows at slot
+    rows ``idx``, where indices past the last slot (padding rows) are to
+    be dropped: each padding row rewrites the first real row's value at
+    that row's slot, so duplicate targets carry equal values and the
+    result is the dropping write's, with no host sync and no shape that
+    depends on the data.  At least one row must be real (the engine's
+    first row always is); with none the write raises."""
+    keep = idx < B
+    first = torch.argmax(keep.to(torch.int32))
+    src = torch.where(keep, torch.arange(idx.shape[0], device=idx.device),
+                      first)
+    return idx.index_select(0, src), src
+
+
 def scatter_rows(cache, rows, idx):
     """Write rows gathered by :func:`gather_rows` back at slot rows
     ``idx``, in place; indices past the last slot (padding rows) are
-    dropped.  ``pos`` is left to the caller; pools were updated in
+    dropped, by a fixed-shape write (``_fixed_targets``).  ``pos`` is
+    left to the caller (:func:`scatter_pos`); pools were updated in
     place."""
     B = cache["pos"].shape[0]
     idx = torch.as_tensor(idx, device=cache["pos"].device).long()
-    keep = idx < B
+    tgt, src = _fixed_targets(idx, B)
     for k in SLOT_KEYS:
         if k in cache:
-            cache[k][:, idx[keep]] = rows[k][:, keep].to(cache[k].dtype)
+            cache[k].index_copy_(1, tgt, rows[k].index_select(1, src)
+                                 .to(cache[k].dtype))
+    return cache
+
+
+def scatter_pos(cache, pos, idx):
+    """``cache["pos"][idx] = pos`` in place for the rows whose index is a
+    slot; padding rows (past the last slot) are dropped, by the fixed-shape
+    write of :func:`scatter_rows`."""
+    B = cache["pos"].shape[0]
+    idx = torch.as_tensor(idx, device=cache["pos"].device).long()
+    tgt, src = _fixed_targets(idx, B)
+    cache["pos"].index_copy_(0, tgt, pos.index_select(0, src)
+                             .to(cache["pos"].dtype))
     return cache
 
 

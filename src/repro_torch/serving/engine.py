@@ -40,27 +40,36 @@ Attention runs through ``kernels.ops``: the hand-written CUDA kernels on the
 card, their plain versions on the CPU.  Sampling keys are (request,
 position)-addressed, so H > 1 emits exactly the tokens of H = 1.
 
-The horizon cache (the reference's ``_get_decode_fn`` closures): a process-
-wide registry of the block-table widths seen per closure family
-(``_decode_family``), from which ``_padded_width`` pads a narrower table up
-to a width already in use, and per engine one entry per (family,
-max_batch, width).  The first horizon at an entry runs the body eagerly
-(on the card this is its warm-up, on the capture stream); on the card the
-second captures it into a ``torch.cuda.CUDAGraph`` and every later one
-replays that graph.  A graph binds the addresses of the params, the cache
-leaves and the static buffers, so ``swap_weights`` / ``load_weights`` and
-pool growth (which replace tensors) drop the engine's entries; in-place
-writes (page copies, prefill, imports) keep them.  A capture that fails
-raises.  On the CPU, or with ``cuda_graphs=False``, an entry holds no
-graph and every horizon runs the body eagerly.  ``graph_cache_stats()``
-counts captures, replays, padded reuse, registered widths and
-invalidations.
+The graph cache (the reference's compiled-closure cache: ``_get_decode_fn``
+and ``_get_prefill_fn``): a process-wide registry of the block-table widths
+seen per closure family (``_decode_family``, ``_prefill_family``), from
+which ``_padded_width`` pads a narrower table up to a width already in use,
+and per engine one entry per decode key (family, max_batch, width) and one
+per prefill key (family, width), a prefill family being (rows n, chunk
+width C).  The first dispatch at an entry runs its body eagerly (on the
+card this is its warm-up, on the capture stream); on the card the second
+captures it into a ``torch.cuda.CUDAGraph`` and every later one replays
+that graph (``runtime.graphs.run_entry``).  A decode entry's body is the
+horizon; a prefill entry's is the reference closure's: gather the owner
+slots' rows, the prefill forward through the paged kernels, scatter the
+rows back, write ``pos``, the logits at each row's last real position.  It
+reads static device buffers (tokens, mask, offsets, slot indices, block
+table) that one host-to-device copy from a pinned staging buffer fills, and
+its logits come out of the graph's own output.  First-token sampling stays
+eager.  A graph binds the addresses of the params, the cache leaves and the
+static buffers, so ``swap_weights`` / ``load_weights`` and pool growth
+(which replace tensors) drop the engine's entries, growth before it
+allocates the larger pool, with their memory returned to the device;
+in-place writes (page copies, imports) keep them.  A capture that fails
+raises.  On the CPU, or with ``cuda_graphs=False``, an entry holds no graph
+and every dispatch runs the body eagerly.  ``graph_cache_stats()`` counts
+captures and replays of each kind, padded and chunk-pad reuse, registered
+widths and invalidations.
 """
 
 from __future__ import annotations
 
-import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -69,13 +78,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS, PAD
-from repro_torch.kernels.ops import KERNEL_WRAPPERS
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.kv_cache import (GARBAGE_PAGE, OutOfPages,
                                          PagedKVAllocator)
 from repro_torch.models.transformer import forward, logits_from_hidden
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.rl.sampler import sample_token, token_logprob
+from repro_torch.runtime.graphs import GraphEntry, GraphPool, run_entry
 
 # prefill chunks are right-padded up to a multiple of the kernel query tile
 PREFILL_TILE = 128
@@ -102,28 +111,37 @@ def _tile_bucket(n: int, tile: int = PREFILL_TILE) -> int:
 
 
 # --------------------------------------------------------------------------- #
-# the horizon cache: every (family, width) key a decode horizon ran at, in
-# this process (the reference's ``_JIT_CACHE`` decode keys), and counters
+# the graph cache: every (family, width) key a decode horizon or a prefill
+# dispatch ran at, in this process (the reference's ``_JIT_CACHE`` decode
+# and prefill keys), and counters
 # --------------------------------------------------------------------------- #
-_DECODE_KEYS: set = set()
+_GRAPH_KEYS: set = set()
 _GRAPH_STATS = {"captures": 0, "replays": 0, "padded_reuse": 0,
-                "invalidations": 0}
-_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+                "invalidations": 0, "prefill_captures": 0,
+                "prefill_replays": 0, "chunk_pad_reuse": 0}
 
 
 def graph_cache_stats() -> Dict[str, int]:
-    """Horizon-cache counters (the reference's ``jit_cache_stats``):
-    CUDA graphs captured, horizons run at an existing entry (graph
-    replays; on the CPU eager runs), block-table widths served by a
-    wider one already in use (``padded_reuse``), (family, width) keys
-    registered (``entries``) and engine-wide drops of graphs
+    """Graph-cache counters (the reference's ``jit_cache_stats``):
+    horizon graphs captured (``captures``) and horizons run at an existing
+    entry (``replays``: graph replays, on the CPU eager runs); the same
+    for prefill entries (``prefill_captures``, ``prefill_replays``);
+    block-table widths, decode or prefill, served by a wider one already
+    in use (``padded_reuse``); prefill dispatches whose 128-tile chunk
+    width pads a shorter chunk and lands on a registered key
+    (``chunk_pad_reuse``); (family, width) keys registered, decode and
+    prefill (``entries``); and engine-wide drops of graphs
     (``invalidations``)."""
-    return dict(_GRAPH_STATS, entries=len(_DECODE_KEYS))
+    return dict(_GRAPH_STATS, entries=len(_GRAPH_KEYS))
 
 
 def _decode_family(cfg: ModelConfig, temperature: float,
                    horizon: int) -> Tuple:
     return ("decode", cfg.name, cfg.d_model, temperature, horizon)
+
+
+def _prefill_family(cfg: ModelConfig, n: int, C: int) -> Tuple:
+    return ("prefill", cfg.name, cfg.d_model, n, C)
 
 
 def _padded_width(family: Tuple, needed: int) -> Optional[int]:
@@ -132,27 +150,62 @@ def _padded_width(family: Tuple, needed: int) -> Optional[int]:
     computes the identical result — reusing it avoids an entry for every
     power-of-two width as requests grow and shrink."""
     best = None
-    for k in _DECODE_KEYS:
+    for k in _GRAPH_KEYS:
         if k[:-1] == family and k[-1] >= needed:
             if best is None or k[-1] < best:
                 best = k[-1]
     return best
 
 
-def _capture_stream(device: torch.device):
-    """The side stream every horizon graph on ``device`` is captured on
-    (and warmed up on), made once."""
-    if device not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
-    return _CAPTURE_STREAMS[device]
+class _PrefillEntry(GraphEntry):
+    """A prefill key's entry and its static buffers: one int32 block,
+    [tokens n*C | mask n*C | offsets n | owner slots n | block table
+    n*nb], each segment 16-byte aligned, staged on the host (pinned on the
+    card) and sent to the device in one copy.  On the CPU the device
+    block is the host block."""
 
+    def __init__(self, n: int, C: int, nb: int, device: torch.device):
+        super().__init__()
+        sizes = (n * C, n * C, n, n, n * nb)
+        starts = np.cumsum((0,) + tuple(-(-m // 4) * 4 for m in sizes))
+        self.n, self.C, self.nb = n, C, nb
+        pinned = device.type == "cuda"
+        self.host = torch.zeros(int(starts[-1]), dtype=torch.int32,
+                                pin_memory=pinned)
+        self.dev = (torch.zeros_like(self.host, device=device) if pinned
+                    else self.host)
+        self.copied = torch.cuda.Event() if pinned else None
+        host, spans = self.host.numpy(), list(zip(starts[:-1], sizes))
+        self.h = [host[a:a + m] for a, m in spans]
+        d = [self.dev[a:a + m] for a, m in spans]
+        self.tokens, self.mask = d[0].view(n, C), d[1].view(n, C)
+        self.offsets, self.slots, self.bt = d[2], d[3], d[4].view(n, nb)
 
-@dataclass
-class _HorizonEntry:
-    """One key of an engine's horizon cache: its CUDA graph once captured
-    (never on the CPU), and each kernel wrapper's launches per replay."""
-    graph: Optional[object] = None
-    launches: Dict = field(default_factory=dict)
+    def stage(self, chosen, pad_slot: int):
+        """Fill the host block from the chosen (row, start, take) chunks
+        (padding rows: no tokens, the out-of-range slot ``pad_slot``, the
+        garbage page) and send it in one host-to-device copy, after the
+        previous one read the block."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        n, C, nb = self.n, self.C, self.nb
+        toks, mask, offs, slots, bt = self.h
+        toks[:] = 0
+        mask[:] = 0
+        offs[:] = 0
+        slots[:] = pad_slot
+        bt[:] = GARBAGE_PAGE
+        toks, mask, bt = (toks.reshape(n, C), mask.reshape(n, C),
+                          bt.reshape(n, nb))
+        for i, (row, start, take) in enumerate(chosen):
+            toks[i, :take] = row.token_ids[start:start + take]
+            mask[i, :take] = 1
+            offs[i] = start
+            slots[i] = row.members[0][4]     # owner slot's state rows
+            bt[i, :len(row.table)] = row.table
+        if self.copied is not None:
+            self.dev.copy_(self.host, non_blocking=True)
+            self.copied.record()
 
 
 @dataclass
@@ -202,8 +255,8 @@ class InferenceEngine:
         ``device=None`` means CUDA (raises when absent); tests pass "cpu".
         ``params`` must already be on that device; change them only
         through ``swap_weights`` or in place.  ``cuda_graphs=False`` runs
-        every horizon eagerly on the card too (a yardstick for tests and
-        measurements)."""
+        every horizon and prefill dispatch eagerly on the card too (a
+        yardstick for tests and measurements)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -255,11 +308,14 @@ class InferenceEngine:
         self._bt_bufs: Dict[int, torch.Tensor] = {}     # width -> table
         self._bt_width = 0                      # 0: no table uploaded yet
         self._bt_dirty = True
-        # the horizon cache's entries of this engine, and their graph pool
+        # the graph cache's entries of this engine (horizons, prefills)
+        # and their one graph pool
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
-        self._graphs: Dict[Tuple, _HorizonEntry] = {}
-        self._graph_pool = None
-        self.graph_capture_s: List[float] = []  # seconds of each capture
+        self._graphs: Dict[Tuple, GraphEntry] = {}
+        self._prefill_graphs: Dict[Tuple, _PrefillEntry] = {}
+        self._graph_pool = GraphPool()
+        self.graph_capture_s: List[float] = []  # seconds of each horizon
+        self.prefill_capture_s: List[float] = []    # ... prefill capture
         self.n_prefills = 0                     # context prefills (rows)
         self.n_prefill_tokens = 0
         self.n_prefill_dispatches = 0           # batched chunk forwards
@@ -368,8 +424,13 @@ class InferenceEngine:
             new_num = self.alloc.grow(2 * self.alloc.num_pages)
         except OutOfPages as e:
             raise AdmissionError(str(e)) from e
-        self.cache = kvc.grow_pool(self.cache, new_num)
+        # the graphs bind the old pool's tensors: drop them, and return
+        # their memory pool to the device, before the larger pool is
+        # allocated beside the old one
         self._drop_graphs()
+        if self.cuda_graphs:
+            torch.cuda.empty_cache()
+        self.cache = kvc.grow_pool(self.cache, new_num)
 
     def _free_slot(self, slot: int):
         st = self.slots[slot]
@@ -486,83 +547,55 @@ class InferenceEngine:
             self.n_bt_uploads += 1
         return self._bt_bufs[self._bt_width]
 
-    # ---------------- the horizon cache ---------------- #
+    # ---------------- the graph cache ---------------- #
     def _family(self) -> Tuple:
         return _decode_family(self.cfg, self.temperature, self.horizon)
 
     def _drop_graphs(self):
         """Drop (and free) every entry: what the graphs bind changed."""
-        if self._graphs:
+        if self._graphs or self._prefill_graphs:
             self._graphs.clear()
+            self._prefill_graphs.clear()
             _GRAPH_STATS["invalidations"] += 1
         # a fresh pool for later captures: the dropped graphs' pool is
         # released once their memory is
-        self._graph_pool = None
+        self._graph_pool = GraphPool()
 
     def graph_pool_bytes(self) -> int:
         """Device bytes held by the segments of this engine's graph pool
         (0 before any capture)."""
-        if self._graph_pool is None:
-            return 0
-        pool = tuple(self._graph_pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        return self._graph_pool.bytes()
+
+    def _run_entry(self, entry: GraphEntry, first: bool, body, kind: str):
+        """One dispatch of ``body`` through its cache entry
+        (``runtime.graphs.run_entry``: eager warm-up, capture into the
+        engine's pool, replays), eagerly without graphs; returns the
+        body's output.  ``kind`` is "decode" or "prefill"."""
+        if not self.cuda_graphs:
+            return body()
+        out, secs = run_entry(entry, first, body, self._graph_pool,
+                              self.device)
+        if secs is not None:
+            if kind == "prefill":
+                self.prefill_capture_s.append(secs)
+                _GRAPH_STATS["prefill_captures"] += 1
+            else:
+                self.graph_capture_s.append(secs)
+                _GRAPH_STATS["captures"] += 1
+        return out
 
     def _run_horizon(self, bt):
-        """One decode horizon through the cache.  The first horizon at a
-        key runs the body eagerly: on the card, on the capture stream, so
-        that it warms up what capture needs (cuBLAS's handle and workspace
-        on that stream, the RoPE table, the kernels' libraries) on live
-        state.  The next one captures the body (capture executes nothing)
-        and replays it; later ones replay."""
+        """One decode horizon through the cache, at key (family,
+        max_batch, width)."""
         key = (self._family(), self.max_batch, bt.shape[1])
         first = key not in self._graphs
         if first:
-            _DECODE_KEYS.add(key[0] + (key[2],))
-            self._graphs[key] = _HorizonEntry()
+            _GRAPH_KEYS.add(key[0] + (key[2],))
+            self._graphs[key] = GraphEntry()
         else:
             _GRAPH_STATS["replays"] += 1
-        entry = self._graphs[key]
-        if not self.cuda_graphs:
-            self._decode_horizon(bt)
-        elif first:
-            cur, side = (torch.cuda.current_stream(self.device),
-                         _capture_stream(self.device))
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                self._decode_horizon(bt)
-            cur.wait_stream(side)
-        else:
-            if entry.graph is None:
-                self._capture(entry, bt)
-            entry.graph.replay()
-            for kernel, n in entry.launches.items():
-                kernel.launches += n
-
-    def _capture(self, entry: _HorizonEntry, bt):
-        """Capture the horizon body into ``entry``'s graph, in the
-        engine's pool.  The wrappers' launch counters run only now; their
-        deltas are taken back and re-added on every replay.  Raises if the
-        capture fails (no eager fallback)."""
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        before = [k.launches for k in KERNEL_WRAPPERS]
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=self._graph_pool,
-                                  stream=_capture_stream(self.device)):
-                self._decode_horizon(bt)
-        finally:
-            counted = [k.launches - n for k, n in zip(KERNEL_WRAPPERS,
-                                                      before)]
-            for k, n in zip(KERNEL_WRAPPERS, before):
-                k.launches = n
-        self.graph_capture_s.append(time.perf_counter() - t0)
-        _GRAPH_STATS["captures"] += 1
-        entry.launches = {k: n for k, n in zip(KERNEL_WRAPPERS, counted)
-                          if n}
-        entry.graph = graph
+        self._run_entry(self._graphs[key], first,
+                        lambda: self._decode_horizon(bt), "decode")
 
     # ---------------- decode ---------------- #
     @torch.no_grad()
@@ -646,6 +679,29 @@ class InferenceEngine:
         return events
 
     # ---------------- prefill ---------------- #
+    @torch.no_grad()
+    def _prefill_body(self, entry: _PrefillEntry):
+        """One batched chunk prefill from ``entry``'s static buffers (the
+        reference's prefill closure): the owner slots' per-slot rows go in
+        and come back out around the forward (pools pass through whole
+        and are written in place), ``pos`` is set on the owner slots, and
+        the logits at each row's last real position come back [n, V].
+        Fixed shapes throughout (padding rows write nothing), so it runs
+        eagerly or captured."""
+        slots = entry.slots.long()
+        seq_mask = entry.mask != 0
+        rows = kvc.gather_rows(self.cache, slots)
+        out = forward(self.params, self.cfg, tokens=entry.tokens,
+                      cache=rows, mode="prefill", seq_mask=seq_mask,
+                      paged={"block_tables": entry.bt,
+                             "q_offsets": entry.offsets})
+        kvc.scatter_rows(self.cache, rows, slots)
+        kvc.scatter_pos(self.cache, out["pos"], slots)
+        last = torch.clamp(seq_mask.sum(-1) - 1, min=0)
+        hidden_last = out["hidden"][torch.arange(entry.n,
+                                                 device=self.device), last]
+        return logits_from_hidden(self.params, self.cfg, hidden_last)
+
     def _prefill_phase(self) -> List[StepEvent]:
         if not self.waiting:
             return []
@@ -659,38 +715,34 @@ class InferenceEngine:
             chosen.append((row, row.done, take))
             budget -= take
         n = _bucket(len(chosen), minimum=1)
-        C = _tile_bucket(max(take for _, _, take in chosen))
-        nb = _bucket(max(len(row.table) for row, _, _ in chosen), minimum=8)
-        toks = np.zeros((n, C), np.int32)
-        mask = np.zeros((n, C), np.bool_)
-        offsets = np.zeros((n,), np.int32)
-        slot_idx = np.full((n,), self.max_batch, np.int64)  # padding rows
-        bt = np.full((n, nb), GARBAGE_PAGE, np.int32)
-        for i, (row, start, take) in enumerate(chosen):
-            toks[i, :take] = row.token_ids[start:start + take]
-            mask[i, :take] = True
-            offsets[i] = start
-            slot_idx[i] = row.members[0][4]     # owner slot's state rows
-            bt[i, :len(row.table)] = row.table
-        # the owner slots' per-slot rows (pools pass through whole) go in
-        # and come back out around the forward
-        dev_slots = self._to_dev(slot_idx)
-        rows = kvc.gather_rows(self.cache, dev_slots)
-        out = forward(self.params, self.cfg, tokens=self._to_dev(toks),
-                      cache=rows, mode="prefill",
-                      seq_mask=self._to_dev(mask),
-                      paged={"block_tables": self._to_dev(bt),
-                             "q_offsets": self._to_dev(offsets)})
-        kvc.scatter_rows(self.cache, rows, dev_slots)
+        # chunk widths bucket to kernel-tile multiples (128), so short
+        # chunks of many widths share ONE entry (counted below); the
+        # block-table width comes from the registry, as decode's does
+        max_take = max(take for _, _, take in chosen)
+        C = _tile_bucket(max_take)
+        family = _prefill_family(self.cfg, n, C)
+        needed = max(len(row.table) for row, _, _ in chosen)
+        nb = _padded_width(family, needed)
+        if nb is None:
+            nb = _bucket(needed, minimum=8)
+        else:
+            _GRAPH_STATS["padded_reuse"] += 1
+        key = family + (nb,)
+        if C > max_take and key in _GRAPH_KEYS:
+            _GRAPH_STATS["chunk_pad_reuse"] += 1
+        entry = self._prefill_graphs.get(key)
+        first = entry is None
+        if first:
+            _GRAPH_KEYS.add(key)
+            entry = self._prefill_graphs[key] = _PrefillEntry(
+                n, C, nb, self.device)
+        else:
+            _GRAPH_STATS["prefill_replays"] += 1
+        entry.stage(chosen, self.max_batch)
+        logits = self._run_entry(entry, first,
+                                 lambda: self._prefill_body(entry),
+                                 "prefill")
         self.n_prefill_dispatches += 1
-        real = slot_idx < self.max_batch
-        self.cache["pos"][self._to_dev(slot_idx[real])] = \
-            out["pos"][self._to_dev(np.flatnonzero(real))]
-        lens = self._to_dev(mask.sum(-1).astype(np.int64))
-        last = torch.clamp(lens - 1, min=0)
-        hidden_last = out["hidden"][torch.arange(n, device=self.device),
-                                    last]
-        logits = logits_from_hidden(self.params, self.cfg, hidden_last)
 
         events: List[StepEvent] = []
         completed: List[Tuple[int, _WaitRow]] = []

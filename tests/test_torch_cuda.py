@@ -947,6 +947,192 @@ def test_ssd_at_long_500k_on_card(cuda, case):
     assert _rel(st, state) < SSD_TOL["float32"]
 
 
+# ---------------- prefill entries and the cells' serve step ---------------- #
+def _cache_items(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _cache_items(v, f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", v
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _snapshot(cache):
+    return {k: v.clone() for k, v in _cache_items(cache)}
+
+
+def _equal_but_garbage(cache, snap):
+    """Every leaf of ``cache`` equal to ``snap``'s, the pools' garbage page
+    (page 0, where padding rows write in no fixed order) left out."""
+    for k, v in _cache_items(cache):
+        a, b = (v[:, 1:], snap[k][:, 1:]) if "pages" in k else (v, snap[k])
+        assert torch.equal(a, b), k
+
+
+def _prefill_rounds(eng, prompts, rounds: int, on_last=None):
+    """``rounds`` times: admit ``prompts`` as singles, one step (their
+    one prefill dispatch), then drop them.  ``on_last(entry)`` runs
+    before the last round's step.  Returns each round's first-token
+    events [(rid, token, logprob)]."""
+    out = []
+    for r in range(rounds):
+        rids = [10 * r + i for i in range(len(prompts))]
+        for rid, p in zip(rids, prompts):
+            eng.add_request(rid, p, request_key(6, rid), len(p) + 8, len(p))
+        if r == rounds - 1 and on_last is not None:
+            on_last()
+        out.append([(e.req_id % 10, e.token, e.logprob) for e in eng.step()])
+        assert eng.n_prefill_dispatches == r + 1
+        for rid in rids:
+            eng.drop_request(rid)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid"])
+def test_prefill_replay_bit_equal_to_eager_body_on_card(cuda, family):
+    """Three prefill dispatches at one key (the eager warm-up, the
+    capture, a replay): the replay's logits, pages (the garbage page
+    aside), per-slot rows and ``pos`` are bit-equal to the eager body run
+    again from the state before it, and its first tokens and logprobs
+    equal a ``cuda_graphs=False`` engine's in every round."""
+    cfg = _graph_cfg(family)
+    params = _graph_params(cfg, 0, cuda)
+    prompts = _graph_prompts(7)
+
+    def mk(graphs):
+        return InferenceEngine(cfg, params, max_batch=4, slab_len=64,
+                               page_size=16, temperature=1.0, horizon=4,
+                               device="cuda", cuda_graphs=graphs)
+    eng, held = mk(True), {}
+    s0 = engine_mod.graph_cache_stats()
+    got = _prefill_rounds(eng, prompts, 3,
+                          on_last=lambda: held.update(_snapshot(eng.cache)))
+    s1 = engine_mod.graph_cache_stats()
+    assert s1["prefill_captures"] - s0["prefill_captures"] == 1
+    assert s1["prefill_replays"] - s0["prefill_replays"] == 2
+    (entry,) = eng._prefill_graphs.values()
+    assert entry.graph is not None and len(eng.prefill_capture_s) == 1
+    torch.cuda.synchronize()
+    replayed, logits = _snapshot(eng.cache), entry.out.clone()
+    for k, v in _cache_items(eng.cache):
+        v.copy_(held[k])
+    again = eng._prefill_body(entry)
+    torch.cuda.synchronize()
+    assert torch.equal(again, logits)
+    _equal_but_garbage(eng.cache, replayed)
+    assert got == _prefill_rounds(mk(False), prompts, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
+def test_prefill_graph_launch_counters_count_replays_on_card(cuda, family):
+    """The prefill kernel's launches (the paged prefill for a global
+    layer, the scan for the hybrid one) equal layers x dispatches with
+    replays among them."""
+    cfg = _graph_cfg(family)
+    kernel = ssd_scan if family == "hybrid" else paged_prefill_attention
+    eng = InferenceEngine(cfg, _graph_params(cfg, 0, cuda), max_batch=4,
+                          slab_len=64, page_size=16, device="cuda")
+    kinds = ("mamba", "hybrid") if family == "hybrid" else ("global",)
+    layers = sum(m in kinds for m in cfg.layer_mixers())
+    before = kernel.launches
+    _prefill_rounds(eng, _graph_prompts(7), 4)
+    assert layers and kernel.launches - before == layers * 4
+
+
+@pytest.mark.cuda
+def test_pool_growth_frees_the_prefill_graphs_first_on_card(cuda,
+                                                             monkeypatch):
+    """The pool grows while the engine holds a captured prefill entry: the
+    entry is dropped and its graph pool returned to the device before the
+    larger KV pool is allocated (the device's reserved bytes then are at
+    most those before less the graph pool's), and the first tokens and
+    decodes after it equal an eager engine's grown at the same point."""
+    cfg = _graph_cfg("dense")
+    params = _graph_params(cfg, 0, cuda)
+    prompts = _graph_prompts(7)
+    grow, at_alloc = engine_mod.kvc.grow_pool, []
+
+    def spy(cache, n):
+        torch.cuda.synchronize()
+        at_alloc.append((len(eng._prefill_graphs) + len(eng._graphs),
+                         torch.cuda.memory_reserved()))
+        return grow(cache, n)
+    monkeypatch.setattr(engine_mod.kvc, "grow_pool", spy)
+    outs = []
+    for graphs in (True, False):
+        eng = InferenceEngine(cfg, params, max_batch=4, slab_len=64,
+                              page_size=16, temperature=1.0, horizon=4,
+                              device="cuda", cuda_graphs=graphs)
+        out = _prefill_rounds(eng, prompts, 3)
+        if graphs:
+            (entry,) = eng._prefill_graphs.values()
+            pool = eng.graph_pool_bytes()
+            assert entry.graph is not None and pool > 0
+            del entry
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+        pages = eng.alloc.num_pages
+        eng._grow_pool()
+        assert eng.alloc.num_pages == 2 * pages
+        if graphs:
+            assert at_alloc[-1][0] == 0 and not eng._prefill_graphs
+            assert at_alloc[-1][1] <= reserved - pool, (at_alloc, reserved,
+                                                        pool)
+        for rid, p in enumerate(prompts):
+            eng.add_request(100 + rid, p, request_key(6, 100 + rid),
+                            len(p) + 12, len(p))
+        while eng.active_request_ids():
+            out.append([(e.req_id, e.token, e.logprob) for e in eng.step()])
+        outs.append(out)
+    assert outs[0] == outs[1]
+
+
+def _cell_cache(cfg, params, cuda, rows=2, length=40):
+    from repro_torch.launch.steps import build_prefill_step
+    x = torch.from_numpy(np.random.RandomState(8).randint(
+        3, cfg.vocab_size, (rows, length)).astype(np.int32)).to(cuda)
+    return build_prefill_step(cfg, slab_len=length + 8)(params,
+                                                        {"tokens": x})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-130m", "hymba-1.5b"])
+def test_captured_serve_step_bit_equal_to_eager_on_card(cuda, arch):
+    """Five serve steps on a reduced cell's slab (bf16, heads of 64, as
+    the kernels take them): ``CapturedServeStep``
+    (the warm-up, the capture, three replays) against ``build_serve_step``
+    on a copy of the same cache: next tokens and logits bit-equal, every
+    cache leaf equal after each step, ``pos`` advanced in place, one
+    capture and four replay-served calls."""
+    from repro_torch.launch.steps import CapturedServeStep, build_serve_step
+    kw = {} if arch == "mamba2-130m" else dict(
+        d_model=128, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256)
+    cfg = get_config(arch).reduced(dtype="bfloat16", **kw)
+    params = _graph_params(cfg, 2, cuda)
+    nxt, cache = _cell_cache(cfg, params, cuda)
+    eager_cache = _clone_tree(cache)
+    eager = build_serve_step(cfg, return_logits=True)
+    step = CapturedServeStep(cfg, return_logits=True)
+    pos = cache["pos"]
+    t_e = t_c = nxt
+    for i in range(5):
+        t_e, eager_cache, lg_e = eager(params, eager_cache, t_e)
+        t_c, out_cache, lg_c = step(params, cache, t_c)
+        torch.cuda.synchronize()
+        assert out_cache is cache and cache["pos"] is pos
+        assert torch.equal(t_c, t_e) and torch.equal(lg_c, lg_e), i
+        want = dict(_cache_items(eager_cache))
+        for k, v in _cache_items(cache):
+            assert torch.equal(v, want[k]), (i, k)
+    assert step.captures == 1 and step.replays == 4
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises_on_card(cuda, monkeypatch):
     """A body that syncs with the host cannot be captured: the capture

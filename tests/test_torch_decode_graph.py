@@ -47,7 +47,7 @@ def _named_pair(name, *, horizon=2, **kw):
 
 def _family_widths(cfg, temperature, horizon):
     fam = engine_mod._decode_family(cfg, temperature, horizon)
-    return sorted(k[-1] for k in engine_mod._DECODE_KEYS if k[:-1] == fam)
+    return sorted(k[-1] for k in engine_mod._GRAPH_KEYS if k[:-1] == fam)
 
 
 def _step_both(jeng, teng, out, widths):
