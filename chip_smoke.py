@@ -206,11 +206,12 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 empty (``[rl]`` lines: wall and event-clock seconds,
                 response tokens and launches per step, checkpoint bytes
                 and seconds, resume seconds, KV imports);
- 10. moe      — ``qwen2-moe-a2.7b`` (24 layers, 60 experts stored as 64,
-                top-4, 4 shared experts behind a sigmoid gate) and then
-                ``deepseek-moe-16b`` (28 layers, a dense first layer, 64
-                experts, top-6, 2 shared) at full width (random weights
-                from seed 0, each freed before the next), both 16 / 16
+ 10. moe      — ``qwen2-moe-a2.7b`` (60 experts stored as 64, top-4, 4
+                shared experts behind a sigmoid gate) and then
+                ``deepseek-moe-16b`` (a dense first layer, 64 experts,
+                top-6, 2 shared) at full width, depth cut to
+                MOE_SERVE_LAYERS of 24 / 28 (random weights from seed 0,
+                each freed before the next), both 16 / 16
                 heads (G = 1): the phase-3 mix greedy at H=8 with graphs
                 (launches = layers x dispatches, the prefix layer
                 included), eagerly (tokens and logprobs bit-equal), H=1
@@ -301,8 +302,27 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 kernels against plain, then 2 train steps); launches
                 exact; ``[cells]`` lines (rows, length, seconds, tokens/s,
                 peak memory);
- 14. summary  — one JSON line per the kernels (rows 1, 2, 4, 5 and 6
-                count phases 9-13's launches too), the card's name and
+ 14. mesh     — the sharded trainer (``launch/train.py``'s ranks on
+                DTensors): one spawn of 2 ranks sharing the card through
+                gloo (NCCL cannot put two ranks on one card), each on its
+                own process; first each collective DTensor issues probed
+                on CUDA tensors (all-gather, reduce-scatter, all-reduce,
+                all-to-all, broadcast, scatter), then, at full width with
+                the depth cut to MESH_LAYERS (MESH_MIX): qwen3-8b at 1 x 2
+                ``fsdp_tp`` (TP: 16 of 32 q heads and 4 of 8 kv heads a
+                rank), qwen3-8b at 2 x 1 (FSDP), qwen2-moe-a2.7b at 1 x 2
+                (ep 2: 32 of its 64 stored experts a rank); each
+                configuration's step 1 (loss, grad norm, moe_aux) and
+                f32 master weights after 2 steps against the
+                single-process step of the same configuration on the same
+                card, weights and batch (MESH_* tolerances), each rank's
+                flash launches exact (attention layers x 2 forwards, remat
+                counted, a step), step 1 under ``CommDebugMode`` for the
+                collectives a step issues (``[mesh]`` lines: seconds a
+                step, peak memory a rank); two ranks on one card through
+                gloo show no multi-card speed;
+ 15. summary  — one JSON line per the kernels (rows 1, 2, 4, 5 and 6
+                count phases 9-14's launches too), the card's name and
                 power limit, and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
@@ -492,10 +512,13 @@ SCAN_PERTURBATION = 3e-6
 SERVE14B_PROMPT_LENS = (300, 310, 290)
 SERVE14B_NEW_TOKENS = 16
 # phase 10: the MoE family at full width, served one after the other (each
-# freed before the next), then trained at full width cut to
+# freed before the next) at MOE_SERVE_LAYERS of their 24 / 28 (cut to make
+# room for phase 14: the eager horizon's profile, ~24,500 launches at full
+# depth, took ~40-55 s a model), then trained at full width cut to
 # MOE_TRAIN_LAYERS: 2.44 G stored parameters (embed and lm_head are 0.62 G
 # of them) x 16 bytes of trainer state = 39 GB, near phase 6's 34.7 GB
 MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
+MOE_SERVE_LAYERS = 12
 MOE_TRAIN_LAYERS = 3
 # one MoE layer repeated at a prefill dispatch of the mix (4 rows of 384,
 # T = 1536 > DROPLESS_THRESHOLD, so capacity applies and entries drop)
@@ -4333,10 +4356,11 @@ def moe_train(torch, InferenceEngine, cfg_full, prompts, clock):
 
 
 def moe_phase(torch, InferenceEngine, clock, ops, ref):
-    """qwen2-moe-a2.7b, then deepseek-moe-16b, served as configured (each
-    freed before the next); qwen2-moe-a2.7b's batch migrated through a
-    codec-none KV manifest and its layer 0 repeated; then GRPO steps on
-    qwen2-moe-a2.7b cut to MOE_TRAIN_LAYERS.  Returns the launches of the
+    """qwen2-moe-a2.7b, then deepseek-moe-16b, served at full width cut to
+    MOE_SERVE_LAYERS (each freed before the next); qwen2-moe-a2.7b's
+    batch migrated through a codec-none KV manifest and its layer 0
+    repeated; then GRPO steps on qwen2-moe-a2.7b cut to
+    MOE_TRAIN_LAYERS.  Returns the launches of the
     main path (both H=8 serves and the train steps) and a summary."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
@@ -4345,10 +4369,11 @@ def moe_phase(torch, InferenceEngine, clock, ops, ref):
     for arch in MOE_ARCHS:
         # earlier phases leave engines and harnesses in reference cycles
         # (~36 GB of them still allocated here in one run): collect them
-        # so that each ~30 GB model finds the card empty
+        # so that each model finds the card empty
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=MOE_SERVE_LAYERS)
         t0 = time.perf_counter()
         params = init_params(cfg, torch.Generator(device="cuda")
                              .manual_seed(0), "cuda")
@@ -4378,7 +4403,8 @@ def moe_phase(torch, InferenceEngine, clock, ops, ref):
             migrate_phase(torch, InferenceEngine, cfg, params, prompts,
                           clock, greedy8, "none")
             row["layer_repeat"] = moe_layer_repeat(torch, cfg, params)
-            train_prompts, train_cfg = prompts, cfg
+            # the trainer cuts the configured depth itself
+            train_prompts, train_cfg = prompts, get_config(arch)
         summary[arch] = row
         del params
     gc.collect()
@@ -5426,6 +5452,296 @@ def cells_phase(torch, InferenceEngine, clock, ops, ref):
     return total, summary
 
 
+# phase 14: the sharded trainer on 2 ranks sharing the card through gloo
+MESH_MIX = (("qwen3-8b", 1, 2), ("qwen3-8b", 2, 1), ("qwen2-moe-a2.7b", 1, 2))
+MESH_LAYERS = 2
+MESH_BATCH, MESH_SEQ = 4, 512
+MESH_SEED = 17
+MESH_WORLD = 2
+# step 1 on 2 ranks against one process, both in bf16 with f32 logits and
+# f32 norms: TP splits the contraction of the attention and MLP output
+# products into two bf16 partials summed by an all-reduce, FSDP sums two
+# data shards' bf16 weight gradients; so hidden states differ by bf16
+# roundings (~2^-9 of a value), logprobs by ~1e-3, and a loss of order 1
+# (a mean over ~1,500 response tokens) far less: 1e-2 of max(|loss|, 1),
+# TRAIN12_LOSS_REL_TOL's bound for the same kind of rounding; moe_aux
+# likewise (a near-tie between two experts may flip one token's pick);
+# the grad norm as GRAD_NORM_REL_TOL
+MESH_LOSS_REL_TOL = TRAIN12_LOSS_REL_TOL
+# f32 master weights after 2 AdamW steps at TRAIN_LR: a step moves an
+# element by g / (|g| + eps) x lr, nearly lr whatever |g|, so the two runs
+# agree wherever the rounding noise leaves g's sign; where it flips a
+# small g the element parts by up to ~2.6 lr a step (bias-corrected m / sqrt(v)
+# <= 1.6 on step 2): at most 6 lr anywhere, and more than lr / 2 on at
+# most 5% of the elements
+MESH_MASTER_MAX_LR = 6.0
+MESH_MASTER_SHARE = 5e-2
+
+
+def mesh_cfg(arch):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=MESH_LAYERS)
+
+
+def mesh_probe(torch, mesh):
+    """Each collective a DTensor issues, on CUDA tensors through the gloo
+    group: {name: "ok" or the error}.  Every one is tried; the caller fails
+    the phase if any did not run."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    x = torch.arange(64, dtype=torch.float32, device="cuda").view(8, 8)
+    res = {}
+
+    def one(name, fn, want):
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+            res[name] = "ok" if torch.equal(got.cpu(), want) else \
+                f"wrong values: {got.cpu().tolist()}"
+        except Exception as e:           # recorded; the phase then fails
+            res[name] = f"{type(e).__name__}: {e}"[:300]
+    sh = distribute_tensor(x, mesh, [Shard(0)], src_data_rank=None)
+    part = DTensor.from_local(x.clone(), mesh, [Partial()])
+    r = mesh.get_local_rank()
+    n = MESH_WORLD
+    one("all_gather_into_tensor (Shard -> Replicate)",
+        lambda: sh.redistribute(mesh, [Replicate()]).to_local(), x.cpu())
+    one("reduce_scatter_tensor (Partial -> Shard)",
+        lambda: part.redistribute(mesh, [Shard(0)]).to_local(),
+        (n * x).chunk(n)[r].cpu())
+    one("all_reduce (Partial -> Replicate)",
+        lambda: part.redistribute(mesh, [Replicate()]).to_local(),
+        (n * x).cpu())
+    one("all_to_all_single (Shard(0) -> Shard(1))",
+        lambda: sh.redistribute(mesh, [Shard(1)]).to_local(),
+        x.chunk(n, dim=1)[r].cpu())
+    one("broadcast (distribute_tensor, Replicate)",
+        lambda: distribute_tensor(x + r, mesh, [Replicate()]).to_local(),
+        x.cpu())
+    one("scatter (distribute_tensor, Shard)",
+        lambda: distribute_tensor(x + r, mesh, [Shard(0)]).to_local(),
+        x.chunk(n)[r].cpu())
+    return res
+
+
+def mesh_rank(rank, address, out_path):
+    """One rank of phase 14 (spawned by ``mesh_phase``): the gloo probe,
+    then each MESH_MIX configuration sharded, and on rank 0 the
+    single-process steps it is held against.  Writes its records to
+    ``out_path`` + ``.<rank>.json``; raises on any failure."""
+    import faulthandler
+    faulthandler.enable()       # a crash in a collective prints its stack
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import (init_rank, shard_train_state,
+                                          synthetic_batch)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.rl import grpo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = init_rank(rank, MESH_WORLD, "gloo", torch.device("cuda"),
+                       address)
+    rec = {"rank": rank, "device": str(device), "configs": []}
+    from torch.distributed.device_mesh import init_device_mesh
+    rec["probe"] = mesh_probe(torch, init_device_mesh(
+        "cuda", (MESH_WORLD,), mesh_dim_names=("model",)))
+    if any(v != "ok" for v in rec["probe"].values()):
+        Path(f"{out_path}.{rank}.json").write_text(json.dumps(rec))
+        raise RuntimeError(f"gloo on CUDA tensors: {rec['probe']}")
+
+    def sync_clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for arch, data, model in MESH_MIX:
+        cfg = mesh_cfg(arch)
+        mesh = make_local_mesh(data, model, "cuda")
+        rt = shd.make_runtime(cfg, mesh, "fsdp_tp")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = sync_clock()
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(
+            MESH_SEED), device)
+        state = shard_train_state(cfg, params, "fsdp_tp", mesh, device)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        init_s = sync_clock() - t0
+        step = grpo.make_train_step(cfg, lr=TRAIN_LR, remat=True, rt=rt)
+
+        def batch(i):
+            b = synthetic_batch(cfg, torch.Generator().manual_seed(
+                MESH_SEED + i), MESH_BATCH, MESH_SEQ, device)
+            return b, shd.distribute_state(
+                b, shd.train_batch_specs(mesh, "fsdp_tp", b), mesh)
+        flash_attention.launches = 0
+        metrics, secs = [], []
+        for i in range(2):
+            b = batch(i)[1]
+            t0 = sync_clock()
+            # step 1 (warm-up) under CommDebugMode: the collectives a
+            # step issues; step 2 timed alone
+            with CommDebugMode() if i == 0 else contextlib.nullcontext() \
+                    as comm:
+                state, m = step(state, b)
+            secs.append(sync_clock() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                counts = {str(k).split(".")[-1]: v for k, v in
+                          comm.get_comm_counts().items()}
+        launches = flash_attention.launches
+        # the f32 masters after 2 steps, whole (a gather on every rank),
+        # kept on rank 0's host
+        masters = {}
+        for k, v in _items(state["opt"]["master"]):
+            v = v.full_tensor()
+            if rank == 0:
+                # a copy: a replicated leaf's full tensor is the live one,
+                # which the next step updates in place
+                masters[k] = v.to("cpu", copy=True)
+            del v
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(t.numel() for t in adamw.tree_leaves(state["params"]))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = dict(arch=arch, data=data, model=model, ep=rt.ep_size,
+                   layers=cfg.n_layers, params=n_params, init_s=init_s,
+                   step_s=secs, metrics=metrics, flash_launches=launches,
+                   collectives=counts, peak_gb=peak)
+        dist.barrier()
+        if rank == 0:
+            row.update(mesh_single(torch, cfg, device, batch, masters))
+        dist.barrier()
+        rec["configs"].append(row)
+    Path(f"{out_path}.{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def mesh_single(torch, cfg, device, batch, masters):
+    """Rank 0 alone: the single-process steps at the same weights and
+    batches, and the sharded run's step-1 metrics and masters against
+    them."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import init_params
+    from repro_torch.rl import grpo
+    torch.cuda.reset_peak_memory_stats()
+    state = grpo.init_train_state(init_params(
+        cfg, torch.Generator(device=device).manual_seed(MESH_SEED), device),
+        device)
+    step = grpo.make_train_step(cfg, lr=TRAIN_LR, remat=True)
+    flash_attention.launches = 0
+    metrics, secs = [], []
+    for i in range(2):
+        b = batch(i)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = flash_attention.launches
+    n = far = 0
+    worst = 0.0
+    for k, w in _items(state["opt"]["master"]):
+        d = (masters[k].to(device) - w).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > 0.5 * TRAIN_LR).sum())
+        n += d.numel()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(single_metrics=metrics, single_step_s=secs,
+                single_flash_launches=launches, single_peak_gb=peak,
+                master_max_abs=worst, master_far_share=far / n)
+
+
+def mesh_phase(torch):
+    """Phase 14: one spawn of MESH_WORLD ranks (``mesh_rank``) sharing
+    the card through gloo; their records gated here.  Returns (launches
+    by kernel name, summary)."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.train import free_port
+    out = ROOT / "build" / "chip_runs" / "mesh"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for f in out.parent.glob("mesh.*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, nprocs=MESH_WORLD, join=True,
+                       start_method="spawn",
+                       args=(f"tcp://localhost:{free_port()}", str(out)))
+    wall = time.perf_counter() - t0
+    recs = [json.loads(Path(f"{out}.{r}.json").read_text())
+            for r in range(MESH_WORLD)]
+    log(f"[mesh] gloo on CUDA tensors, 2 ranks on one card: "
+        f"{json.dumps(recs[0]['probe'])}")
+    launches = {k.__name__: 0 for k in KERNELS}
+    rows = []
+    for i, (arch, data, model) in enumerate(MESH_MIX):
+        rr = [rec["configs"][i] for rec in recs]
+        r0 = rr[0]
+        cfg = mesh_cfg(arch)
+        n_attn = sum(m in ("global", "local", "hybrid")
+                     for m in cfg.layer_mixers())
+        want = 2 * n_attn * 2              # 2 forwards (remat) x 2 steps
+        what = f"{arch} {data} x {model}"
+        one, got = r0["single_metrics"][0], r0["metrics"][0]
+        for r in rr:
+            if r["metrics"] != r0["metrics"]:
+                fail(f"mesh {what}: the ranks' metrics differ")
+            if r["flash_launches"] != want:
+                fail(f"mesh {what}: rank flash launches "
+                     f"{r['flash_launches']}, want {want}")
+        if r0["single_flash_launches"] != want:
+            fail(f"mesh {what}: single-process flash launches "
+                 f"{r0['single_flash_launches']}, want {want}")
+        log(f"[mesh] {what} fsdp_tp (ep {r0['ep']}; {cfg.n_layers} layers, "
+            f"{r0['params']} params): step 1 loss {got['loss']:.6e} vs one "
+            f"process {one['loss']:.6e}, grad_norm {got['grad_norm']:.6e} vs "
+            f"{one['grad_norm']:.6e}"
+            + (f", moe_aux {got['moe_aux']:.6e} vs {one['moe_aux']:.6e}"
+               if "moe_aux" in got else "")
+            + f"; masters after 2 steps: max |delta| "
+            f"{r0['master_max_abs']:.3e} ({r0['master_max_abs'] / TRAIN_LR:.2f}"
+            f" lr), share beyond lr/2 {r0['master_far_share']:.4e}")
+        log(f"[mesh] {what}: step s {[round(s, 4) for s in r0['step_s']]} "
+            f"(step 1 under CommDebugMode) "
+            f"(one process {[round(s, 4) for s in r0['single_step_s']]}), "
+            f"init {r0['init_s']:.2f} s, peak memory a rank "
+            f"{[round(r['peak_gb'], 2) for r in rr]} GB (one process "
+            f"{r0['single_peak_gb']:.2f} GB), gloo collectives a step "
+            f"{json.dumps(r0['collectives'])}, flash launches a rank "
+            f"{[r['flash_launches'] for r in rr]}")
+        for key in ("loss", "moe_aux"):
+            if key in one and not (math.isfinite(got[key]) and abs(
+                    got[key] - one[key]) <= MESH_LOSS_REL_TOL
+                    * max(abs(one[key]), 1.0)):
+                fail(f"mesh {what}: step 1 {key} {got[key]} vs {one[key]}")
+        if not abs(got["grad_norm"] - one["grad_norm"]) <= \
+                GRAD_NORM_REL_TOL * one["grad_norm"]:
+            fail(f"mesh {what}: step 1 grad_norm {got['grad_norm']} vs "
+                 f"{one['grad_norm']}")
+        if not (r0["master_max_abs"] <= MESH_MASTER_MAX_LR * TRAIN_LR
+                and r0["master_far_share"] <= MESH_MASTER_SHARE):
+            fail(f"mesh {what}: master weights after 2 steps part by "
+                 f"{r0['master_max_abs']} (share beyond lr/2 "
+                 f"{r0['master_far_share']})")
+        launches["flash_attention"] += sum(r["flash_launches"] for r in rr) \
+            + r0["single_flash_launches"]
+        rows.append({k: v for k, v in r0.items()} | {
+            "peak_gb_ranks": [r["peak_gb"] for r in rr]})
+    log(f"[mesh] phase wall {wall:.1f} s (spawn, probe and "
+        f"{len(MESH_MIX)} configurations)")
+    return launches, dict(probe=recs[0]["probe"], configs=rows, wall_s=wall)
+
+
 def _items(tree):
     from repro_torch.transfer.chunkstore import tree_items
     return list(tree_items(tree))
@@ -5663,7 +5979,12 @@ def main():
         cells_launches, cells = cells_phase(torch, InferenceEngine, clock,
                                             ops, ref)
 
-    # ---- 14. summary ----
+    # ---- 14. the sharded trainer on 2 ranks sharing the card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh = mesh_phase(torch)
+
+    # ---- 15. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -5683,15 +6004,17 @@ def main():
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
-        # phases 9-13 run the paged kernels and flash too (phase 11
-        # decode_attention, phases 12-13 ssd_scan): their launches add
+        # phases 9-14 run the paged kernels and flash too (phase 11
+        # decode_attention, phases 12-13 ssd_scan; phase 14 flash, in its
+        # ranks' processes): their launches add
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces,
                          launches=(n[name] + rl_launches[name]
                                    + moe_launches[name]
                                    + gemma_launches[name]
                                    + train12_launches[name]
-                                   + cells_launches[name]), **r))
+                                   + cells_launches[name]
+                                   + mesh_launches[name]), **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -5706,6 +6029,7 @@ def main():
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
          "serve14b": serve14b, "rl": rl, "moe": moe_summary,
          "gemma": gemma_summary, "train12": train12, "cells": cells,
+         "mesh": mesh,
          "decode_32k_slab": slab_long_row,
          "graphs": GRAPHS,
          "serve_graph_engine": eng_graphs, "decode_profile": decode_profile,

@@ -7,6 +7,13 @@ is no ``ml_dtypes`` beside the card); the sidecar names every leaf's dtype
 and ``restore`` takes the dtype and device of the tree it restores into.
 Writes are atomic (tmp + rename), ``AsyncCheckpointer`` writes on a
 background thread after a synchronous host copy, and keeps the newest N.
+
+Sharded state (the sharded trainer's DTensors): every rank calls ``save``
+together, each leaf is gathered whole (``full_tensor()``, a collective,
+so on the calling thread, never the writer's) and rank 0 writes.
+``restore`` places each leaf as the matching leaf of the state it is given
+is placed (the reference's ``restore(..., shardings)``), so a run saved on
+one mesh resumes on another, or on one device.
 """
 
 from __future__ import annotations
@@ -24,11 +31,25 @@ import torch
 from repro_torch.transfer.chunkstore import tree_items
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a group, or a lone one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _flatten(state) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
-    """Host copies of every leaf, and each leaf's dtype name."""
+    """Host copies of every leaf (a DTensor gathered whole first), and
+    each leaf's dtype name.  Every rank of a sharded state calls it; only
+    the writer keeps the copies."""
     flat, dtypes = {}, {}
+    writer = _writer()
     for key, leaf in tree_items(state):
-        t = leaf.detach().to("cpu", copy=True)
+        leaf = leaf.detach()
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
+        if not writer:
+            continue
+        t = leaf.to("cpu", copy=True)
         dtypes[key] = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -49,9 +70,11 @@ def _write(path: Path, flat, dtypes, *, step: int, meta: Optional[Dict]):
 
 
 def save(path: str, state, *, step: int, meta: Optional[Dict] = None):
-    """Atomic checkpoint write of a nested dict of tensors."""
+    """Atomic checkpoint write of a nested dict of tensors (with sharded
+    state, a call on every rank; rank 0 writes)."""
     flat, dtypes = _flatten(state)
-    _write(Path(path), flat, dtypes, step=step, meta=meta)
+    if _writer():
+        _write(Path(path), flat, dtypes, step=step, meta=meta)
 
 
 def _fill(like, data, dtypes, prefix: str = ""):
@@ -67,14 +90,20 @@ def _fill(like, data, dtypes, prefix: str = ""):
         if tuple(t.shape) != tuple(v.shape):
             raise ValueError(f"{key}: checkpoint has shape {tuple(t.shape)}, "
                              f"want {tuple(v.shape)}")
-        out[k] = t.to(device=v.device, dtype=v.dtype)
+        t = t.to(device=v.device, dtype=v.dtype)
+        if hasattr(v, "full_tensor"):
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, v.device_mesh, v.placements,
+                                  src_data_rank=None)
+        out[k] = t
     return out
 
 
 def restore(path: str, like_state) -> Tuple[Any, Dict]:
     """(state, sidecar): ``like_state``'s tree with each leaf read from the
-    checkpoint, in that leaf's dtype and on its device (shapes must
-    match)."""
+    checkpoint, in that leaf's dtype, on its device and, for a DTensor,
+    with its mesh and placements (shapes must match; every rank reads the
+    file and keeps its own shard)."""
     path = Path(path)
     sidecar = json.loads(path.with_suffix(".json").read_text())
     with np.load(path.with_suffix(".npz")) as data:
@@ -119,17 +148,22 @@ def step_path(ckpt_dir: str, step: int) -> str:
 class AsyncCheckpointer:
     """Background-thread checkpoint writer: ``save`` copies the state to
     the host before it returns (the optimizer updates its state in place
-    afterwards), then writes and prunes to the newest ``keep``."""
+    afterwards), then writes and prunes to the newest ``keep``.  With
+    sharded state every rank calls ``save`` (the gather is a collective,
+    run on the calling thread) and rank 0 alone cleans, writes and
+    prunes."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
-        self.n_orphans_cleaned = clean_orphans(ckpt_dir)
+        self.n_orphans_cleaned = clean_orphans(ckpt_dir) if _writer() else 0
 
     def save(self, state, *, step: int, meta=None, block: bool = False):
         self.wait()
         flat, dtypes = _flatten(state)
+        if not _writer():
+            return
 
         def work():
             _write(Path(step_path(self.ckpt_dir, step)), flat, dtypes,

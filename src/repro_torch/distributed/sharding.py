@@ -26,12 +26,21 @@ compare leaf for leaf.  A mesh is a ``torch.distributed.device_mesh.
 DeviceMesh`` with named dims, or any object with an ``axis_names`` tuple
 and a ``shape`` dict of axis sizes.  ``to_placements`` turns a spec into
 one DTensor placement per mesh dim.
+
+The runtime half (the mesh fields of the reference's ``ModelRuntime``,
+``models/transformer.py:37-70``, and ``make_runtime``) drives a real run on
+DTensors: ``ModelRuntime.shard_act`` pins an activation, ``gathered``
+gathers a layer's params over the data-parallel dims at use,
+``distribute_state`` places full tensors by spec trees, and
+``register_rules`` adds the two sharding rules DTensor lacks.  The dry run
+(``launch.dryrun``) traces the same code on a fake group.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 RECIPES = ("fsdp_tp", "pure_fsdp", "tp_seqkv")
 
@@ -266,3 +275,154 @@ def local_shape(spec, shape, mesh) -> Tuple[int, ...]:
     entries = tuple(spec) + (None,) * (len(shape) - len(spec))
     return tuple(n // _axes_size(sizes, axes)
                  for n, axes in zip(shape, entries))
+
+
+# --------------------------------------------------------------------------- #
+# the runtime: pins, gathers and placement of real state
+# --------------------------------------------------------------------------- #
+def pin(x, mesh, spec):
+    """``x`` redistributed to ``spec`` (one entry per leading dim; the rest
+    replicated); plain tensors pass.  The spec must divide ``x``'s dims."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    want = to_placements(spec, mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+@dataclass(frozen=True)
+class ModelRuntime:
+    """The mesh half of the reference's ``ModelRuntime``: the mesh (a
+    ``DeviceMesh``), the batch's mesh axes, the model axis and the
+    expert-parallel degree.  The model takes ``rt=None`` off-mesh."""
+    mesh: Any = None
+    data_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = None
+    ep_size: int = 1
+
+    def shard_act(self, x, *tail):
+        """Pin an activation: batch over the data axes, then one entry a
+        dim of ``tail``; a dim the axes do not divide stays replicated
+        (the reference's rule: no degrading of a tuple of axes)."""
+        if self.mesh is None or not self.data_axes or x is None:
+            return x
+        sizes = mesh_sizes(self.mesh)
+        entries = [self.data_axes] + list(tail)
+        spec = [a if a is not None and x.shape[d] % _axes_size(sizes, a) == 0
+                else None for d, a in enumerate(entries[:x.dim()])]
+        return pin(x, self.mesh, P(*spec))
+
+    def gather(self, tree):
+        """A layer's params gathered over the data axes (see
+        ``gathered``)."""
+        return gathered(tree, self.mesh, self.data_axes)
+
+
+def make_runtime(cfg, mesh, recipe: str = "fsdp_tp") -> Optional[ModelRuntime]:
+    """The runtime of ``mesh`` (``None`` off-mesh); registers the port's
+    sharding rules with DTensor."""
+    if mesh is None:
+        return None
+    register_rules()
+    axes = mesh_axes(mesh)
+    return ModelRuntime(mesh=mesh, data_axes=batch_axes(mesh, recipe),
+                        model_axis="model" if "model" in axes else None,
+                        ep_size=expert_parallel(cfg, mesh, recipe))
+
+
+def gathered(tree, mesh, axes):
+    """``tree``'s DTensors with their shards over the mesh dims ``axes``
+    gathered (FSDP at use: the gradient's way back is a reduce-scatter);
+    their "model" shards stay."""
+    from torch.distributed.tensor import DTensor, Replicate
+    names = mesh_axes(mesh)
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        want = tuple(Replicate() if n in axes else pl
+                     for n, pl in zip(names, t.placements))
+        return t if want == tuple(t.placements) else \
+            t.redistribute(mesh, want)
+    return {k: gathered(v, mesh, axes) if isinstance(v, dict) else one(v)
+            for k, v in tree.items()}
+
+
+def distribute_state(tree, specs, mesh):
+    """Full tensors, the same on every rank (drawn from one seed), turned
+    into DTensors placed by the spec tree ``specs`` (sanitized): each rank
+    keeps its own shard, with no communication."""
+    from torch.distributed.tensor import distribute_tensor
+    return _zip_map(lambda t, spec: distribute_tensor(
+        t, mesh, to_placements(spec, mesh), src_data_rank=None), tree, specs)
+
+
+_GLOO_CUDA = []
+
+
+def gloo_cuda_all_gather():
+    """Route DTensor's all-gather of CUDA tensors over a gloo group through
+    gloo's own CUDA all-gather (once a process).  DTensor issues it as the
+    functional ``_c10d_functional::all_gather_into_tensor``, whose wait
+    segfaults on CUDA tensors under gloo (torch 2.11 on the H100), while
+    ``dist.all_gather_into_tensor`` on the same tensors and group runs
+    (gloo stages CUDA operands through the host itself).  So the op's CUDA
+    kernel is replaced by that call, run to completion before it returns
+    (its wait then finds no pending work).  The other collectives DTensor
+    issues ran as they are (all-reduce, reduce-scatter, all-to-all,
+    broadcast, scatter).  For a gloo group on CUDA only: NCCL ranks keep
+    the op's own kernel."""
+    if _GLOO_CUDA:
+        return
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather(inp, group_size, group_name):
+        out = inp.new_empty((group_size * inp.shape[0], *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    _GLOO_CUDA.append(lib)
+
+
+_RULES = []
+
+
+def register_rules():
+    """Sharding rules the port registers with DTensor (once a process),
+    each keeping the op's own dim whole (gathered first) and letting any
+    other dim stay sharded.  ``aten.gather`` (a logprob's pick of its
+    target from vocab-sharded logits): DTensor's own rule leaves a masked
+    partial sum whose reduction fails in this version (its mask indexes
+    the result as 2-D).  ``aten.topk`` (a MoE router's pick over
+    expert-sharded probabilities): DTensor's own rule shards the k picks
+    over the mesh dim, unevenly where k does not divide it (deepseek's 6
+    over 16), and a later reshape of them fails."""
+    if _RULES:
+        return
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.gather.default)
+    def gather_rule(x, dim, index, sparse_grad=False):
+        dim = dim % x.ndim
+        out = [([Replicate()], [Replicate(), None, Replicate(), None])]
+        out += [([Shard(d)], [Shard(d), None, Shard(d), None])
+                for d in range(x.ndim) if d != dim]
+        return out
+
+    @register_sharding(torch.ops.aten.topk.default)
+    def topk_rule(x, k, dim=-1, largest=True, sorted=True):
+        dim = dim % x.ndim
+        out = [([Replicate(), Replicate()],
+                [Replicate(), None, None, None, None])]
+        out += [([Shard(d), Shard(d)], [Shard(d), None, None, None, None])
+                for d in range(x.ndim) if d != dim]
+        return out
+    _RULES.extend((gather_rule, topk_rule))

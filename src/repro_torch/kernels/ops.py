@@ -1,7 +1,16 @@
 """Kernel entry points the model and the transfer codec call: a CPU tensor
 goes to the plain PyTorch version, a CUDA tensor to the hand-written
 kernel.  There is no other path: on a CUDA tensor the kernel runs or
-raises."""
+raises.
+
+The trainer's two entries, ``attention_bshd`` and ``ssd``, also take
+DTensors (the sharded trainer): the op then runs on each rank's local
+shards (``_rank_local``) and its outputs are wrapped back with the same
+placements.  The batch stays sharded over the data dims; the heads stay
+sharded over a mesh dim only where every input's head (or group) dim
+divides it, so that a rank's q heads and the kv heads (SSM groups) they
+read land on the same rank; otherwise the inputs are first replicated
+over that dim and the work repeats on each of its ranks."""
 
 from __future__ import annotations
 
@@ -82,12 +91,70 @@ class _FlashAttention(torch.autograd.Function):
                 None)
 
 
+def _rank_local(fn, args, roles, out_roles, out_shapes, heads_ok):
+    """``fn`` on each rank's local shards of ``args`` (DTensors, or plain
+    tensors taken as replicated), its outputs wrapped back as DTensors of
+    ``out_shapes``.  A role is (batch dim, head dim) of a tensor, either
+    ``None``.  Each mesh dim of the first DTensor's placements that shards
+    its batch dim shards every batch dim; one that shards its head dim,
+    where ``heads_ok`` [mesh dim size] holds, shards every head dim; any
+    other is replicated.  A tensor without the dim a mesh dim shards
+    (A has no batch, B / C of one group no head) is replicated there and
+    its gradient is a partial sum over that dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    lead = next(a for a in args if isinstance(a, DTensor))
+    mesh, (lb, lh) = lead.device_mesh, roles[args.index(lead)]
+    kinds = ["batch" if pl == Shard(lb) else
+             "head" if lh is not None and pl == Shard(lh)
+             and heads_ok(mesh.size(i)) else None
+             for i, pl in enumerate(lead.placements)]
+
+    def placements(role, grad=False):
+        dims = {"batch": role[0], "head": role[1]}
+        return tuple(Replicate() if k is None else
+                     Shard(dims[k]) if dims[k] is not None else
+                     Partial() if grad else Replicate() for k in kinds)
+
+    local = []
+    for a, role in zip(args, roles):
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        a = a.redistribute(mesh, placements(role))
+        local.append(a.to_local(grad_placements=placements(role, True)))
+    outs = fn(*local)
+    single = not isinstance(outs, tuple)
+    outs = (outs,) if single else outs
+    # contiguous: the wrapper's global strides are row-major
+    wrapped = tuple(DTensor.from_local(
+        o.contiguous(), mesh, placements(r), run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+        for o, r, shape in zip(outs, out_roles, out_shapes))
+    return wrapped[0] if single else wrapped
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
                    cap: float = 0.0):
     """The model's full-sequence attention: q [B, S, H, d] unscaled,
     k/v [B, S, K, d] -> [B, S, H, d] in q's dtype.  Differentiable on both
     devices: on the CPU through the plain version, on CUDA through the
-    kernel's forward and the plain version's recomputed backward."""
+    kernel's forward and the plain version's recomputed backward.  On
+    DTensors it runs rank-local (see the module note): heads stay
+    sharded over a mesh dim that divides both H and K."""
+    if _is_dtensor(q):
+        H, K = q.shape[2], k.shape[2]
+        role = (0, 2)
+        return _rank_local(
+            lambda *a: attention_bshd(*a, causal=causal, window=window,
+                                      cap=cap),
+            [q, k, v], [role] * 3, [role], [tuple(q.shape)],
+            lambda n: H % n == 0 and K % n == 0)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if q.device.type == "cpu":
         out = ref.flash_attention_ref(qt, kt, vt, causal=causal,
@@ -151,7 +218,20 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64):
     """The Mamba-2 SSD scan from a zero state: (y [b, L, H, P], final
     state [b, H, P, N]), both f32.  Differentiable on both devices: on the
     CPU through the plain sequential version, on CUDA through the
-    kernel's forward and the plain chunked scan's recomputed backward."""
+    kernel's forward and the plain chunked scan's recomputed backward.  On
+    DTensors it runs rank-local (see the module note): heads stay sharded
+    over a mesh dim that divides H, with B / C's groups sharded alike
+    where it divides G too, or whole where there is one group."""
+    if _is_dtensor(x):
+        b, L, H, P = x.shape
+        G, N = B.shape[2], B.shape[3]
+        # one group is read by every head: whole on each rank
+        bc = (0, None) if G == 1 else (0, 2)
+        return _rank_local(
+            lambda *a: ssd(*a, chunk=chunk), [x, dt, A, B, C],
+            [(0, 2), (0, 2), (None, 0), bc, bc], [(0, 2), (0, 1)],
+            [(b, L, H, P), (b, H, P, N)],
+            lambda n: H % n == 0 and (G % n == 0 or G == 1))
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
     return _SSDScan.apply(x, dt, A, B, C, chunk)

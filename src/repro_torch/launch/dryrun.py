@@ -23,13 +23,14 @@ attention in blocks of query rows (``blocked_attention``, each block
 recomputed in the backward pass) and the SSD scan as the plain chunked
 scan (``models.ssm.ssd_chunked``), the two forms the reference lowers.
 The cache a prefill step makes is placed as a decode cell's cache is.
-Each layer's input and output are pinned batch-sharded and its params
-gathered over the data-parallel mesh dims at use, where the reference's
-runtime pins activations and GSPMD gathers ZeRO-sharded weights.
-Plain tensors a step makes on the fly (positions, masks, RoPE tables) are
-replicated on every rank (``implicit_replication``).  The port
-registers sharding rules for ``aten.gather`` and ``aten.topk``
-(``register_rules``); where
+The step gets the cell's runtime (``distributed.sharding.make_runtime``),
+as the sharded trainer's model does: activations pinned batch-sharded where
+the reference's runtime pins them, each layer's params gathered over the
+data-parallel mesh dims at use (GSPMD's gather of ZeRO-sharded weights),
+MoE layers through the ``ep > 1`` dispatch.  Plain tensors a step makes
+on the fly (positions, masks, RoPE tables) are replicated on every rank
+(``implicit_replication``).  The port registers sharding rules for
+``aten.gather`` and ``aten.topk`` (``sharding.register_rules``); where
 DTensor has no sharding rule for an op, the op runs on replicated inputs
 (their all-gathers counted) and the record's ``replicated_ops`` names it.
 """
@@ -128,32 +129,15 @@ def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
 @contextlib.contextmanager
 def traced_paths(block: int, cfg, mesh, recipe: str):
     """The attention and the scan in the forms the dry run traces (see the
-    module note); the cache a prefill step makes placed as
+    module note), and the cache a prefill step makes placed as
     ``cache_specs`` places a decode cell's (the reference's output
-    sharding for it); each layer's input and output, and the logits'
-    hidden input, pinned batch-sharded and the logits also vocab-sharded
-    over "model", where the reference's runtime pins them
-    (``shard_act``), and each layer's params gathered over the
-    data-parallel dims at use, as GSPMD gathers a ZeRO-sharded weight.
-    Restores what it replaced after."""
+    sharding for it).  Restores what it replaced after."""
     from repro_torch.kernels import ops
     from repro_torch.models import kv_cache as kvc
     from repro_torch.models.ssm import ssd_chunked
     from torch.utils._python_dispatch import _disable_current_modes
-    saved = (ops.attention_bshd, ops.ssd, kvc.init_cache,
-             transformer._apply_layer, transformer.logits_from_hidden)
-    init_cache, apply_layer, unembed = saved[2:]
-    data = shd.batch_axes(mesh, recipe)
-
-    def pin(x, *tail):
-        return _pin(x, mesh, shd.P(data, *tail))
-
-    def pinned_layer(p, x, *args):
-        x, aux = apply_layer(_gathered(p, mesh, data), pin(x), *args)
-        return pin(x), aux
-
-    def pinned_logits(params, cfg_, hidden):
-        return pin(unembed(params, cfg_, pin(hidden)), None, "model")
+    saved = (ops.attention_bshd, ops.ssd, kvc.init_cache)
+    init_cache = saved[2]
 
     def sharded_cache(cfg_, batch, slab_len, dtype=torch.bfloat16,
                       device=None):
@@ -168,82 +152,10 @@ def traced_paths(block: int, cfg, mesh, recipe: str):
     ops.ssd = lambda x, dt, A, B, C, chunk=64: ssd_chunked(x, dt, A, B, C,
                                                            chunk=chunk)
     kvc.init_cache = sharded_cache
-    transformer._apply_layer = pinned_layer
-    transformer.logits_from_hidden = pinned_logits
     try:
         yield
     finally:
-        (ops.attention_bshd, ops.ssd, kvc.init_cache,
-         transformer._apply_layer, transformer.logits_from_hidden) = saved
-
-
-def _gathered(tree, mesh, axes):
-    """A layer's params with their shards over the data-parallel mesh dims
-    ``axes`` gathered (FSDP at use: the gradient's way back is a
-    reduce-scatter); their "model" shards stay."""
-    from torch.distributed.tensor import DTensor, Replicate
-    names = shd.mesh_axes(mesh)
-
-    def one(t):
-        if not isinstance(t, DTensor):
-            return t
-        want = tuple(Replicate() if n in axes else pl
-                     for n, pl in zip(names, t.placements))
-        return t if want == tuple(t.placements) else \
-            t.redistribute(mesh, want)
-    return {k: _gathered(v, mesh, axes) if isinstance(v, dict) else one(v)
-            for k, v in tree.items()}
-
-
-def _pin(x, mesh, spec):
-    """``x`` redistributed to ``spec`` (sanitized for its shape), as the
-    reference's ``ModelRuntime.shard_act`` pins an activation; plain
-    tensors pass."""
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x
-    want = shd.to_placements(shd.sanitize_spec(spec, x.shape, mesh), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh, want)
-
-
-_RULES = []
-
-
-def register_rules():
-    """Sharding rules the port registers with DTensor for the trace (once
-    a process), each keeping the op's own dim whole (gathered first, the
-    all-gather counted) and letting any other dim stay sharded.
-    ``aten.gather`` (a logprob's pick of its target from vocab-sharded
-    logits): DTensor's own rule leaves a masked partial sum whose
-    reduction fails in this version (its mask indexes the result as 2-D).
-    ``aten.topk`` (a MoE router's pick over expert-sharded
-    probabilities): DTensor's own rule shards the k picks over the mesh
-    dim, unevenly where k does not divide it (deepseek's 6 over 16), and
-    a later reshape of them fails."""
-    if _RULES:
-        return
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import register_sharding
-
-    @register_sharding(torch.ops.aten.gather.default)
-    def gather_rule(x, dim, index, sparse_grad=False):
-        dim = dim % x.ndim
-        out = [([Replicate()], [Replicate(), None, Replicate(), None])]
-        out += [([Shard(d)], [Shard(d), None, Shard(d), None])
-                for d in range(x.ndim) if d != dim]
-        return out
-
-    @register_sharding(torch.ops.aten.topk.default)
-    def topk_rule(x, k, dim=-1, largest=True, sorted=True):
-        dim = dim % x.ndim
-        out = [([Replicate(), Replicate()],
-                [Replicate(), None, None, None, None])]
-        out += [([Shard(d), Shard(d)], [Shard(d), None, None, None, None])
-                for d in range(x.ndim) if d != dim]
-        return out
-    _RULES.extend((gather_rule, topk_rule))
+        ops.attention_bshd, ops.ssd, kvc.init_cache = saved
 
 
 def _to_dtensors(tree, specs, mesh):
@@ -311,15 +223,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         rec.update(skipped=True, skip_reason=why, ok=True)
         return rec
     base = _base_recipe(recipe)
-    register_rules()
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+    rt = shd.make_runtime(cfg, mesh, base)
     chips = mesh.size()
     rec["chips"] = chips
-    rec["ep"] = shd.expert_parallel(cfg, mesh, base)
+    rec["ep"] = rt.ep_size
     trees, specs = cell_inputs(cfg, shape, mesh, base)
     rec["arg_bytes_per_device"] = int(sum(
         shard_bytes(t, s, mesh) for t, s in zip(trees, specs)))
-    step = step_for_shape(cfg, shape)
+    step = step_for_shape(cfg, shape, rt)
     block = 512 if shape.seq_len <= 8192 else 1024
     # the model caches its RoPE tables per device: one made under an
     # earlier cell's FakeTensorMode cannot enter this cell's

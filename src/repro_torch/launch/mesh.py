@@ -26,5 +26,11 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 def make_local_mesh(data: int = 1, model: int = 1,
                     device_type: str = "cuda"):
-    """A (data, model) mesh over however many ranks the group has."""
+    """A (data, model) ("data", "model") mesh over the process group the
+    caller has joined, whose world size must be ``data * model`` (the
+    sharded trainer's ranks, ``launch.train``)."""
+    import torch.distributed as dist
+    if dist.get_world_size() != data * model:
+        raise ValueError(f"a {data} x {model} mesh needs {data * model} "
+                         f"ranks; the group has {dist.get_world_size()}")
     return _mesh((data, model), ("data", "model"), device_type)

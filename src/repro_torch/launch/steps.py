@@ -39,46 +39,50 @@ from repro_torch.runtime.graphs import GraphEntry, GraphPool, run_entry
 
 
 def build_train_step(cfg: ModelConfig, *, lr: float = 1e-5,
-                     kl_coef: float = 0.0, remat: bool = True):
+                     kl_coef: float = 0.0, remat: bool = True, rt=None):
     """GRPO steps for a decoder, ``supervised_loss`` steps for an encoder
     (``rl.grpo.make_train_step``); ``remat`` recomputes each layer in the
     backward pass, as the reference's runtime does by default."""
-    return grpo.make_train_step(cfg, lr=lr, kl_coef=kl_coef, remat=remat)
+    return grpo.make_train_step(cfg, lr=lr, kl_coef=kl_coef, remat=remat,
+                                rt=rt)
 
 
-def _greedy(params, cfg, hidden_last, return_logits: bool, *rest):
-    logits = logits_from_hidden(params, cfg, hidden_last)
+def _greedy(params, cfg, hidden_last, return_logits: bool, *rest,
+            rt=None):
+    logits = logits_from_hidden(params, cfg, hidden_last, rt)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     return (nxt, *rest, logits) if return_logits else (nxt, *rest)
 
 
 def build_prefill_step(cfg: ModelConfig, *, slab_len: int,
                        cache_dtype=torch.bfloat16,
-                       return_logits: bool = False):
+                       return_logits: bool = False, rt=None):
     @torch.no_grad()
     def prefill_step(params, batch: Dict):
         tokens, embeds = batch.get("tokens"), batch.get("embeds")
         if not cfg.is_decoder:
             out = forward(params, cfg, tokens=tokens, embeds=embeds,
-                          mode="train")
+                          mode="train", rt=rt)
             return _greedy(params, cfg, out["hidden"][:, -1], return_logits,
-                           {})
+                           {}, rt=rt)
         x = tokens if tokens is not None else embeds
         cache = kvc.init_cache(cfg, x.shape[0], slab_len, cache_dtype,
                                device=x.device)
         out = forward(params, cfg, tokens=tokens, embeds=embeds,
-                      cache=cache, mode="prefill")
+                      cache=cache, mode="prefill", rt=rt)
         return _greedy(params, cfg, out["hidden"][:, -1], return_logits,
-                       dict(cache, pos=out["pos"]))
+                       dict(cache, pos=out["pos"]), rt=rt)
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, *, return_logits: bool = False):
+def build_serve_step(cfg: ModelConfig, *, return_logits: bool = False,
+                     rt=None):
     @torch.no_grad()
     def serve_step(params, cache, tokens):
-        out = forward(params, cfg, tokens=tokens, cache=cache, mode="decode")
+        out = forward(params, cfg, tokens=tokens, cache=cache, mode="decode",
+                      rt=rt)
         return _greedy(params, cfg, out["hidden"][:, 0], return_logits,
-                       dict(cache, pos=out["pos"]))
+                       dict(cache, pos=out["pos"]), rt=rt)
     return serve_step
 
 
@@ -156,9 +160,12 @@ class CapturedServeStep:
         return (nxt, cache, logits) if self.return_logits else (nxt, cache)
 
 
-def step_for_shape(cfg: ModelConfig, shape: ShapeSpec):
+def step_for_shape(cfg: ModelConfig, shape: ShapeSpec, rt=None):
+    """The cell's step; with a runtime ``rt`` the model pins and gathers
+    as the sharded trainer's does (the dry run)."""
     if shape.kind == "train":
-        return build_train_step(cfg)
+        return build_train_step(cfg, rt=rt)
     if shape.kind == "prefill":
-        return build_prefill_step(cfg, slab_len=shape.seq_len + SLAB_MARGIN)
-    return build_serve_step(cfg)
+        return build_prefill_step(cfg, slab_len=shape.seq_len + SLAB_MARGIN,
+                                  rt=rt)
+    return build_serve_step(cfg, rt=rt)

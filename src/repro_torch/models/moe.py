@@ -27,8 +27,20 @@ them in k order, so the result is the same bits on every launch (and in a
 captured CUDA graph).  Everything is static in shape with no host sync, so
 the layer runs inside the engine's decode graph.
 
-The ``ep > 1`` expert-parallel ``shard_map`` branch of the reference is
-not ported: one card holds every expert.
+On a mesh (``rt`` a ``distributed.sharding.ModelRuntime``) the layer
+takes the reference's ``ep > 1`` branch (its ``shard_map`` body,
+``moe.py:141-170``) at ``rt.ep_size`` > 1, rank-local on DTensors: the
+router is replicated, model rank r holds experts [r * E_loc, (r + 1) *
+E_loc) and takes those rows of the dispatch tables its data shard builds
+from its own tokens (so capacity and drops are a data shard's), its
+tokens gather their k slot outputs in k order (another rank's slot reads
+zero), and the partial outputs are summed over "model" (a ``Partial`` ->
+``Replicate`` redistribute).  The aux loss is the reference's: the value
+of data shard 0 (its ``out_specs=P()`` under ``check_vma=False``), with
+the gradient of the mean over data shards (its transpose divides the
+cotangent by the mesh size and sums the copies).  At ``ep_size`` 1 on a
+mesh the layer keeps its global semantics: it runs on replicated inputs
+on every rank.  Shared experts stay outside, as DTensor ops.
 """
 
 from __future__ import annotations
@@ -128,19 +140,32 @@ def _expert_ffn(xg, wi, wg, wo):
 
 
 def _moe_local(x_flat, router, wi, wg, wo, *, E: int, E_pad: int,
-               top_k: int, cf: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x_flat [T, D] -> (out [T, D] in x's dtype, aux f32 scalar)."""
+               top_k: int, cf: float, first_expert: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_flat [T, D] -> (out [T, D] in x's dtype, aux f32 scalar).  With
+    ``wi`` / ``wg`` / ``wo`` a slice of E_loc experts from
+    ``first_expert``, ``out`` sums only their slot outputs (the
+    reference's per-shard body before its psum)."""
     T, D = x_flat.shape
+    E_loc = wi.shape[0]
     C = _capacity(T, E, top_k, cf)
     top_vals, top_ids, probs = _route(x_flat, router, top_k, E_pad)
     slot = _slots(top_ids, E_pad, C)
     idx_table, w_table = _tables(top_vals, slot, E_pad, C)
-    xg = x_flat[idx_table.reshape(-1).long()].view(E_pad, C, D)
-    y = _expert_ffn(xg, wi, wg, wo) * w_table[..., None].to(x_flat.dtype)
-    # the combine: each token gathers its k slot outputs (a dropped entry
-    # reads the zero row at the dummy slot) and sums them in k order
-    y_rows = torch.cat([y.reshape(E_pad * C, D), y.new_zeros((1, D))])
-    parts = y_rows[slot.reshape(-1)].view(T, top_k, D)
+    rows = slice(first_expert, first_expert + E_loc)
+    xg = x_flat[idx_table[rows].reshape(-1).long()].view(E_loc, C, D)
+    y = _expert_ffn(xg, wi, wg, wo) * w_table[rows, :, None].to(
+        x_flat.dtype)
+    # the combine: each token gathers its k slot outputs (a dropped entry,
+    # or one of another rank's experts, reads the zero row after the
+    # local slots) and sums them in k order
+    local = slot
+    if E_loc < E_pad:
+        local = slot - first_expert * C
+        local = torch.where((local >= 0) & (local < E_loc * C), local,
+                            torch.full_like(local, E_loc * C))
+    y_rows = torch.cat([y.reshape(E_loc * C, D), y.new_zeros((1, D))])
+    parts = y_rows[local.reshape(-1)].view(T, top_k, D)
     out = parts[:, 0]
     for j in range(1, top_k):
         out = out + parts[:, j]
@@ -152,15 +177,21 @@ def _moe_local(x_flat, router, wi, wg, wo, *, E: int, E_pad: int,
     return out, aux
 
 
-def moe_layer(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> (out [B, S, D], aux f32 scalar)."""
+def moe_layer(p, x, cfg, rt=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (out [B, S, D], aux f32 scalar); on a mesh see the
+    module note."""
     B, S, D = x.shape
     ex = p["experts"]
-    out, aux = _moe_local(x.reshape(B * S, D), p["router"], ex["wi"],
-                          ex["wg"], ex["wo"], E=cfg.n_experts,
-                          E_pad=cfg.n_experts_padded, top_k=cfg.top_k,
-                          cf=cfg.capacity_factor)
-    out = out.view(B, S, D)
+    kw = dict(E=cfg.n_experts, E_pad=cfg.n_experts_padded, top_k=cfg.top_k,
+              cf=cfg.capacity_factor)
+    if rt is None:
+        out, aux = _moe_local(x.reshape(B * S, D), p["router"], ex["wi"],
+                              ex["wg"], ex["wo"], **kw)
+        out = out.view(B, S, D)
+    elif rt.ep_size > 1:
+        out, aux = _moe_expert_parallel(p, x, rt, **kw)
+    else:
+        out, aux = _moe_replicated(p, x, rt, **kw)
     if "shared" in p:
         sh = p["shared"]
         s_out = (F.silu(x @ sh["wg"]) * (x @ sh["wi"])) @ sh["wo"]
@@ -169,3 +200,80 @@ def moe_layer(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
             s_out = s_out * gate.to(s_out.dtype)
         out = out + s_out
     return out, aux
+
+
+class _ShardZeroAux(torch.autograd.Function):
+    """The reference's ``ep > 1`` aux: forward, data shard 0's value on
+    every rank (broadcast over each data axis from its rank 0); backward,
+    the cotangent divided by the mesh size on every rank (its
+    ``shard_map`` transpose under ``check_vma=False``), so that the
+    replicated inputs' gradients, summed over the ranks, are those of the
+    mean over data shards."""
+
+    @staticmethod
+    def forward(ctx, aux, mesh, data_axes):
+        import torch.distributed as dist
+        ctx.size = mesh.size()
+        out = aux.detach().clone()
+        for a in data_axes:
+            if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+                dist.broadcast(out, group=mesh.get_group(a), group_src=0)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None, None
+
+
+def _moe_expert_parallel(p, x, rt, **kw):
+    """The ``ep > 1`` body on each rank's shards (see the module note)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, names = rt.mesh, rt.mesh.mesh_dim_names
+    data = [n in rt.data_axes for n in names]
+    model = [n == rt.model_axis for n in names]
+    # x: tokens split over the data dims, whole over "model"; its
+    # gradient is a partial sum over "model" (each rank's experts)
+    x_pl = [Shard(0) if d else Replicate() for d in data]
+    x_loc = x.redistribute(mesh, x_pl).to_local(
+        grad_placements=[Partial() if m else pl
+                         for m, pl in zip(model, x_pl)])
+    # the router: whole everywhere, its gradient summed over every rank
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim) \
+        .to_local(grad_placements=[Partial()] * mesh.ndim)
+    w_pl = [Shard(0) if m else Replicate() for m in model]
+    w_grad = [Shard(0) if m else Partial() for m in model]
+    wi, wg, wo = (p["experts"][k].redistribute(mesh, w_pl)
+                  .to_local(grad_placements=w_grad)
+                  for k in ("wi", "wg", "wo"))
+    r = mesh.get_local_rank(rt.model_axis)
+    b, s, d = x_loc.shape
+    out, aux = _moe_local(x_loc.reshape(b * s, d), router, wi, wg, wo,
+                          first_expert=r * wi.shape[0], **kw)
+    out = DTensor.from_local(
+        out.view(b, s, d), mesh, [Partial() if m else pl
+                                  for m, pl in zip(model, x_pl)],
+        run_check=False, shape=x.shape, stride=x.stride())
+    aux = _ShardZeroAux.apply(aux, mesh, rt.data_axes)
+    return (out.redistribute(mesh, x_pl),
+            DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False))
+
+
+def _moe_replicated(p, x, rt, **kw):
+    """``ep_size`` 1 on a mesh: the global layer on replicated inputs on
+    every rank (each rank's gradients are then the whole ones)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = rt.mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(t):
+        return t.redistribute(mesh, rep).to_local() \
+            if isinstance(t, DTensor) else t
+    B, S, D = x.shape
+    ex = p["experts"]
+    out, aux = _moe_local(whole(x).reshape(B * S, D), whole(p["router"]),
+                          whole(ex["wi"]), whole(ex["wg"]), whole(ex["wo"]),
+                          **kw)
+    return (DTensor.from_local(out.view(B, S, D), mesh, rep,
+                               run_check=False),
+            DTensor.from_local(aux, mesh, rep, run_check=False))

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import pad as zero_pad
 from repro_torch.models.layers import rms_norm
 
 SSD_CHUNK = 64          # chunk of the scan kernel (ops.ssd's default)
@@ -102,7 +103,7 @@ def causal_conv1d(x, w, bias):
     """x: [B, L, C]; w: [K, C]; causal depthwise conv + bias (no
     activation)."""
     K, L = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    pad = zero_pad(x, (0, 0, K - 1, 0))
     out = 0
     for i in range(K):
         out = out + pad[:, i:i + L, :] * w[i][None, None, :]

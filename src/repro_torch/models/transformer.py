@@ -287,8 +287,14 @@ def _mamba_apply(p, h, cfg: ModelConfig, mode: str, lc, lens, seq_mask):
 
 
 def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp_kind: str,
-                 mode: str, lc, positions, lens, paged, seq_mask):
-    """One layer: (x, the MoE aux loss, or None for a dense or no MLP)."""
+                 mode: str, lc, positions, lens, paged, seq_mask, rt=None):
+    """One layer: (x, the MoE aux loss, or None for a dense or no MLP).
+    With a runtime ``rt`` the params are gathered over the data axes here
+    (inside remat, so the backward pass gathers them again) and the
+    residual stream is pinned after the mixer and after the MLP, the
+    reference's ``shard_act`` sites."""
+    if rt is not None:
+        p = rt.gather(p)
     h = rms_norm(x, p["ln1"]["scale"])
     if mixer in ("global", "local"):
         mix = _attn_apply(p["attn"], h, cfg, mixer == "local", mode, lc,
@@ -303,18 +309,22 @@ def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp_kind: str,
                      + rms_norm(m_out, p["ssm_norm"]["scale"]))
     if cfg.post_norms:
         mix = rms_norm(mix, p["post_ln1"]["scale"])
-    x = x + mix
+    x = _pinned(rt, x + mix)
     if mlp_kind == "none":
         return x, None
     h2 = rms_norm(x, p["ln2"]["scale"])
     aux = None
     if mlp_kind == "moe":
-        out, aux = moe_layer(p["mlp"], h2, cfg)
+        out, aux = moe_layer(p["mlp"], h2, cfg, rt)
     else:
         out = swiglu(h2, p["mlp"]["wi"], p["mlp"]["wg"], p["mlp"]["wo"])
     if cfg.post_norms:
         out = rms_norm(out, p["post_ln2"]["scale"])
-    return x + out, aux
+    return _pinned(rt, x + out), aux
+
+
+def _pinned(rt, x, *tail):
+    return x if rt is None else rt.shard_act(x, *tail)
 
 
 # --------------------------------------------------------------------------- #
@@ -323,7 +333,7 @@ def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp_kind: str,
 def forward(params, cfg: ModelConfig, *, tokens=None, mode: str,
             embeds: Optional[torch.Tensor] = None, cache=None, paged=None,
             seq_mask: Optional[torch.Tensor] = None,
-            remat: bool = False) -> Dict:
+            remat: bool = False, rt=None) -> Dict:
     """Returns {"hidden": [B, S, D] after the final norm, "aux": the MoE
     layers' load-balance aux losses summed (f32 scalar, 0 without MoE)}
     and, in the paged modes, "pos": [B] int32 tokens in the pool
@@ -334,7 +344,13 @@ def forward(params, cfg: ModelConfig, *, tokens=None, mode: str,
              0..S-1, no cache; differentiable.  ``remat`` recomputes each layer in the
              backward pass (``torch.utils.checkpoint``, the reference's
              per-group ``jax.checkpoint``) instead of keeping its
-             activations.
+             activations.  With a runtime ``rt``
+             (``distributed.sharding.make_runtime``) the params and
+             tokens are DTensors: the embeddings and every layer's
+             residual stream are pinned batch-sharded, each layer's
+             params gathered over the data axes at use; plain tensors
+             made here (positions) are replicated, under DTensor's
+             ``implicit_replication``, which the caller enters.
     decode:  tokens [B]; positions = cache["pos"]; writes the new K/V
              (pools or rings) and SSM state into ``cache`` IN PLACE.
     prefill: tokens [B, C] (or ``embeds`` [B, C, D]) right-padded
@@ -370,6 +386,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, mode: str,
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
+    x = _pinned(rt, x)
     if mode == "prefill":
         offs = (paged or {}).get("q_offsets")
         if offs is None:
@@ -388,14 +405,14 @@ def forward(params, cfg: ModelConfig, *, tokens=None, mode: str,
         if mode == "train":
             def layer(x, p=p, mixer=mixer, kind=kind):
                 return _apply_layer(p, x, cfg, mixer, kind, mode, None,
-                                    positions, None, None, None)
+                                    positions, None, None, None, rt)
             x, a = checkpoint(layer, x, use_reentrant=False) if remat \
                 else layer(x)
         else:
             lc = (_layer_params(cache, cfg, i) if kvc.is_slab_cache(cache)
                   else {k: cache[k][j] for k, j in slots.items()})
             x, a = _apply_layer(p, x, cfg, mixer, kind, mode, lc, positions,
-                                lens, paged, seq_mask)
+                                lens, paged, seq_mask, rt)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, params["final_norm"]["scale"])
@@ -411,20 +428,24 @@ def unembed_matrix(params, cfg: ModelConfig):
     return params["lm_head"]
 
 
-def logits_from_hidden(params, cfg: ModelConfig, hidden):
-    """hidden [..., D] -> logits [..., V] (f32, softcapped)."""
+def logits_from_hidden(params, cfg: ModelConfig, hidden, rt=None):
+    """hidden [..., D] -> logits [..., V] (f32, softcapped); with a
+    runtime the hidden input is pinned batch-sharded and the logits also
+    vocab-sharded over "model" (the reference's ``token_logprobs`` pins)."""
+    hidden = _pinned(rt, hidden)
     logits = (hidden @ unembed_matrix(params, cfg)).float()
-    return softcap(logits, cfg.final_softcap)
+    logits = softcap(logits, cfg.final_softcap)
+    return logits if rt is None else rt.shard_act(logits, None, rt.model_axis)
 
 
 def token_logprobs(params, cfg: ModelConfig, hidden, targets,
-                   block: int = 512):
+                   block: int = 512, rt=None):
     """log p(target) per position without materialising [B, S, V] logits
     when S > ``block``: 512-token blocks, each recomputed in the backward
     pass (``torch.utils.checkpoint``).  hidden [B, S, D], targets [B, S]
     -> [B, S] f32."""
     def one(h, t):
-        logits = logits_from_hidden(params, cfg, h)
+        logits = logits_from_hidden(params, cfg, h, rt)
         tgt = logits.gather(-1, t.long()[..., None])[..., 0]
         return tgt - torch.logsumexp(logits, dim=-1)
 

@@ -11,6 +11,11 @@ returns are always new tensors (``master`` cast to each param's dtype,
 copied even where the dtype is already f32), so an engine serving an
 earlier version, or holding the returned params after ``swap_weights``,
 never sees a tensor change under it.
+
+The sharded trainer hands it DTensors (state placed by
+``distributed.sharding.opt_specs``, grads placed as their params, inside
+DTensor's ``implicit_replication``): every update is then local to a
+rank's shards, and only ``global_norm`` communicates.
 """
 
 from __future__ import annotations
@@ -50,9 +55,12 @@ def init(params) -> Dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in f32.  A DTensor
+    leaf's sum is reduced across its ranks (a replicated dim counted
+    once), so the norm is a plain tensor, the same on every rank."""
+    sq = (x.float().square().sum() for x in tree_leaves(tree))
+    return torch.sqrt(sum(t.full_tensor() if hasattr(t, "full_tensor")
+                          else t for t in sq))
 
 
 def clip_by_global_norm(grads, max_norm: float):

@@ -28,9 +28,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.models.layers import pad
 from repro_torch.models.transformer import forward, token_logprobs
 from repro_torch.optim import adamw
 
@@ -59,26 +59,27 @@ def group_normalized_advantages(rewards: np.ndarray,
 
 
 def policy_logprobs(params, cfg, tokens, *, embeds=None,
-                    remat: bool = False):
+                    remat: bool = False, rt=None):
     """(lp [B, S], aux): slot t = log p(tokens[t] | tokens[<t]) under
     ``params``, slot 0 is 0; aux the MoE layers' aux losses summed (0
     without MoE).  With ``embeds`` the model reads them in place of the
     token lookup and scores ``tokens``."""
     out = forward(params, cfg, tokens=tokens, embeds=embeds, mode="train",
-                  remat=remat)
-    lp = token_logprobs(params, cfg, out["hidden"][:, :-1], tokens[:, 1:])
-    return F.pad(lp, (1, 0)), out["aux"]
+                  remat=remat, rt=rt)
+    lp = token_logprobs(params, cfg, out["hidden"][:, :-1], tokens[:, 1:],
+                        rt=rt)
+    return pad(lp, (1, 0)), out["aux"]
 
 
 def grpo_loss(params, cfg, batch: Dict, *, clip_eps: float = 0.2,
               kl_coef: float = 0.0, aux_coef: Optional[float] = None,
-              remat: bool = False) -> Tuple[torch.Tensor, Dict]:
+              remat: bool = False, rt=None) -> Tuple[torch.Tensor, Dict]:
     mask = batch["response_mask"].float()
     adv = batch["advantages"].float()[:, None]
     beh = batch["behavior_logprobs"].float()
 
     lp, aux = policy_logprobs(params, cfg, batch["tokens"],
-                              embeds=batch.get("embeds"), remat=remat)
+                              embeds=batch.get("embeds"), remat=remat, rt=rt)
     ratio = torch.exp(lp - beh)
     surr = torch.minimum(ratio * adv,
                          torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps)
@@ -104,13 +105,14 @@ def grpo_loss(params, cfg, batch: Dict, *, clip_eps: float = 0.2,
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
-def supervised_loss(params, cfg, batch: Dict, *, remat: bool = False
-                    ) -> Tuple[torch.Tensor, Dict]:
+def supervised_loss(params, cfg, batch: Dict, *, remat: bool = False,
+                    rt=None) -> Tuple[torch.Tensor, Dict]:
     """Masked cross-entropy of ``labels`` at every position under
     ``mask`` (an encoder's masked prediction, hubert)."""
     out = forward(params, cfg, tokens=batch.get("tokens"),
-                  embeds=batch.get("embeds"), mode="train", remat=remat)
-    lp = token_logprobs(params, cfg, out["hidden"], batch["labels"])
+                  embeds=batch.get("embeds"), mode="train", remat=remat,
+                  rt=rt)
+    lp = token_logprobs(params, cfg, out["hidden"], batch["labels"], rt=rt)
     mask = batch["mask"].float()
     loss = -(lp * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss, {"loss": loss.detach()}
@@ -120,10 +122,17 @@ def loss_and_grads(params, cfg, batch: Dict, **loss_kw):
     """(loss, metrics, grads): grads in each param's dtype, keyed as
     ``params`` (the reference's ``jax.value_and_grad`` of its launcher's
     loss: ``grpo_loss`` for a decoder, ``supervised_loss`` for an
-    encoder)."""
+    encoder).  With a runtime (``rt=`` among ``loss_kw``; params and
+    batch DTensors, inside ``implicit_replication``) the loss and metrics
+    are gathered into plain tensors, the same on every rank, and each
+    gradient is placed as its param (partial sums reduced)."""
     loss_fn = grpo_loss if cfg.is_decoder else supervised_loss
     tree = adamw.tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, metrics = loss_fn(tree, cfg, batch, **loss_kw)
+    if loss_kw.get("rt") is not None:
+        loss = loss.full_tensor()
+        metrics = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                   for k, v in metrics.items()}
     # embeddings in place of the token lookup leave an untied embed table
     # (llava's; hubert has none) unread: its gradient is zero, as jax.grad
     # gives it
@@ -131,18 +140,26 @@ def loss_and_grads(params, cfg, batch: Dict, **loss_kw):
               and not cfg.tie_embeddings else None)
     flat = iter(torch.autograd.grad(
         loss, [t for t in adamw.tree_leaves(tree) if t is not unread]))
-    return loss.detach(), metrics, adamw.tree_map(
+    grads = adamw.tree_map(
         lambda t: torch.zeros_like(t) if t is unread else next(flat), tree)
+    if loss_kw.get("rt") is not None:
+        grads = adamw.tree_map(
+            lambda g, p: g if g.placements == p.placements
+            else g.redistribute(p.device_mesh, p.placements), grads, params)
+    return loss.detach(), metrics, grads
 
 
 def make_train_step(cfg, *, lr: float = 1e-5, clip_eps: float = 0.2,
                     kl_coef: float = 0.0, weight_decay: float = 0.0,
-                    remat: bool = False):
+                    remat: bool = False, rt=None):
     """(state, batch) -> (state, metrics), state = {"params", "opt"}, the
     loss that of ``loss_and_grads``.  The optimizer state is updated in
     place (``optim.adamw``); the params in the returned state are new
-    tensors."""
-    loss_kw = dict(remat=remat)
+    tensors.  With a runtime ``rt`` (``distributed.sharding.make_runtime``)
+    state and batch are DTensors placed by the spec trees and the step
+    runs under ``implicit_replication``; its metrics are plain tensors,
+    the same on every rank."""
+    loss_kw = dict(remat=remat, rt=rt)
     if cfg.is_decoder:
         loss_kw.update(clip_eps=clip_eps, kl_coef=kl_coef)
 
@@ -155,7 +172,15 @@ def make_train_step(cfg, *, lr: float = 1e-5, clip_eps: float = 0.2,
         metrics.update(om)
         return {"params": new_params, "opt": opt}, metrics
 
-    return train_step
+    if rt is None:
+        return train_step
+
+    def sharded_step(state, batch):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            return train_step(state, batch)
+    return sharded_step
 
 
 def init_train_state(params, device=None) -> Dict:

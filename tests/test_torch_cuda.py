@@ -1133,6 +1133,90 @@ def test_captured_serve_step_bit_equal_to_eager_on_card(cuda, arch):
     assert step.captures == 1 and step.replays == 4
 
 
+# ------------------- the rank-local kernels of the sharded trainer ------- #
+# (mesh shape, q / x heads, kv heads or SSM groups): heads sharded over
+# "model" where they divide it; K = 1 at model 2 replicates them (the work
+# repeats on each rank); data 2 shards the batch
+RANK_LOCAL_CASES = (("attention", (1, 2), 32, 8), ("attention", (1, 2), 8, 1),
+                    ("attention", (2, 1), 32, 8), ("ssd", (1, 2), 24, 1))
+
+
+def _rank_local_worker(rank, address, kind, shape, H, K):
+    """Rank ``rank`` of 2 gloo ranks on cuda:0: the rank-local
+    ``ops.attention_bshd`` (forward and backward) or ``ops.ssd`` on
+    DTensors of a (data, model) mesh against the single call on the whole
+    tensors (rank 0 and 1 both check; an assertion fails the spawn)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import init_rank
+    init_rank(rank, 2, "gloo", torch.device("cuda"), address)
+    mesh = make_local_mesh(*shape, "cuda")
+    rs = np.random.RandomState(11)
+    data = shape[0] > 1
+    # the batch (dim 0) over data, or the heads (dim 2) over model; a dim
+    # that the model axis does not divide stays whole
+    rep = Replicate()
+    lead = [Shard(0), rep] if data else [rep, Shard(2)]
+    whole = [Shard(0), rep] if data else [rep, rep]
+
+    def put(a, placements):
+        return distribute_tensor(a, mesh, placements, src_data_rank=None)
+    if kind == "attention":
+        B, S, d = 2, 384, 128
+        q, k, v = (torch.from_numpy(rs.randn(B, S, n, d).astype(np.float32))
+                   .to("cuda", torch.bfloat16) for n in (H, K, K))
+        g = torch.from_numpy(rs.randn(B, S, H, d).astype(np.float32)) \
+            .to("cuda", torch.bfloat16)
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        want = ops.attention_bshd(*leaves, causal=True)
+        want_g = torch.autograd.grad(want, leaves, g)
+        kv = lead if K % shape[1] == 0 else whole
+        dq, dk, dv = (put(t.detach(), p).requires_grad_(True) for t, p in
+                      ((q, lead), (k, kv), (v, kv)))
+        got = ops.attention_bshd(dq, dk, dv, causal=True)
+        got_g = torch.autograd.grad(got, [dq, dk, dv], put(g, lead))
+        outs = [(got, want)] + list(zip(got_g, want_g))
+    else:
+        b, L, P, N = 2, 512, 64, 128
+        x = torch.from_numpy(rs.randn(b, L, H, P).astype(np.float32)).cuda()
+        dt = torch.from_numpy(rs.rand(b, L, H).astype(np.float32) * 0.1) \
+            .cuda()
+        A = -torch.from_numpy(rs.rand(H).astype(np.float32) + 0.5).cuda()
+        Bm, Cm = (torch.from_numpy(rs.randn(b, L, K, N).astype(np.float32))
+                  .cuda() for _ in range(2))
+        want = ops.ssd(x, dt, A, Bm, Cm)
+        # C as a plain tensor: taken as replicated
+        got = ops.ssd(put(x, lead), put(dt, lead),
+                      put(A, [rep, rep] if data else [rep, Shard(0)]),
+                      put(Bm, whole), Cm)
+        outs = list(zip(got, want))
+    ok = [torch.equal(a.full_tensor(), w) for a, w in outs]
+    dist.destroy_process_group()
+    assert all(ok), (kind, shape, H, K, ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,H,K", RANK_LOCAL_CASES)
+def test_rank_local_kernels_on_two_gloo_ranks_on_card(cuda, kind, shape,
+                                                      H, K):
+    """The sharded trainer's attention and scan on DTensors over 2 gloo
+    ranks sharing the card (``kernels.ops._rank_local``): heads sharded
+    (GQA blocks aligned: rank r's q heads read rank r's kv heads),
+    replicated (K = 1 does not divide 2) or the batch sharded; outputs (and
+    the attention's gradients through the recomputed plain backward) equal
+    bit for bit to the single call on the whole tensors, since every (row,
+    head) is computed alone."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.train import free_port
+    mp.start_processes(_rank_local_worker, nprocs=2, join=True,
+                       start_method="spawn",
+                       args=(f"tcp://localhost:{free_port()}", kind, shape,
+                             H, K))
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises_on_card(cuda, monkeypatch):
     """A body that syncs with the host cannot be captured: the capture

@@ -9,7 +9,7 @@ bytes equal to the shard bytes of the reference's sanitized specs; the
 cost counter on a fake 16 x 16 mesh (a sharded matmul in a loop: the local
 FLOPs and the collectives known in closed form, the counterpart of
 ``test_hlo_analysis_loop_multiplier``); one dry-run cell end to end; the
-train CLI's mesh flags.  A fake process group is process-wide, so
+train CLI's mesh flags (a 2 x 1 mesh trains).  A fake process group is process-wide, so
 everything that joins one runs in a subprocess.
 """
 
@@ -276,12 +276,17 @@ def test_dryrun_cell_subprocess(tmp_path):
 
 def test_train_cli_takes_the_mesh_flags(capsys):
     """``--data 1 --model 1 --recipe fsdp_tp`` trains as without them
-    (the reference's one-device branch); a larger mesh is refused."""
+    (the reference's one-device branch); ``--data 2`` trains on two ranks
+    that the command spawns (gloo on the CPU), in its own process."""
     train_cli.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
                     "--steps", "1", "--data", "1", "--model", "1",
                     "--recipe", "fsdp_tp"])
     assert capsys.readouterr().out.rstrip().endswith("done")
-    with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
-                        "--data", "2"])
-    assert "not ported yet" in capsys.readouterr().err
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen3-8b", "--reduced", "--device", "cpu", "--data", "2",
+         "--steps", "1"], capture_output=True, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("step    0 loss=") and lines[-1] == "done"

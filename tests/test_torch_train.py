@@ -7,10 +7,15 @@ one block and in 512-token blocks, ``grpo_loss`` with its gradients,
 AdamW, three ``make_train_step`` steps, both advantage functions.  Then
 the port's own loop: engine rollouts at temperature 1 scored by the
 trainer on the same weights (the on-policy identity), and the train CLI
-with a resume.  Each tolerance is stated where it is used.
+with a resume, the last one onto a 1 x 2 mesh of two ranks.  Each
+tolerance is stated where it is used.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -321,5 +326,14 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[restart] resumed from step 2" in out and "step    2" in out
     assert "step    0" not in out
-    with pytest.raises(SystemExit):
-        train_cli.main(args + ["--steps", "1", "--model", "2"])
+    # the checkpoint resumes onto a 1 x 2 mesh: two ranks the command
+    # spawns (gloo on the CPU), in a process of its own
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args,
+         "--steps", "4", "--model", "2"], capture_output=True, text=True,
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "[restart] resumed from step 3" in run.stdout
+    assert "step    3" in run.stdout and run.stdout.rstrip().endswith("done")
