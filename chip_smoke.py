@@ -482,7 +482,15 @@ PREFILL_CASES = (("qwen3-8b", 32, 8, 128, 128, 0.0),
                  ("qwen3-8b", 32, 8, 1, 128, 0.0),
                  ("qwen3-8b", 32, 8, 130, 128, 0.0),
                  ("gemma3-4b", 8, 4, 256, 256, 0.0),
-                 ("gemma2-27b", 32, 16, 256, 128, 50.0))
+                 ("gemma2-27b", 32, 16, 256, 128, 50.0),
+                 ("qwen3-8b long", 32, 8, 256, 128, 0.0))
+# the rows of every PREFILL_CASES case, (offsets, table width in pages):
+# offsets 0, mid-page, page boundary, past the first page; the long case
+# is a later chunk of long prompts (prefixes of 4,096 and 2,500 positions,
+# cut into pieces every PREFILL_SPLIT, and one of exactly 1,024) over a
+# table as wide as the engine's bucket for them
+PREFILL_ROWS = {"qwen3-8b long": ((0, 4096, 2500, 1024), 512)}
+PREFILL_ROWS_DEFAULT = ((0, 8, 256, 300), 24)
 # ssd_scan, (b, L, H, G, P, N, chunk): Hymba's prefill (8 rows of 1152,
 # ragged true lengths) and tests/test_kernels.py:184 (Mamba2-130m); the
 # reference test's bound (:196) is a relative error of 2e-5 in f32 and
@@ -860,33 +868,21 @@ def check_prefill(torch, F, ref, kern):
     """``paged_prefill_attention`` against its plain version at every GQA
     geometry the port registers (PREFILL_CASES: G = 4 at C = 128 and 256,
     then G = 5, 6, 7 and 1 at C = 256, then C = 1 and a ragged C = 130,
-    then the gemma family's G = 2 at d = 256 and with a softcap of 50),
-    bf16 q over f32 pools, ragged offsets and chunk lengths, every case
+    then the gemma family's G = 2 at d = 256 and with a softcap of 50, then
+    Qwen3-8B's heads over prefixes of up to 4,096 positions, cut into
+    pieces), bf16 q over f32 pools, ragged offsets (PREFILL_ROWS) and chunk
+    lengths, the wrapper's plan of each (mode, pieces, scratch), every case
     held to one gate (KERNEL_TOL or one bf16 ulp of |want|, whichever is
     larger); a
     second launch bit-identical; times against one SDPA call and the
     bound.  Returns the summary row (Qwen3-8B at C = 256, the worst error
     of all cases) and every case's row."""
-    ps, nb, B = 16, 24, 4
+    import repro_torch.kernels.paged_prefill as pp
     rows = {}
     for name, H, K, C, d, cap in PREFILL_CASES:
-        offs_l = [0, 8, 256, 300]               # 0, mid-page, boundary
-        # empty row, full, ragged (at least one query at C = 1)
-        cls_l = [0, C, max(C - 37, 1), max(C // 2, 1)]
-        # the G = 4 rows keep the seed they always had
-        g = torch.Generator(device="cuda").manual_seed(
-            2 + C if H // K == 4 else 2 + C + H)
-        P = 1 + B * nb
-        q = torch.randn(B, C, H, d, generator=g, device="cuda").bfloat16()
-        k = torch.randn(B, C, K, d, generator=g, device="cuda").bfloat16()
-        v = torch.randn(B, C, K, d, generator=g, device="cuda").bfloat16()
-        kp = torch.randn(P, ps, K, d, generator=g, device="cuda")
-        vp = torch.randn(P, ps, K, d, generator=g, device="cuda")
-        bt = (torch.randperm(P - 1, generator=g, device="cuda")[:B * nb] + 1) \
-            .reshape(B, nb).to(torch.int32)
-        offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
-        cls = torch.tensor(cls_l, dtype=torch.int32, device="cuda")
-        args = (q, k, v, kp, vp, bt, offs, cls)
+        args, offs_l, cls_l, nb, ps = prefill_case(torch, name, H, K, C, d)
+        q, k, v, kp, vp, bt, offs, cls = args
+        B = q.shape[0]
         out = kern(*args, scale=1.0, cap=cap)
         torch.cuda.synchronize()
         want = ref.paged_prefill_attention_ref(*args, scale=1.0, cap=cap)
@@ -898,7 +894,7 @@ def check_prefill(torch, F, ref, kern):
         if not torch.isfinite(out.float()).all() or bool((diff > tol).any()):
             fail(f"paged_prefill_attention {name} C={C} max err {err} at "
                  f"|want| {at} ({tol_s})")
-        if float(out[0].float().abs().max()) != 0.0:
+        if offs_l[0] == 0 and float(out[0].float().abs().max()) != 0.0:
             fail("paged_prefill_attention: empty row is not zero")
         again = kern(*args, scale=1.0, cap=cap)
         torch.cuda.synchronize()
@@ -925,23 +921,14 @@ def check_prefill(torch, F, ref, kern):
             lambda: F.scaled_dot_product_attention(
                 qd, kk, vv, attn_mask=mask, scale=1.0, enable_gqa=True),
             torch)
-        n_pre = [min(o, T) for o in offs_l]
-        # (query, key) pairs: prefix keys come from the f32 pools (TF32
-        # products), in-chunk keys from the bf16 k/v (bf16 products)
-        pre_keys = C * sum(n_pre)
-        chunk_keys = sum(min(i + 1, cls_l[b])
-                         for b in range(B) for i in range(C))
-        nbytes = (2 * sum(n_pre) * K * d * 4 + 2 * B * C * K * d * 2
-                  + 2 * B * C * H * d * 2 + B * nb * 4 + 2 * B * 4)
-        flops = 4 * (pre_keys + chunk_keys) * H * d
-        b_ms, b_by = bound(nbytes, [(4 * pre_keys * H * d, TF32_FLOP_PER_S),
-                                    (4 * chunk_keys * H * d,
-                                     BF16_FLOP_PER_S)])
+        b_ms, b_by, nbytes, flops = prefill_bound(B, C, H, K, d, nb, ps,
+                                                  offs_l, cls_l)
         lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"[kernels] paged_prefill_attention {name} B={B} C={C} H={H} "
             f"K={K} G={H // K} d={d} cap={cap} ps={ps} nb={nb} "
             f"offsets={offs_l} "
-            f"chunk_lens={cls_l}: max_abs_err={err:.3e} at |want| {at:.3f} "
+            f"chunk_lens={cls_l} ({prefill_plan(pp, B, C, H, d, nb, ps, offs_l)}): "
+            f"max_abs_err={err:.3e} at |want| {at:.3f} "
             f"({tol_s}); a second launch bit-identical; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{lib_s}, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
@@ -955,6 +942,60 @@ def check_prefill(torch, F, ref, kern):
     # worst error of every case
     worst = max(r["max_abs_err"] for r in rows.values())
     return dict(rows["qwen3-8b C=256"], max_abs_err=worst), rows
+
+
+def prefill_case(torch, name, H, K, C, d):
+    """check_prefill's inputs of one PREFILL_CASES case: bf16 q / k / v
+    and f32 pools of 16-position pages drawn from the case's seed, rows
+    PREFILL_ROWS (or the default) with chunk lengths 0, C, C - 37 and C /
+    2.  Returns (args, offsets, chunk_lens, nb, ps)."""
+    ps, B = 16, 4
+    offs_l, nb = PREFILL_ROWS.get(name, PREFILL_ROWS_DEFAULT)
+    offs_l = list(offs_l)
+    # empty row, full, ragged (at least one query at C = 1)
+    cls_l = [0, C, max(C - 37, 1), max(C // 2, 1)]
+    # the G = 4 rows keep the seed they always had
+    g = torch.Generator(device="cuda").manual_seed(
+        2 + C if H // K == 4 else 2 + C + H)
+    P = 1 + B * nb
+    q = torch.randn(B, C, H, d, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, C, K, d, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, C, K, d, generator=g, device="cuda").bfloat16()
+    kp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+    vp = torch.randn(P, ps, K, d, generator=g, device="cuda")
+    bt = (torch.randperm(P - 1, generator=g, device="cuda")[:B * nb] + 1) \
+        .reshape(B, nb).to(torch.int32)
+    offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
+    cls = torch.tensor(cls_l, dtype=torch.int32, device="cuda")
+    return (q, k, v, kp, vp, bt, offs, cls), offs_l, cls_l, nb, ps
+
+
+def prefill_bound(B, C, H, K, d, nb, ps, offs_l, cls_l):
+    """The paged prefill's bound at these rows: (ms, what binds, bytes,
+    flops).  Bytes: the live prefix pages (f32), the chunk's bf16 k/v, q
+    and the output, the table and two int32 rows; operations: 4 d flops a
+    kept (query, head, key), prefix keys at the TF32 rate (f32 pools),
+    chunk keys at the bf16 rate."""
+    n_pre = [min(o, nb * ps) for o in offs_l]
+    pre_keys = C * sum(n_pre)
+    chunk_keys = sum(min(i + 1, cls_l[b]) for b in range(B) for i in range(C))
+    nbytes = (2 * sum(n_pre) * K * d * 4 + 2 * B * C * K * d * 2
+              + 2 * B * C * H * d * 2 + B * nb * 4 + 2 * B * 4)
+    flops = 4 * (pre_keys + chunk_keys) * H * d
+    b_ms, b_by = bound(nbytes, [(4 * pre_keys * H * d, TF32_FLOP_PER_S),
+                                (4 * chunk_keys * H * d, BF16_FLOP_PER_S)])
+    return b_ms, b_by, nbytes, flops
+
+
+def prefill_plan(pp, B, C, H, d, nb, ps, offs_l) -> str:
+    """How the paged prefill runs a bf16-q call at these shapes (its
+    wrapper's ``plan``): the split length, the mode, the pieces the table
+    allows and the most these rows have, and the scratch bytes."""
+    mode, n_split, nbytes = pp.plan(B, C, H, d, nb, ps, pp.max_ctas("cuda"))
+    most = max(len(range(0, min(max(o, 0), nb * ps), pp.PREFILL_SPLIT))
+               for o in offs_l)
+    return (f"split every {pp.PREFILL_SPLIT}: mode {mode}, {n_split} pieces "
+            f"at most, {max(most, 1)} in these rows, scratch {nbytes} B")
 
 
 def served_table(torch, g, lens_l, ps: int):
@@ -988,6 +1029,7 @@ def check_served_paged(torch, F, ref, dec_kern, pre_kern):
     (the prefill's one row at a time: a whole batch's f32 scores would
     take tens of GB), one SDPA call where there is no softcap, and the
     bound.  Returns {case: row}."""
+    import repro_torch.kernels.paged_prefill as pp
     rows = {}
     ps = 16
     for name, H, K, d, cap in SERVED_PAGED:
@@ -1079,15 +1121,15 @@ def check_served_paged(torch, F, ref, dec_kern, pre_kern):
                 qd, kk, vv, attn_mask=mask, scale=1.0, enable_gqa=True),
                 torch)
             del kk, vv, qd, mask
-        chunk_keys = sum(min(i + 1, n) for n in plens for i in range(C))
-        nbytes = (2 * B * C * K * d * 2 + 2 * B * C * H * d * 2
-                  + B * nb * 4 + 2 * B * 4)
-        flops = 4 * chunk_keys * H * d
-        b_ms, b_by = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+        # offsets 0: no prefix, the chunk's keys at the bf16 rate
+        b_ms, b_by, nbytes, flops = prefill_bound(B, C, H, K, d, nb, ps,
+                                                  [0] * B, list(plens))
         lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"[kernels] paged_prefill_attention {name} served B={B} C={C} "
             f"H={H} K={K} d={d} cap={cap} ps={ps} nb={nb} offsets 0 "
-            f"chunk_lens={list(plens)}: max_abs_err={err:.3e} (tol "
+            f"chunk_lens={list(plens)} "
+            f"({prefill_plan(pp, B, C, H, d, nb, ps, [0] * B)}): "
+            f"max_abs_err={err:.3e} (tol "
             f"{KERNEL_TOL} or one bf16 ulp of |want|); a second launch "
             f"bit-identical; kernel {ms:.4f} ms, plain (one row a call) "
             f"{plain_ms:.4f} ms, sdpa {lib_s}, bound {b_ms:.4f} ms ({b_by}: "
@@ -1959,7 +2001,7 @@ PROFILED_KERNEL_NAMES = {
     "paged_decode_attention": ("paged_decode_split_kernel",),
     "decode_attention": ("slab_decode_split_kernel",),
     "paged_prefill_attention": ("paged_prefill_f32_kernel",
-                                "paged_prefill_mma_kernel"),
+                                "paged_prefill_wgmma_kernel"),
     "flash_attention": ("flash_attention_f32_kernel",
                         "flash_attention_tma_kernel"),
     "ssd_scan": ("ssd_state_passing_kernel",)}
@@ -2861,6 +2903,21 @@ def rollout_batch(torch, grpo, prompts, rids, out):
     return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}, rewards
 
 
+def live_tokens(torch, grpo, cfg, params, batch, clip_eps: float = 0.2):
+    """Response tokens with a nonzero advantage whose GRPO surrogate is
+    unclipped under ``params`` (``grpo_loss``'s min takes ratio * A there):
+    the tokens a gradient flows through.  With none the loss's gradient is
+    zero: every such token has moved past the clip bound on its
+    advantage's side.  One train-mode forward."""
+    with torch.no_grad():
+        lp, _ = grpo.policy_logprobs(params, cfg, batch["tokens"])
+    ratio = torch.exp(lp - batch["behavior_logprobs"].float())
+    adv = batch["advantages"].float()[:, None]
+    live = (((adv > 0) & (ratio <= 1.0 + clip_eps))
+            | ((adv < 0) & (ratio >= 1.0 - clip_eps)))
+    return int((live & (batch["response_mask"] > 0)).sum())
+
+
 def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
                 flash):
     """Roll the mix out on the trainer's weights, take TRAIN_STEPS timed
@@ -2947,30 +3004,37 @@ def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
     step_fn = grpo.make_train_step(cfg, lr=TRAIN_LR, remat=True)
     steps = []
     for i in range(TRAIN_STEPS):
+        live = live_tokens(torch, grpo, cfg, state["params"], batch)
         t0 = clock()
         state, m = step_fn(state, batch)
         dt = clock() - t0
-        n_fwd += 2                      # the forward and its recompute
-        m = {k: float(v) for k, v in m.items()}
-        m.update(seconds=dt, tokens_per_s=B * S / dt,
+        n_fwd += 3                      # live_tokens, the step's forward
+        m = {k: float(v) for k, v in m.items()}     # and its recompute
+        m.update(seconds=dt, tokens_per_s=B * S / dt, live=live,
                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         steps.append(m)
         log(f"[train] step {i + 1}: {dt:.3f} s, {B * S / dt:.1f} tokens/s "
-            f"(B x S = {B * S}, {n_resp} response tokens), loss "
+            f"(B x S = {B * S}, {n_resp} response tokens, {live} with an "
+            f"advantage unclipped), loss "
             f"{m['loss']:.6f}, pg_loss {m['pg_loss']:.6f}, ratio_mean "
             f"{m['ratio_mean']:.6f}, grad_norm {m['grad_norm']:.6f}, peak "
             f"memory {m['peak_gb']:.2f} GB")
     # one more step, under the profiler, kept out of the timed steps
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+    live = live_tokens(torch, grpo, cfg, state["params"], batch)
     with train_ranges(ops), torch_profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = clock()
         state, m = step_fn(state, batch)
         dt = clock() - t0
-    n_fwd += 2
+    n_fwd += 3
     profile = profile_train(prof, dt * 1e3)
-    steps.append({k: float(v) for k, v in m.items()})
+    steps.append(dict({k: float(v) for k, v in m.items()}, live=live))
+    log(f"[train] step {len(steps)} (profiled): loss {steps[-1]['loss']:.6f}, "
+        f"ratio_mean {steps[-1]['ratio_mean']:.6f}, grad_norm "
+        f"{steps[-1]['grad_norm']:.6f}, {live} response tokens with an "
+        f"advantage unclipped")
     launches = check_launches(cfg, eng, "train", 0, 0,
                               n_train_fwd=n_fwd)
     s1 = steps[0]
@@ -2984,11 +3048,15 @@ def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
     if abs(s1["grad_norm"] - gn_plain) > GRAD_NORM_REL_TOL * gn_plain:
         fail("train: grad_norm with the flash kernel disagrees with the "
              "plain attention's")
+    # a step's gradient is nonzero exactly when some response token with an
+    # advantage is unclipped (live_tokens): zero with none of them, as the
+    # clipped surrogate has no gradient there
     for i, m in enumerate(steps):
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
-                and m["grad_norm"] > 0):
+                and (m["grad_norm"] > 0) == (m["live"] > 0)):
             fail(f"train: step {i + 1} loss {m['loss']} grad_norm "
-                 f"{m['grad_norm']}")
+                 f"{m['grad_norm']} with {m['live']} response tokens with "
+                 f"an advantage unclipped")
     steps.pop()                         # the profiled step: not timed
     if int(state["opt"]["count"]) != TRAIN_STEPS + 1:
         fail(f"train: AdamW count {int(state['opt']['count'])}")

@@ -5,6 +5,14 @@ TPU kernel) to ``csrc/paged_prefill.cu``; the source's header says what
 bounds it and how it is laid out.  The plain version is
 ``kernels.ref.paged_prefill_attention_ref``; ``kernels.ops`` picks between
 the two by device.
+
+With bf16 q a row's prefix is cut into pieces every ``PREFILL_SPLIT``
+positions (read at each call) that fold in order into one result.
+``plan`` says how a call runs them: on CTAs of their own with a partial
+each in scratch and a merge launch ("split"), folded in place by one CTA
+("fold", where split's scratch would pass ``SPLIT_SCRATCH_CAP``), or not
+at all ("none": the table holds no second piece).  A row's output is the
+same bits in every mode.
 """
 
 from __future__ import annotations
@@ -19,8 +27,38 @@ from repro_torch.kernels.paged_attention import (DTYPE_CODES, DTYPE_PAIRS,
                                                  HEAD_DIMS)
 from repro_torch.kernels.ref import paged_prefill_attention_ref  # noqa: F401
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 13
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+# positions of a prefix piece (a multiple of 64, the kernel's tile grid)
+PREFILL_SPLIT = 1024
+# split mode's partials may take this much scratch, else the call folds
+SPLIT_SCRATCH_CAP = 256 << 20
+_SMS = {}
+
+
+def max_ctas(device) -> int:
+    """The persistent grid's cap on ``device``: one CTA a SM (a CTA holds
+    a SM's shared memory), so that every CTA runs in the one wave."""
+    idx = torch.device(device).index or 0
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def plan(B: int, C: int, H: int, d: int, nb: int, ps: int, ctas: int,
+         split: Optional[int] = None):
+    """(mode, n_split, scratch bytes) of a bf16-q call: "none" when no row
+    can have two pieces (nb * ps <= split), "split" when the pieces'
+    partials ([n_split, B, C, H] rows of d + 2 f32) fit SPLIT_SCRATCH_CAP,
+    else "fold" (one slot of 128 x d f32 for each of ``ctas`` CTAs)."""
+    split = PREFILL_SPLIT if split is None else split
+    n_split = max(1, -(-nb * ps // split))
+    if n_split == 1:
+        return "none", 1, 0
+    part = n_split * B * C * H * (d + 2) * 4
+    if part <= SPLIT_SCRATCH_CAP:
+        return "split", n_split, part
+    return "fold", n_split, ctas * 128 * d * 4
 
 
 def _require(cond: bool, msg: str):
@@ -38,8 +76,8 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables, offsets,
     K <= 64.  All on one CUDA
     device, contiguous, with 16-byte aligned bases (the kernel copies q,
     k/v and the pools in 16-byte pieces).  bf16 q runs on the tensor cores
-    (TF32 products against an f32 pool), f32 q on the f32 CUDA cores.
-    Returns [B, C, H, d] in q's dtype."""
+    (an f32 pool as bf16 high and low halves), f32 q on the f32 CUDA
+    cores.  Returns [B, C, H, d] in q's dtype."""
     tensors = (q, k, v, k_pages, v_pages, block_tables, offsets, chunk_lens)
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
              "every tensor must be on the same CUDA device")
@@ -76,13 +114,28 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables, offsets,
         return out
     if scale is None:
         scale = d ** -0.5
+    split = PREFILL_SPLIT
+    _require(split > 0 and split % 64 == 0,
+             f"PREFILL_SPLIT={split} must be a positive multiple of 64")
+    ctas = max_ctas(q.device)
+    mode, n_split, _ = plan(B, C, H, d, nb, ps, ctas, split)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part = ml = fold = None
+    if q.dtype == torch.bfloat16 and mode == "split":
+        part = torch.empty(n_split * B * C * H * d, **f32)
+        ml = torch.empty(n_split * B * C * H * 2, **f32)
+    elif q.dtype == torch.bfloat16 and mode == "fold":
+        fold = torch.empty(ctas * 128 * d, **f32)
     fn = build.c_function("paged_prefill", "paged_prefill_attention_launch",
                           _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), offsets.data_ptr(),
-            chunk_lens.data_ptr(), out.data_ptr(), B, C, H, K, d, ps, nb,
-            DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype], float(scale),
-            float(cap), torch.cuda.current_stream(q.device).cuda_stream)
+            chunk_lens.data_ptr(), out.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (part, ml, fold)),
+            B, C, H, K, d, ps, nb, DTYPE_CODES[q.dtype],
+            DTYPE_CODES[k_pages.dtype], split, n_split, int(mode == "fold"),
+            ctas, float(scale), float(cap),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill_attention: launch failed "
                            f"(cudaError {rc})")

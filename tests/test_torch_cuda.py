@@ -10,8 +10,8 @@ its plain PyTorch version (``repro_torch.kernels.ref``) on the same inputs:
 the paged decode and prefill, the slab decode and the flash attention
 (f32 at atol 2e-5; bf16 at the reference test's 1e-2, 2e-2 abs + rel for
 flash, whose tensor-core path rounds P to bf16, and 2e-2 or one bf16 ulp
-of the value for the paged prefill, whose tensor-core path rounds the f32
-pool to TF32 and P to bf16), the SSD scan (a
+of the value for the paged prefill, whose tensor-core path takes an f32
+pool as bf16 high and low halves and rounds P to bf16), the SSD scan (a
 relative 2e-5 / 4e-2 on y and state), the dequant (atol = rtol = 1e-6) and
 an install that launches it once per int8-coded leaf.  Beyond the cases of
 the other ``test_torch_*`` files' ``cuda`` tests it takes the paged decode
@@ -23,7 +23,10 @@ live slots, and the SSD scan at both served prefills (8 ragged rows of
 the unpadded row's bit for bit; it checks that repeated launches are
 bit-identical, and
 that the paged decode's outputs do not move by a bit when the table
-doubles or rows are added; the paged decode also at G = 1 (the MoE
+doubles or rows are added, nor the paged prefill's when the table
+doubles, rows are added, C is padded or its prefix pieces fold in one
+CTA (rows of several pieces, prefixes up to 4,096 positions); the paged
+decode also at G = 1 (the MoE
 configs' 16 / 16 heads); the four attention kernels at gemma3's head dim
 of 256 and at gemma2's G = 2 with a softcap of 50, and a tiny gemma3's
 decode horizon as a graph; the flash attention at hubert's d = 80
@@ -74,8 +77,8 @@ from repro_torch.transfer.chunkstore import (ChunkStore, assemble_manifest,
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # the paged prefill's bf16 gate (chip_smoke.py's one rule): 2e-2, or one
 # bf16 ulp of |want| where that is larger: its tensor-core products round
-# the f32 pool to TF32 and P to bf16, and the bf16 output then lands up to
-# one ulp of its own magnitude from the plain version's
+# P to bf16, and the bf16 output then lands up to one ulp of its own
+# magnitude from the plain version's
 PREFILL_BF16_TOL, BF16_ULP = 2e-2, 2 ** -7
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 2e-5, "bfloat16": 4e-2}
@@ -200,7 +203,10 @@ PREFILL_CASES = [(4, 96, 4, 2, 8, 6, 64, 0.0),
                  (4, 256, 40, 8, 16, 24, 128, 0.0),
                  (4, 256, 48, 8, 16, 24, 128, 0.0),
                  (3, 130, 28, 4, 16, 8, 128, 20.0),
-                 (2, 77, 7, 1, 16, 6, 64, 0.0)]
+                 (2, 77, 7, 1, 16, 6, 64, 0.0),
+                 # a later chunk of long prompts at Qwen3-8B's heads:
+                 # offsets up to 4,096, a table of several prefix pieces
+                 (4, 256, 32, 8, 16, 256, 128, 0.0)]
 
 
 @pytest.mark.cuda
@@ -228,6 +234,62 @@ def test_prefill_kernel_matches_plain_on_card(cuda, B, C, H, K, ps, nb, d,
                                          min=PREFILL_BF16_TOL)).all())
     assert float(got[0].abs().max()) == 0.0
     assert torch.equal(again, got)
+
+
+# rows of several prefix pieces at every head dim, G = 2 with a softcap,
+# and G = 7
+PREFILL_FIXED = [(4, 256, 32, 8, 16, 256, 128, 0.0),
+                 (4, 130, 8, 4, 16, 80, 256, 0.0),
+                 (4, 200, 32, 16, 16, 80, 128, 50.0),
+                 (4, 77, 7, 1, 16, 70, 64, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,H,K,ps,nb,d,cap", PREFILL_FIXED)
+def test_prefill_row_is_fixed_on_card(cuda, B, C, H, K, ps, nb, d, cap,
+                                      kvdt, monkeypatch):
+    """bf16 q: a row's output is the same bits when its table widens with
+    page 0, when rows are added, when C is padded, and when the wrapper
+    folds the prefix pieces in one CTA instead of splitting them across
+    CTAs (its scratch cap at 0); the last row's prefix has several pieces
+    (split mode in the first call)."""
+    import repro_torch.kernels.paged_prefill as pp
+    q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(B, C, H, K, ps, nb, d)
+    assert offs[-1] > pp.PREFILL_SPLIT
+    pools = [_th(a, kvdt, cuda) for a in (kp, vp)]
+
+    def run(q_, k_, v_, bt_, o_, c_):
+        out = paged_prefill_attention(
+            *(_th(a, "bfloat16", cuda) for a in (q_, k_, v_)), *pools,
+            *(_th(a, "bfloat16", cuda) for a in (bt_, o_, c_)), cap=cap)
+        torch.cuda.synchronize()
+        return out
+
+    ctas = pp.max_ctas(cuda)
+    assert pp.plan(B, C, H, d, nb, ps, ctas)[0] == "split"
+    base = run(q, k, v, bt, offs, cls)
+    wide = run(q, k, v, np.concatenate([bt, np.zeros_like(bt)], 1), offs,
+               cls)
+    assert torch.equal(wide, base)
+    rs = np.random.RandomState(3)
+    extra = lambda n, m: rs.randn(2, n, m, d).astype(np.float32)  # noqa
+    grown = run(np.concatenate([q, extra(C, H)]),
+                np.concatenate([k, extra(C, K)]),
+                np.concatenate([v, extra(C, K)]),
+                np.concatenate([bt, rs.randint(1, kp.shape[0], size=(
+                    2, nb)).astype(np.int32)]),
+                np.concatenate([offs, np.asarray([nb * ps - 5, 3],
+                                                 np.int32)]),
+                np.concatenate([cls, np.asarray([C, 1], np.int32)]))
+    assert torch.equal(grown[:B], base)
+    pad = lambda x: np.concatenate(  # noqa: E731
+        [x, rs.randn(B, 37, *x.shape[2:]).astype(np.float32)], 1)
+    padded = run(pad(q), pad(k), pad(v), bt, offs, cls)
+    assert torch.equal(padded[:, :C], base)
+    monkeypatch.setattr(pp, "SPLIT_SCRATCH_CAP", 0)
+    assert pp.plan(B, C, H, d, nb, ps, ctas)[0] == "fold"
+    assert torch.equal(run(q, k, v, bt, offs, cls), base)
 
 
 # ------------------------------- slab decode ------------------------------ #

@@ -14,8 +14,11 @@ f32 at atol 2e-5; bf16 inputs at the reference's own bf16 tolerance, 1e-2
 for the paged versions and 2e-2 for flash (one bf16 rounding of the
 output).  The split-K decodes' and the tensor-core prefill's arithmetic is
 emulated in plain PyTorch and held to the same references: the paged
-decode's fixed-length splits at 2e-5, the prefill's TF32 / bf16 roundings
-at its gate of 2e-2 or one bf16 ulp of the value; the decodes' tensor-core
+decode's fixed-length splits at 2e-5, the prefill's bf16 roundings (an f32
+pool as bf16 high and low halves, P in bf16) with its prefix cut at fixed
+positions and the pieces folded in order, at its gate of 2e-2 or one bf16
+ulp of the value, a row's emulated output bit-equal when the table widens,
+rows are added or C is padded; the decodes' tensor-core
 body's split plan, warp order (within 2e-5) and split bf16 / TF32
 roundings (within the card tests' tolerances and the rings' one-ulp
 gate).  The flash gradient is held against ``jax.grad`` of the reference's
@@ -647,41 +650,107 @@ def tf32_round(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _mma_prefill(q, k, v, kp, vp, bt, offs, cls, *, cap, scale):
-    """paged_prefill_attention as the bf16-q tensor-core kernel rounds it
-    (tests only): products against an f32 pool in TF32 (K, V and P
-    rounded by ``tf32_round``), against bf16 k/v (the chunk, or a bf16
-    pool) with P rounded to bf16; f32 sums, the softmax's sum over the
-    unrounded P; the output rounded to q's dtype."""
+def prefill_pieces(offset: int, nb: int, ps: int, split: int):
+    """Prefix positions [s * split, min((s + 1) * split, n_pre)) of each
+    piece s of a row, as csrc/paged_prefill.cu cuts them: n_pre =
+    min(offset, nb * ps), at least one piece (empty when n_pre is 0); the
+    boundaries are fixed in position space."""
+    n_pre = min(max(offset, 0), nb * ps)
+    return [(s * split, min((s + 1) * split, n_pre))
+            for s in range(max(1, -(-n_pre // split)))]
+
+
+def bf16_hi_lo(x):
+    """x as the kernel's two bf16 planes: hi = bf16(x), lo = bf16(x -
+    hi), returned as the f32 value hi + lo that its two products see."""
+    hi = x.float().bfloat16().float()
+    return hi + (x.float() - hi).bfloat16().float()
+
+
+def _wgmma_prefill(q, k, v, kp, vp, bt, offs, cls, *, cap, scale, split):
+    """paged_prefill_attention as csrc/paged_prefill.cu's bf16-q kernel
+    computes it (tests only): per (row, KV head, tile of floor(128 / G)
+    queries x G heads), each prefix piece of ``prefill_pieces`` and then,
+    in the last piece, the chunk, in tiles of BNB = 64 positions (32 at d =
+    256; an f32 pool's tiles half that), one online softmax a piece in the
+    exp2 domain (m from -1e30; softcap before the mask; l the sum of the
+    unrounded P; P rounded to bf16 for P V), an f32 pool's K and V as bf16
+    hi + lo; the pieces folded in order ((M, L, O) = piece 0's, then each
+    next joins with weights 2^(m - max)); O / L, zeros where L is 0,
+    rounded to q's dtype.  Every product has the kernel's fixed shapes, so
+    a row's result does not depend on the other rows, the table width or
+    C."""
     B, C, H, d = q.shape
     K = k.shape[2]
     G = H // K
+    QT = 128 // G
+    nb, ps = bt.shape[1], kp.shape[1]
+    bnb = 32 if d > 128 else 64
     f32_pool = kp.dtype == torch.float32
-    pre = tf32_round if f32_pool else (lambda x: x.float())
-    k_pre, v_pre = pre(ref._gather(kp, bt)), pre(ref._gather(vp, bt))
-    T = k_pre.shape[1]
-    kk = torch.cat([k_pre, k.float()], 1)
-    vv = torch.cat([v_pre, v.float()], 1)
-    s = torch.einsum("bckgd,btkd->bkgct",
-                     q.float().reshape(B, C, K, G, d), kk) * scale
-    if cap:
-        s = cap * torch.tanh(s / cap)
-    ar_t, ar_c = torch.arange(T), torch.arange(C)
-    qpos = offs.long()[:, None] + ar_c[None]
-    kvpos = torch.cat([ar_t[None].expand(B, T), qpos], 1)
-    valid = torch.cat([ar_t[None] < offs.long()[:, None],
-                       ar_c[None] < cls.long()[:, None]], 1)
-    mask = valid[:, None, :] & (kvpos[:, None, :] <= qpos[:, :, None])
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, -torch.inf))
-    m = s.amax(-1, keepdim=True).clamp(min=-1e30)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
-    p_pre = tf32_round(p[..., :T]) if f32_pool else \
-        p[..., :T].bfloat16().float()
-    pr = torch.cat([p_pre, p[..., T:].bfloat16().float()], -1)
-    o = torch.einsum("bkgct,btkd->bkgcd", pr, vv)
-    o = torch.where(l > 0, o / l.clamp(min=1e-30), torch.zeros_like(o))
-    return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, d).to(q.dtype)
+    bnp = bnb // 2 if f32_pool else bnb
+    pool = bf16_hi_lo if f32_pool else (lambda x: x.float())
+    k_pre, v_pre = pool(ref._gather(kp, bt)), pool(ref._gather(vp, bt))
+    sc = 1.0 if cap else scale * LOG2E
+    out = torch.zeros(B, C, H, d)
+
+    def attend(st, qt, kt, vt, live):
+        """One tile: st = (m, l, o) of the tile's 128 rows, live [rows,
+        n] the positions each row keeps."""
+        m, l, o = st
+        x = qt @ kt.T
+        if cap:
+            x = cap * torch.tanh(x * scale / cap) * LOG2E
+        x = x.masked_fill(~live, float("-inf"))
+        m_new = torch.maximum(m, x.amax(1) * sc)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x * sc - m_new[:, None])
+        return (m_new, l * corr + p.sum(1),
+                o * corr[:, None] + p.bfloat16().float() @ vt)
+
+    for b in range(B):
+        off, cl = int(offs[b]), min(max(int(cls[b]), 0), C)
+        pieces = prefill_pieces(off, nb, ps, split)
+        for h in range(K):
+            for q0 in range(0, C, QT):
+                rows = torch.arange(128)
+                qi = q0 + rows // G
+                ok = (rows < QT * G) & (qi < C)
+                qt = torch.zeros(128, d)
+                qt[ok] = q[b, qi[ok], h * G + rows[ok] % G].float()
+                lim = torch.clamp(qi + 1, max=cl)
+                n_ch = min(cl, C, q0 + QT)
+                parts = []
+                for s, (lo, hi) in enumerate(pieces):
+                    st = (torch.full((128,), -1e30), torch.zeros(128),
+                          torch.zeros(128, d))
+                    for p0 in range(lo, hi, bnp):
+                        n = min(bnp, hi - p0)
+                        kt = torch.zeros(bnp, d)
+                        vt = torch.zeros(bnp, d)
+                        kt[:n] = k_pre[b, p0:p0 + n, h]
+                        vt[:n] = v_pre[b, p0:p0 + n, h]
+                        live = (torch.arange(bnp) < n)[None].expand(128, -1)
+                        st = attend(st, qt, kt, vt, live)
+                    if s == len(pieces) - 1:
+                        for j0 in range(0, n_ch, bnb):
+                            n = min(bnb, C - j0)
+                            kt = torch.zeros(bnb, d)
+                            vt = torch.zeros(bnb, d)
+                            kt[:n] = k[b, j0:j0 + n, h].float()
+                            vt[:n] = v[b, j0:j0 + n, h].float()
+                            live = (j0 + torch.arange(bnb))[None] < lim[:, None]
+                            st = attend(st, qt, kt, vt, live)
+                    parts.append(st)
+                M, L, O = parts[0]
+                for m, l, o in parts[1:]:
+                    mn = torch.maximum(M, m)
+                    a, c = torch.exp2(M - mn), torch.exp2(m - mn)
+                    L, O = L * a + l * c, O * a[:, None] + o * c[:, None]
+                    M = mn
+                res = torch.where(L[:, None] > 0, O / L.clamp(min=1e-30)[:, None],
+                                  torch.zeros_like(O))
+                out[b, qi[ok], h * G + rows[ok] % G] = res[ok]
+    return out.to(q.dtype)
 
 
 def _within_prefill_gate(got, want):
@@ -692,24 +761,26 @@ def _within_prefill_gate(got, want):
     return bool((diff <= torch.clamp(2 ** -7 * want.abs(), min=2e-2)).all())
 
 
+@pytest.mark.parametrize("split", [32, 64, 128])
 @pytest.mark.parametrize("q_scale", ["model", "unscaled"])
 @pytest.mark.parametrize("pool", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,C,H,K,ps,nb,d,cap", PREFILL_CASES)
 def test_mma_prefill_rounding_within_the_gate(B, C, H, K, ps, nb, d, cap,
-                                              pool, q_scale):
-    """The tensor-core prefill's roundings (TF32 against an f32 pool, bf16
-    against the chunk and a bf16 pool) keep bf16 q's output within the one
-    gate of the port's plain version and of the reference's Pallas kernel
-    in interpret mode, with scale = 1.0: q pre-scaled by d**-0.5 as the
-    engine calls it, or unscaled (scores of order sqrt(d), as
-    chip_smoke.py's cases draw them)."""
+                                              pool, q_scale, split):
+    """The tensor-core prefill's arithmetic (an f32 pool as bf16 hi + lo,
+    P rounded to bf16, tiles of the kernel's widths, a row's prefix cut
+    every ``split`` positions and its pieces folded in order) keeps bf16
+    q's output within the one gate of the port's plain version and of the
+    reference's Pallas kernel in interpret mode, with scale = 1.0: q
+    pre-scaled by d**-0.5 as the engine calls it, or unscaled (scores of
+    order sqrt(d), as chip_smoke.py's cases draw them)."""
     q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(B, C, H, K, ps, nb, d)
     if q_scale == "model":
         q = q * d ** -0.5
     tq = [_th(a, "bfloat16") for a in (q, k, v)]
     tp = [_th(a, pool) for a in (kp, vp)]
     ti = [torch.from_numpy(a) for a in (bt, offs, cls)]
-    got = _mma_prefill(*tq, *tp, *ti, cap=cap, scale=1.0)
+    got = _wgmma_prefill(*tq, *tp, *ti, cap=cap, scale=1.0, split=split)
     assert got.dtype == torch.bfloat16
     assert float(got[0].float().abs().max()) == 0.0
     want = ref.paged_prefill_attention_ref(*tq, *tp, *ti, cap=cap,
@@ -720,6 +791,50 @@ def test_mma_prefill_rounding_within_the_gate(B, C, H, K, ps, nb, d, cap,
                             *(jnp.asarray(a) for a in (bt, offs, cls)),
                             cap=cap, scale=1.0, interpret=True)
     assert _within_prefill_gate(got, np.asarray(pallas.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("split", [32, 64, 128])
+def test_prefill_split_is_fixed_in_position_space(split):
+    """A row's prefix pieces and its emulated prefill output do not change,
+    bit for bit, when the table width doubles (padded with page 0, as the
+    engine's bucket grows), when rows are added, or when the chunk is
+    padded to a wider C: they depend on the row's own offset, chunk length
+    and queries alone."""
+    B, C, H, K, ps, nb, d = 4, 40, 8, 2, 8, 20, 32
+    q, k, v, kp, vp, bt, offs, cls = _prefill_inputs(B, C, H, K, ps, nb, d,
+                                                     seed=9)
+    offs[2] = 77                                  # mid-page, several pieces
+    for o in offs:
+        assert prefill_pieces(int(o), nb, ps, split) == \
+            prefill_pieces(int(o), 2 * nb, ps, split)
+    assert len(prefill_pieces(int(offs[3]), nb, ps, split)) > 1
+    tq = lambda *a: [_th(x, "bfloat16") for x in a]  # noqa: E731
+    ti = lambda *a: [torch.from_numpy(x) for x in a]  # noqa: E731
+    run = lambda q_, k_, v_, bt_, o_, c_: _wgmma_prefill(  # noqa: E731
+        *tq(q_, k_, v_), *tq(kp, vp), *ti(bt_, o_, c_), cap=0.0, scale=1.0,
+        split=split)
+    base = run(q, k, v, bt, offs, cls)
+    rs = np.random.RandomState(3)
+    # the table doubled with page 0, and three rows added
+    bt_x = np.concatenate([
+        np.concatenate([bt, np.zeros_like(bt)], 1),
+        rs.randint(1, kp.shape[0], size=(3, 2 * nb)).astype(np.int32)])
+    extra = lambda n, m: rs.randn(3, n, m, d).astype(np.float32)  # noqa
+    grown = run(np.concatenate([q, extra(C, H)]),
+                np.concatenate([k, extra(C, K)]),
+                np.concatenate([v, extra(C, K)]), bt_x,
+                np.concatenate([offs, np.asarray([2 * nb * ps, 0, 150],
+                                                 np.int32)]),
+                np.concatenate([cls, np.asarray([C, 5, 1], np.int32)]))
+    assert torch.equal(grown[:B], base)
+    # the chunk padded from C to C + 50 queries
+    pad = lambda x: np.concatenate(  # noqa: E731
+        [x, rs.randn(B, 50, *x.shape[2:]).astype(np.float32)], 1)
+    wide = run(pad(q), pad(k), pad(v), bt, offs, cls)
+    assert torch.equal(wide[:, :C], base)
+    want = ref.paged_prefill_attention_ref(*tq(q, k, v), *tq(kp, vp),
+                                           *ti(bt, offs, cls), scale=1.0)
+    assert _within_prefill_gate(base, want.float().numpy())
 
 
 def test_tf32_round_is_round_to_nearest_ties_away():

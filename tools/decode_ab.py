@@ -45,10 +45,7 @@ Every number goes to --out as JSON, and a line per measurement to stdout.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import importlib.util
 import json
-import shutil
 import subprocess
 import sys
 import time
@@ -57,8 +54,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import chip_smoke as cs  # noqa: E402
+from ab_common import (bind, build_both, device_line, load_module,  # noqa
+                       log, patched_copies, warm_clocks)
 
 PARTS = ("cells", "kernels", "probes", "serve", "engine")
 ENTRIES = {"decode_attention": "decode_attention_launch",
@@ -108,40 +108,6 @@ with cs.graph_phase("13 cells"):
 """
 
 
-def log(msg: str):
-    print(msg, flush=True)
-
-
-def load_module(path: Path, name: str):
-    """A module of the baseline's wrappers, loaded from its file under
-    ``name`` (its imports resolve to this checkout's package)."""
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def nvcc_all(jobs):
-    """Build every (source, output) of ``jobs`` with one nvcc each, all at
-    once; raise with nvcc's output on a failure."""
-    from repro_torch.kernels import build
-    procs = [(src, out, subprocess.Popen(
-        [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for src, out in jobs]
-    for src, out, p in procs:
-        text, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc {src} failed:\n{text}")
-
-
-def bind(lib_path: Path, symbol: str, argtypes):
-    fn = getattr(ctypes.CDLL(str(lib_path)), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 class Pairs:
     """The two C entries and split plans of each side, and a switch."""
 
@@ -149,29 +115,20 @@ class Pairs:
         import repro_torch.kernels.decode_attention as da
         import repro_torch.kernels.paged_attention as pa
         from repro_torch.kernels import build
+        from ab_common import baseline_csrc
         self.da, self.pa, self.build = da, pa, build
-        base_k = base_root / "src" / "repro_torch" / "kernels"
-        if not (base_k / "csrc").is_dir():
-            raise SystemExit(f"{base_root}: no src/repro_torch/kernels/csrc")
+        base_k = baseline_csrc(base_root)
         bda = load_module(base_k / "decode_attention.py", "base_decode")
         bpa = load_module(base_k / "paged_attention.py", "base_paged")
         if bda._ARGTYPES != da._ARGTYPES or bpa._ARGTYPES != pa._ARGTYPES:
             raise SystemExit("the baseline's C interfaces differ from this "
                              "checkout's")
-        work.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        build.build(tuple(ENTRIES))
-        jobs = [(base_k / "csrc" / f"{n}.cu", work / f"base_{n}.so")
-                for n in ENTRIES]
-        nvcc_all(jobs)
-        log(f"[build] this checkout's and the baseline's decode kernels in "
-            f"{time.perf_counter() - t0:.1f} s")
+        libs = build_both(base_root, tuple(ENTRIES), work)
         mods = {"decode_attention": da, "paged_attention": pa}
         self.fns = {
             "this": {(n, s): build.c_function(n, s, mods[n]._ARGTYPES)
                      for n, s in ENTRIES.items()},
-            "base": {(n, s): bind(work / f"base_{n}.so", s,
-                                  mods[n]._ARGTYPES)
+            "base": {(n, s): bind(libs[n], s, mods[n]._ARGTYPES)
                      for n, s in ENTRIES.items()}}
         self.plans = {"this": (da.plan_splits, pa.SPLIT),
                       "base": (bda.plan_splits, bpa.SPLIT)}
@@ -296,21 +253,10 @@ def part_kernels(torch, pairs, out):
 
 def part_probes(torch, pairs, out, work: Path):
     from repro_torch.kernels import build
-    libs, jobs = {}, []
-    for tag, (old, new) in PROBES.items():
-        var = work / tag.replace(" ", "_")
-        shutil.rmtree(var, ignore_errors=True)
-        shutil.copytree(build.CSRC, var)
-        src = var / "split_decode.cuh"
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"probe '{tag}': the line to patch is not in "
-                             f"split_decode.cuh once")
-        src.write_text(text.replace(old, new))
-        for n in ENTRIES:
-            jobs.append((var / f"{n}.cu", var / f"{n}.so"))
-            libs[(tag, n)] = var / f"{n}.so"
-    nvcc_all(jobs)
+    libs = patched_copies(
+        build.CSRC, work,
+        {tag: [("split_decode.cuh", old, new)]
+         for tag, (old, new) in PROBES.items()}, tuple(ENTRIES))
     import repro_torch.kernels.decode_attention as da
     import repro_torch.kernels.paged_attention as pa
     mods = {"decode_attention": da, "paged_attention": pa}
@@ -546,9 +492,7 @@ def main():
                      fused_dequant, flash_attention, decode_attention,
                      ssd_scan]
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = device_line()
     out = dict(device=smi, torch=torch.__version__,
                spin_cycles=cs.SPIN_CYCLES, baseline=str(a.baseline))
     log(f"[env] {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -558,12 +502,7 @@ def main():
     if "cells" in parts:                    # before this process holds memory
         part_cells(out, a.baseline.resolve())
     pairs = Pairs(torch, a.baseline.resolve(), ROOT / "build" / "decode_ab")
-    warm = torch.randn(8192, 8192, device="cuda").bfloat16()
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 1.0:   # the card's clocks up
-        warm @ warm
-        torch.cuda.synchronize()
-    del warm
+    warm_clocks(torch)
     for part in parts:
         t0 = time.perf_counter()
         if part == "cells":
