@@ -113,7 +113,13 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 one preemption (the delta-int8 pull cancelled halfway and
                 resumed from its cache), assembled onto the card through
                 the dequant kernel and installed with ``swap_weights`` at
-                horizon boundaries; resume fetches only missing chunks,
+                horizon boundaries, into the engine and into an eager
+                (``cuda_graphs=False``) one served in lockstep: the first
+                install copies into leaves the engine owns and drops its
+                graphs, the second keeps them (no capture of a known key,
+                the graphs captured under the first replayed), every
+                step's tokens and logprobs bit-equal to the eager
+                engine's; resume fetches only missing chunks,
                 every fault kind fired and was retried, agent 1
                 blacklisted, no corrupt chunk at assemble, every leaf
                 within the codec's bound of v1, one dequant launch per
@@ -2216,11 +2222,11 @@ def graph_phase(tag: str):
     run, caps = cls._run_entry, []
     t0 = time.perf_counter()
 
-    def _run_entry(self, entry, first, body, kind):
+    def _run_entry(self, key, entry, first, body, kind):
         secs = self.prefill_capture_s if kind == "prefill" \
             else self.graph_capture_s
         n = len(secs)
-        out = run(self, entry, first, body, kind)
+        out = run(self, key, entry, first, body, kind)
         if len(secs) > n:
             caps.append((kind, secs[-1], self.graph_pool_bytes()))
         return out
@@ -2648,19 +2654,40 @@ def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
     for sp in tracer.spans():
         log(f"[install] publish v{sp.attrs['version']} (device -> host copy "
             f"of every leaf): {sp.duration:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
     eng = make_engine(InferenceEngine, cfg, params)
+    # the yardstick: an eager engine given the same trees at the same
+    # steps, its kernel launches left out of the counts
+    yard = make_engine(InferenceEngine, cfg, params, cuda_graphs=False)
     rids = admit(eng, prompts)
+    admit(yard, prompts)
     versions = {r: [] for r in rids}
     done = set()
 
+    def yard_step():
+        before = [k.launches for k in KERNELS]
+        evs = yard.step()
+        for k, n in zip(KERNELS, before):
+            k.launches = n
+        return evs
+
     def run(n_horizons=None):
         """Step until every prompt is prefilled and ``n_horizons`` more
-        decode horizons ran (None: until every request finished)."""
+        decode horizons ran (None: until every request finished), the
+        eager engine in lockstep."""
         def go(until):
             for _ in range(10000):
                 if len(done) == len(rids) or until():
                     return
-                for e in eng.step():
+                evs = eng.step()
+                if [(e.req_id, e.token, e.logprob, e.weight_version)
+                        for e in evs] != [
+                        (e.req_id, e.token, e.logprob, e.weight_version)
+                        for e in yard_step()]:
+                    fail(f"install: decode dispatch "
+                         f"{eng.n_decode_dispatches} emitted other tokens "
+                         f"or logprobs than the eager engine's")
+                for e in evs:
                     versions[e.req_id].append(e.weight_version)
                     if e.finished:
                         done.add(e.req_id)
@@ -2708,9 +2735,18 @@ def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
         n_dequant += launched
         worst = check_install(torch, tree, v1,
                               params if codec == "delta-int8" else None)
+        if results:
+            # the second install: what the engine has captured under the
+            # first must serve it
+            kept = {key: (e, e.graph) for key, e in
+                    {**eng._graphs, **eng._prefill_graphs}.items()
+                    if e.graph is not None}
+            counts = dict(eng.graph_counts)
         t0 = clock()
         eng.swap_weights(tree, 1)
         t_swap = clock() - t0
+        yard.swap_weights(tree, 1)
+        owned_gb = eng.owned_param_bytes() / 1e9
         del tree, chunks
         spans = tracer.spans()[n_spans:]
         step = {name: sum(sp.duration for sp in spans if sp.name == name)
@@ -2732,9 +2768,11 @@ def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
             f"{step['transfer.dequant']:.3f} s, cast "
             f"{step['transfer.cast']:.3f} s); swap {t_swap:.6f} s; "
             f"{launched} dequant launches; every leaf within "
-            f"{worst:.3f} of its codec bound")
+            f"{worst:.3f} of its codec bound; the engine's own copy of "
+            f"the weights {owned_gb:.3f} GB")
         run(2)
     run()
+    graphs = install_graph_gate(eng, kept, counts)
     launches = check_launches(cfg, eng, "install run", eng.n_decode_dispatches,
                               eng.n_prefill_dispatches, n_dequant)
     faults = plane.finish("install", need=(
@@ -2755,11 +2793,43 @@ def install_phase(torch, InferenceEngine, cfg, params, prompts, clock,
     for r, vs in versions.items():
         if vs != sorted(vs) or vs[0] != 0 or vs[-1] != 1:
             fail(f"install: request {r} versions {vs} not monotone 0 -> 1")
+    peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[install] all {len(rids)} requests finished; versions monotone "
-        f"0 -> 1 on every stream")
-    del eng, store, v1
+        f"0 -> 1 on every stream, every step's tokens and logprobs "
+        f"bit-equal to the eager engine's; phase peak memory {peak:.2f} GB")
+    results.update(graphs=graphs, peak_gb=peak, owned_gb=owned_gb)
+    del eng, yard, store, v1
     torch.cuda.empty_cache()
     return results, launches
+
+
+def install_graph_gate(eng, kept, counts):
+    """After the second install: the graphs held just before it are still
+    the engine's, the engine replayed after it, captured no key twice and
+    dropped its entries at its first install only.  ``kept`` = {key:
+    (entry, graph)} and ``counts`` = its ``graph_counts``, both just
+    before the second install.  Returns a summary."""
+    now = {**eng._graphs, **eng._prefill_graphs}
+    c = eng.graph_counts
+    lost = [k for k, (e, g) in kept.items()
+            if now.get(k) is not e or e.graph is not g]
+    replays = (c["replays"] + c["prefill_replays"] - counts["replays"]
+               - counts["prefill_replays"])
+    captures = (c["captures"] + c["prefill_captures"] - counts["captures"]
+                - counts["prefill_captures"])
+    out = dict(kept=len(kept), lost=len(lost), replays_after=replays,
+               captures_after=captures, recaptures=c["recaptures"],
+               swap_invalidations=c["swap_invalidations"])
+    log(f"[install] graphs across the second install: {len(kept)} held "
+        f"under the first, {len(lost)} lost; {replays} dispatches at an "
+        f"entry after it, {captures} captures after it (of new keys), "
+        f"{c['recaptures']} of a key captured before; swap invalidations "
+        f"{c['swap_invalidations']}")
+    if (not kept or lost or replays <= 0 or c["recaptures"]
+            or c["swap_invalidations"] != 1):
+        fail(f"install: the graphs did not outlive the second install "
+             f"({out})")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -3257,7 +3327,7 @@ def kv_headroom(torch, cfg, eng):
     torch.cuda.empty_cache()
     free_with = torch.cuda.mem_get_info()[0]
     old = eng._graph_pool
-    eng._drop_graphs()
+    eng._drop_graphs("growth")
     gc.collect()
     torch.cuda.empty_cache()
     free_without = torch.cuda.mem_get_info()[0]
@@ -3781,6 +3851,7 @@ class RLRecorder:
 
         def start_step():
             self._t0, self._l0 = clock(), launch_counts()
+            self._g0 = [dict(e.graph_counts) for e in self.engines]
             start()
 
         def finish_step():
@@ -3792,7 +3863,10 @@ class RLRecorder:
                 step=int(m["step.idx"]) + 1, wall_s=clock() - self._t0,
                 event_s=m["step.time_s"], t_end=m["step.t_end"],
                 response_tokens=sum(x.n_generated for x in step_reqs),
-                launches={k: now[k] - self._l0[k] for k in now}))
+                launches={k: now[k] - self._l0[k] for k in now},
+                graphs=[graph_delta(e.graph_counts, self._g0[i]
+                                    if i < len(self._g0) else None)
+                        for i, e in enumerate(self.engines)]))
 
         def note_kv_migration(reqs, export, pull):
             self.kv.append(dict(src=export.agent.id, n_reqs=len(reqs),
@@ -3822,6 +3896,19 @@ class RLRecorder:
 
 def launch_counts():
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def graph_delta(now, before=None):
+    """An engine's graph captures (horizon and prefill), dispatches at an
+    existing entry (replays) and drops of its entries between two
+    readings of its ``graph_counts`` (``before`` None: since it was
+    built)."""
+    before = before or dict.fromkeys(now, 0)
+    d = {k: now[k] - before[k] for k in now}
+    return dict(captures=d["captures"] + d["prefill_captures"],
+                replays=d["replays"] + d["prefill_replays"],
+                invalidations=d["swap_invalidations"]
+                + d["growth_invalidations"])
 
 
 def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
@@ -3954,6 +4041,11 @@ def rl_phase(torch, clock):
                 f"event clock {st['event_s']:.4f} s (ends at "
                 f"{st['t_end']:.4f}), {st['response_tokens']} response "
                 f"tokens, launches {st['launches']}")
+            log(f"[rl] {tag} step {st['step']} graphs (captures / replays "
+                f"/ invalidations): " + ", ".join(
+                    f"engine {i} {g['captures']} / {g['replays']} / "
+                    f"{g['invalidations']}"
+                    for i, g in enumerate(st["graphs"])))
         for sv in rec.saves:
             log(f"[rl] {tag} checkpoint at boundary {sv['step']}: "
                 + (f"{sv['bytes_written']} B written in "
@@ -4001,6 +4093,21 @@ def rl_phase(torch, clock):
                 "paged_decode_attention", "paged_prefill_attention",
                 "flash_attention")):
             fail(f"rl {tag}: kernel launches {got} != expected {want}")
+        # every engine swaps each step; its graphs outlive each swap but
+        # its first (off the tensors it was built on)
+        per = [(e.graph_counts["swap_invalidations"],
+                e.graph_counts["growth_invalidations"], e.n_pool_growths,
+                e.graph_counts["recaptures"],
+                e.owned_param_bytes()) for e in rec.engines]
+        log(f"[rl] {tag}: per engine (swap invalidations, growth "
+            f"invalidations, pool growths, recaptures, bytes of its own "
+            f"weights): {per}")
+        bad = [i for i, (sw, gr, grown, again, _) in enumerate(per)
+               if sw > 1 or sw + gr > 1 + grown or again]
+        if bad:
+            fail(f"rl {tag}: engines {bad} dropped their graphs at more "
+                 f"than their first swap and pool growths, or captured a "
+                 f"key twice ({per})")
 
     # 1. uninterrupted
     torch.cuda.reset_peak_memory_stats()

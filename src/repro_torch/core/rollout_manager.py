@@ -288,6 +288,10 @@ class RolloutManager:
                 return
             version = pull.manifest.version
             if inst.engine is not None and self.store.snapshot is not None:
+                # a delta decodes against the engine's current leaves (its
+                # own copy once it has swapped): ``assemble`` reads them
+                # into new tensors, and only then does the swap copy those
+                # into the same leaves, later on the same stream
                 base_p = (inst.engine.params
                           if pull.manifest.codec == "delta-int8" else None)
                 try:

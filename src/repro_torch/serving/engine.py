@@ -57,14 +57,32 @@ reads static device buffers (tokens, mask, offsets, slot indices, block
 table) that one host-to-device copy from a pinned staging buffer fills, and
 its logits come out of the graph's own output.  First-token sampling stays
 eager.  A graph binds the addresses of the params, the cache leaves and the
-static buffers, so ``swap_weights`` / ``load_weights`` and pool growth
-(which replace tensors) drop the engine's entries, growth before it
-allocates the larger pool, with their memory returned to the device;
-in-place writes (page copies, imports) keep them.  A capture that fails
-raises.  On the CPU, or with ``cuda_graphs=False``, an entry holds no graph
-and every dispatch runs the body eagerly.  ``graph_cache_stats()`` counts
-captures and replays of each kind, padded and chunk-pad reuse, registered
-widths and invalidations.
+static buffers, so in-place writes (page copies, imports) keep the entries
+and pool growth, which replaces the cache leaves, drops them before it
+allocates the larger pool, with their memory returned to the device.
+
+The entries outlive a weight swap, as the reference's closures do (their
+params are an argument), wherever the new version has the engine's tree:
+the same keys, each leaf with the same shape, dtype and device.  The
+engine adopts the params it is built on, with no copy; ``swap_weights`` /
+``load_weights`` then
+
+  (a) only stamp the version when every new leaf *is* the engine's leaf;
+  (b) while the engine still adopts the caller's tensors, allocate leaves
+      of its own, copy the version in, and drop the entries (they bind the
+      adopted addresses, and the engine writes no tensor it was given);
+  (c) once it owns its leaves, copy the version into them in place, on
+      the current stream (the one graphs replay on), keeping every entry;
+  (d) on a tree that differs, adopt the new tensors and drop the entries
+      (the reference recompiling its closures for new avals).
+
+So an engine of the RL loop, which swaps every step, drops its entries at
+its first swap only.  The rule is the same on every device.  A capture
+that fails raises.  On the CPU, or with ``cuda_graphs=False``, an entry
+holds no graph and every dispatch runs the body eagerly.
+``graph_cache_stats()`` counts captures and replays of each kind, padded
+and chunk-pad reuse, registered widths and invalidations, process-wide;
+``graph_counts`` on an engine counts its own.
 """
 
 from __future__ import annotations
@@ -85,6 +103,7 @@ from repro_torch.models.transformer import forward, logits_from_hidden
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.rl.sampler import sample_token, token_logprob
 from repro_torch.runtime.graphs import GraphEntry, GraphPool, run_entry
+from repro_torch.transfer.chunkstore import tree_items, unflatten_like
 
 # prefill chunks are right-padded up to a multiple of the kernel query tile
 PREFILL_TILE = 128
@@ -253,13 +272,16 @@ class InferenceEngine:
         by ``max_context`` and ``max_pool_pages`` when set.  ``horizon`` is
         the number of tokens one ``step()`` decodes per active request.
         ``device=None`` means CUDA (raises when absent); tests pass "cpu".
-        ``params`` must already be on that device; change them only
-        through ``swap_weights`` or in place.  ``cuda_graphs=False`` runs
+        ``params`` must already be on that device.  The engine adopts
+        them (no copy) and never writes them; change its weights only
+        through ``swap_weights``, whose first version of the same tree
+        the engine copies into leaves of its own.  ``cuda_graphs=False`` runs
         every horizon and prefill dispatch eagerly on the card too (a
         yardstick for tests and measurements)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
+        self._owns_params = False       # adopted: never written (swap (b))
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.trace_lane = "engine"
         self.weight_version = weight_version
@@ -316,6 +338,14 @@ class InferenceEngine:
         self._graph_pool = GraphPool()
         self.graph_capture_s: List[float] = []  # seconds of each horizon
         self.prefill_capture_s: List[float] = []    # ... prefill capture
+        # this engine's graph-cache counters: dispatches at an existing
+        # entry and captures of each kind, drops of its entries by cause,
+        # and captures of a key it had captured under an earlier version
+        # since its last growth or its first swap's drop
+        self.graph_counts = dict.fromkeys(
+            ("captures", "replays", "prefill_captures", "prefill_replays",
+             "swap_invalidations", "growth_invalidations", "recaptures"), 0)
+        self._captured: set = set()
         self.n_prefills = 0                     # context prefills (rows)
         self.n_prefill_tokens = 0
         self.n_prefill_dispatches = 0           # batched chunk forwards
@@ -326,23 +356,53 @@ class InferenceEngine:
         self.n_kv_export_pages = 0              # migration: pages shipped out
         self.n_kv_import_pages = 0              # migration: pages adopted
         self.n_kv_import_tokens = 0             # context resumed w/o prefill
+        self.n_pool_growths = 0
 
     def _to_dev(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------ #
+    @torch.no_grad()
     def swap_weights(self, params, version: int):
         """Install a new weight version between ``step()`` calls (a horizon
         boundary).  In-flight requests keep their KV pages and continue
-        under the new params; their later tokens carry ``version``."""
-        self.params = params
+        under the new params; their later tokens carry ``version``.  The
+        caller's tensors are read, never written, and (but on a tree that
+        differs) not held after the call: the four branches of the module
+        docstring."""
+        mine, new = list(tree_items(self.params)), list(tree_items(params))
+        if [k for k, _ in mine] != [k for k, _ in new] or any(
+                (a.shape, a.dtype, a.device) != (b.shape, b.dtype, b.device)
+                for (_, a), (_, b) in zip(mine, new)):
+            self.params, self._owns_params = params, False      # (d)
+            self._drop_graphs("swap")
+        elif any(a is not b for (_, a), (_, b) in zip(mine, new)):
+            if not self._owns_params:                            # (b)
+                # the graphs bind the adopted leaves: drop them, and
+                # their pool, before the engine's own leaves are made
+                self._drop_graphs("swap")
+                self._captured.clear()
+                if self.cuda_graphs:
+                    torch.cuda.empty_cache()
+                self.params = unflatten_like(self.params, {
+                    k: torch.empty_like(a) for k, a in mine})
+                self._owns_params = True
+                mine = list(tree_items(self.params))
+            for (_, dst), (_, src) in zip(mine, new):
+                dst.copy_(src)                                   # (b), (c)
         self.weight_version = version
-        self._drop_graphs()
         self.tracer.event("engine.swap_weights", self.trace_lane,
                           version=version)
 
     def load_weights(self, params, version: int):
         self.swap_weights(params, version)
+
+    def owned_param_bytes(self) -> int:
+        """Bytes of the weight leaves the engine owns: its copy of the
+        weights from its first swap on, 0 while it adopts the caller's."""
+        if not self._owns_params:
+            return 0
+        return sum(a.nbytes for _, a in tree_items(self.params))
 
     @property
     def n_active(self) -> int:
@@ -424,10 +484,12 @@ class InferenceEngine:
             new_num = self.alloc.grow(2 * self.alloc.num_pages)
         except OutOfPages as e:
             raise AdmissionError(str(e)) from e
+        self.n_pool_growths += 1
         # the graphs bind the old pool's tensors: drop them, and return
         # their memory pool to the device, before the larger pool is
         # allocated beside the old one
-        self._drop_graphs()
+        self._drop_graphs("growth")
+        self._captured.clear()
         if self.cuda_graphs:
             torch.cuda.empty_cache()
         self.cache = kvc.grow_pool(self.cache, new_num)
@@ -551,12 +613,14 @@ class InferenceEngine:
     def _family(self) -> Tuple:
         return _decode_family(self.cfg, self.temperature, self.horizon)
 
-    def _drop_graphs(self):
-        """Drop (and free) every entry: what the graphs bind changed."""
+    def _drop_graphs(self, cause: str):
+        """Drop (and free) every entry: what the graphs bind changed
+        (``cause``: "swap" or "growth")."""
         if self._graphs or self._prefill_graphs:
             self._graphs.clear()
             self._prefill_graphs.clear()
             _GRAPH_STATS["invalidations"] += 1
+            self.graph_counts[f"{cause}_invalidations"] += 1
         # a fresh pool for later captures: the dropped graphs' pool is
         # released once their memory is
         self._graph_pool = GraphPool()
@@ -566,11 +630,18 @@ class InferenceEngine:
         (0 before any capture)."""
         return self._graph_pool.bytes()
 
-    def _run_entry(self, entry: GraphEntry, first: bool, body, kind: str):
-        """One dispatch of ``body`` through its cache entry
+    def _count(self, name: str):
+        _GRAPH_STATS[name] += 1
+        self.graph_counts[name] += 1
+
+    def _run_entry(self, key: Tuple, entry: GraphEntry, first: bool, body,
+                   kind: str):
+        """One dispatch of ``body`` through its cache entry at ``key``
         (``runtime.graphs.run_entry``: eager warm-up, capture into the
         engine's pool, replays), eagerly without graphs; returns the
         body's output.  ``kind`` is "decode" or "prefill"."""
+        if not first:
+            self._count("replays" if kind == "decode" else "prefill_replays")
         if not self.cuda_graphs:
             return body()
         out, secs = run_entry(entry, first, body, self._graph_pool,
@@ -578,10 +649,13 @@ class InferenceEngine:
         if secs is not None:
             if kind == "prefill":
                 self.prefill_capture_s.append(secs)
-                _GRAPH_STATS["prefill_captures"] += 1
+                self._count("prefill_captures")
             else:
                 self.graph_capture_s.append(secs)
-                _GRAPH_STATS["captures"] += 1
+                self._count("captures")
+            if key in self._captured:
+                self.graph_counts["recaptures"] += 1
+            self._captured.add(key)
         return out
 
     def _run_horizon(self, bt):
@@ -592,9 +666,7 @@ class InferenceEngine:
         if first:
             _GRAPH_KEYS.add(key[0] + (key[2],))
             self._graphs[key] = GraphEntry()
-        else:
-            _GRAPH_STATS["replays"] += 1
-        self._run_entry(self._graphs[key], first,
+        self._run_entry(key, self._graphs[key], first,
                         lambda: self._decode_horizon(bt), "decode")
 
     # ---------------- decode ---------------- #
@@ -736,10 +808,8 @@ class InferenceEngine:
             _GRAPH_KEYS.add(key)
             entry = self._prefill_graphs[key] = _PrefillEntry(
                 n, C, nb, self.device)
-        else:
-            _GRAPH_STATS["prefill_replays"] += 1
         entry.stage(chosen, self.max_batch)
-        logits = self._run_entry(entry, first,
+        logits = self._run_entry(key, entry, first,
                                  lambda: self._prefill_body(entry),
                                  "prefill")
         self.n_prefill_dispatches += 1

@@ -52,6 +52,8 @@ allocator state behind).  Whether a card exists is decided in a fixture,
 so every process collects the same tests; without one they skip.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1277,6 +1279,69 @@ def test_rank_local_kernels_on_two_gloo_ranks_on_card(cuda, kind, shape,
                        start_method="spawn",
                        args=(f"tcp://localhost:{free_port()}", kind, shape,
                              H, K))
+
+
+# ------------------- the graphs across weight swaps ------------------------ #
+def _swap_rounds(cfg, versions, graphs):
+    """Eight rounds, each two prompts admitted (one prefill dispatch at
+    one key) and served to their 16 new tokens in three steps, with
+    ``versions[k]`` swapped in after rounds 1, 3 and 5.  Returns (events
+    [(rid, token, logprob, version)], engine, {k: (captures, {key: (the
+    entry, its graph)}) just after swap k})."""
+    eng = InferenceEngine(cfg, versions[0], max_batch=4, slab_len=128,
+                          page_size=16, temperature=1.0, horizon=8,
+                          device="cuda", cuda_graphs=graphs)
+    prompts = _graph_prompts(5)[:2]
+    out, at = [], {}
+    for r in range(8):
+        for i, p in enumerate(prompts):
+            rid = 10 * r + i
+            eng.add_request(rid, p, request_key(9, rid), len(p) + 16, len(p))
+        for _ in range(3):
+            out += [(e.req_id, e.token, e.logprob, e.weight_version)
+                    for e in eng.step()]
+        assert not eng.active_request_ids()
+        if r in (1, 3, 5):
+            k = (r + 1) // 2
+            eng.swap_weights(versions[k], k)
+            at[k] = (len(eng.graph_capture_s) + len(eng.prefill_capture_s),
+                     {key: (e, e.graph) for key, e in
+                      {**eng._graphs, **eng._prefill_graphs}.items()})
+    return out, eng, at
+
+
+@pytest.mark.cuda
+def test_graphs_outlive_weight_swaps_at_qwen3_8b_width_on_card(cuda):
+    """Qwen3-8B at full width, 2 layers, swapped three times: the first
+    swap drops the entries, and from the second on the engine captures
+    nothing new and replays the same graphs (the version copied into its
+    own leaves); its tokens and logprobs are bit-equal to an eager
+    engine's given the same swaps, and no version passed in changes."""
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2,
+                              name="qwen3-8b-swap-graphs")
+    versions = [_graph_params(cfg, s, cuda) for s in range(4)]
+    held = [_snapshot(v) for v in versions]
+    s0 = engine_mod.graph_cache_stats()
+    got, eng, at = _swap_rounds(cfg, versions, True)
+    s1 = engine_mod.graph_cache_stats()
+    assert eng.graph_counts["swap_invalidations"] == 1
+    assert s1["invalidations"] - s0["invalidations"] == 1
+    assert at[2][0] > 0 and at[2][1]
+    for k in (2, 3):
+        assert at[k][0] == at[2][0]
+        assert at[k][1].keys() == at[2][1].keys()
+        assert all(e is e2 and g is g2 and g is not None
+                   for (e, g), (e2, g2) in zip(at[2][1].values(),
+                                               at[k][1].values()))
+    assert len(eng.graph_capture_s) + len(eng.prefill_capture_s) == \
+        at[2][0]
+    assert eng.graph_counts["recaptures"] == 0
+    assert eng.graph_counts["prefill_replays"] >= 4
+    want, _, _ = _swap_rounds(cfg, versions, False)
+    assert got == want
+    assert {v for *_, v in got} == {0, 1, 2, 3}
+    for v, h in zip(versions, held):
+        assert all(torch.equal(t, h[k]) for k, t in _cache_items(v))
 
 
 @pytest.mark.cuda

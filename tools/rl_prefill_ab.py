@@ -12,12 +12,15 @@ and charged to the event clock, no checkpoint written (the same for
 every arm).  After one untimed run, the arms run in turns, "graphs",
 "eager", "eager", "graphs" for each of ``--turns``: "graphs" as shipped
 (each engine's prefill dispatches through its graph cache: eager
-warm-up, capture, replays; dropped by every ``swap_weights``), "eager"
-with ``InferenceEngine._run_entry`` patched in this process to run a
-prefill body directly (decode horizons stay graphs).  Per run: each
-step's wall by the host's clock (the device synchronised) and its
-event-clock seconds, the prefill and horizon captures and replays and
-their capture seconds, the engines built.  The tool fails unless every
+warm-up, capture, replays; kept across every ``swap_weights`` but an
+engine's first, which copies the version into leaves of its own),
+"eager" with ``InferenceEngine._run_entry`` patched in this process to
+run a prefill body directly (decode horizons stay graphs).  Per run:
+each step's wall by the host's clock (the device synchronised) and its
+event-clock seconds, each engine's captures, replays and invalidations
+in each step, the prefill and horizon captures and replays and their
+capture seconds, the engines built, the largest copy of the weights an
+engine owns and the run's peak device memory.  The tool fails unless every
 run's step rewards and response set equal the first's (a replay is
 bit-equal to the eager body).  Every number goes to --out as JSON, and
 a line per run to stdout.
@@ -78,10 +81,10 @@ def main():
 
     shipped = engine_mod.InferenceEngine._run_entry
 
-    def eager_prefill(self, entry, first, body, kind):
+    def eager_prefill(self, key, entry, first, body, kind):
         if kind == "prefill":
             return body()
-        return shipped(self, entry, first, body, kind)
+        return shipped(self, key, entry, first, body, kind)
 
     cfg = cs.rl_config()
     trace = [TraceEvent(0.0, +2), TraceEvent(cs.RL_REMOVE_AT, -1)]
@@ -97,6 +100,7 @@ def main():
             eager_prefill if arm == "eager" else shipped)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         s0 = engine_mod.graph_cache_stats()
+        torch.cuda.reset_peak_memory_stats()
         h, rec, _ = cs.rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir),
                                   ckpt_writes=False)
         t0 = clock()
@@ -115,7 +119,10 @@ def main():
                                for t in e.prefill_capture_s],
             horizon_capture_s=[t for e in rec.engines
                                for t in e.graph_capture_s],
-            stats={n: s1[n] - s0[n] for n in s1})
+            stats={n: s1[n] - s0[n] for n in s1},
+            step_graphs=[st["graphs"] for st in rec.steps],
+            owned_gb=max(e.owned_param_bytes() for e in rec.engines) / 1e9,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         runs.append(row)
         log(f"[ab] run {k} {arm}: {wall:.3f} s; steps "
             + " / ".join(f"{t:.3f}" for t in row["step_wall_s"])
@@ -130,7 +137,14 @@ def main():
             f"{row['stats']['replays']}; invalidations "
             f"{row['stats']['invalidations']}; rewards and responses "
             + ("equal to" if row["same_as_first"] else "DIFFER from")
-            + " the first run's")
+            + f" the first run's; largest own copy of the weights "
+            f"{row['owned_gb']:.3f} GB, peak {row['peak_gb']:.2f} GB")
+        for n, graphs in enumerate(row["step_graphs"]):
+            log(f"[ab] run {k} {arm} step {n + 1} (captures / replays / "
+                f"invalidations a busy engine): " + (", ".join(
+                    f"engine {i} {g['captures']} / {g['replays']} / "
+                    f"{g['invalidations']}" for i, g in enumerate(graphs)
+                    if any(g.values())) or "none"))
         del h, rec
         gc.collect()
         torch.cuda.empty_cache()
