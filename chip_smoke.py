@@ -209,14 +209,28 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 responses, staleness, rewards, params and optimizer state
                 must equal the uninterrupted (batch) run's, with overlap
                 credited, every row preprocessed and the reward cache
-                empty (``[rl]`` lines: wall and event-clock seconds,
+                empty; then a fifth run on RL_COMPRESSED (weight pulls
+                int8 when the instance is cold, delta-int8 on its resident
+                version when warm, each decoded by ``fused_dequant`` onto
+                the engine's own leaves; KV migration int8), reclaim at
+                RL_REMOVE_AT as well: every step's responses, the
+                reclaimed instance's live requests pulled as an int8 KV
+                manifest with no restart, a delta-int8 install, one
+                ``fused_dequant`` launch a coded leaf, chaos invariants,
+                the accounting identity, at most one swap invalidation an
+                engine; its rewards and pulls logged beside the codec-none
+                run's (``[rl]`` lines: wall and event-clock seconds,
                 response tokens and launches per step, checkpoint bytes
-                and seconds, resume seconds, KV imports);
+                and seconds, resume seconds, KV imports and their codec,
+                each pull's codec, base, bytes, modeled seconds and
+                decode seconds);
  10. moe      — ``qwen2-moe-a2.7b`` (60 experts stored as 64, top-4, 4
                 shared experts behind a sigmoid gate) and then
                 ``deepseek-moe-16b`` (a dense first layer, 64 experts,
                 top-6, 2 shared) at full width, depth cut to
-                MOE_SERVE_LAYERS of 24 / 28 (random weights from seed 0,
+                MOE_SERVE_LAYERS (3) of 24 / 28 (cut from 12 to make room
+                for phase 15 and phase 9's fifth run; random weights from
+                seed 0,
                 each freed before the next), both 16 / 16
                 heads (G = 1): the phase-3 mix greedy at H=8 with graphs
                 (launches = layers x dispatches, the prefix layer
@@ -281,8 +295,10 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 plain backwards' device spans; ``[train12]`` lines),
                 launches = attention
                 (SSM) layers x forwards for flash (``ssd_scan``), every
-                loss finite; then llava-next-34b served as configured (60
-                layers, 68.8 GB of bf16 weights): the phase-3 prompts as 4
+                loss finite; then llava-next-34b served at full width,
+                LLAVA_SERVE_LAYERS (30) of its 60 layers (34.4 GB of bf16
+                weights; cut from 60 to make room for phase 15): the
+                phase-3 prompts as 4
                 single requests, H=8 greedy with graphs (launches =
                 layers x dispatches) and eagerly (tokens and logprobs
                 bit-equal), a steady horizon profiled with
@@ -327,9 +343,22 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 collectives a step issues (``[mesh]`` lines: seconds a
                 step, peak memory a rank); two ranks on one card through
                 gloo show no multi-card speed;
- 15. summary  — one JSON line per the kernels (rows 1, 2, 4, 5 and 6
-                count phases 9-14's launches too), the card's name and
-                power limit, and the final ``{"ok": true, ...}`` line.
+ 15. examples — the port's examples through their ``main`` at
+                EXAMPLE_ARGS (qwen3-8b at full width, RL_LAYERS deep, the
+                math tokenizer's vocabulary): ``torch_quickstart`` (a
+                greedy generation, a GRPO step with a finite loss and a
+                grad norm > 0, the sim steps), ``torch_serve_rollout``
+                (every request finished, each token stamped v1 or v2 in
+                order, engine 1's tokens after the publish v2, the
+                installed leaves within the delta-int8 bound of v2, one
+                ``fused_dequant`` launch a leaf) and
+                ``torch_hybrid_rl_training`` (2 steps with a checkpoint
+                each, then a second call resumed at step 2 with params and
+                optimizer state bit-equal to the saved ones, running step
+                3) (``[examples]`` lines);
+ 16. summary  — one JSON line per the kernels (rows 1-6 count phases
+                9-15's launches too), the card's name and power limit,
+                and the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
 """
@@ -527,12 +556,14 @@ SERVE14B_PROMPT_LENS = (300, 310, 290)
 SERVE14B_NEW_TOKENS = 16
 # phase 10: the MoE family at full width, served one after the other (each
 # freed before the next) at MOE_SERVE_LAYERS of their 24 / 28 (cut to make
-# room for phase 14: the eager horizon's profile, ~24,500 launches at full
-# depth, took ~40-55 s a model), then trained at full width cut to
+# room for phases 14 and 15 and phase 9's fifth run: the eager horizon's
+# profile, ~24,500 launches at full depth, took ~40-55 s a model; the
+# phase took ~106 s at 12 layers and 47-65 s at 6), then trained at full
+# width cut to
 # MOE_TRAIN_LAYERS: 2.44 G stored parameters (embed and lm_head are 0.62 G
 # of them) x 16 bytes of trainer state = 39 GB, near phase 6's 34.7 GB
 MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-moe-16b")
-MOE_SERVE_LAYERS = 12
+MOE_SERVE_LAYERS = 3
 MOE_TRAIN_LAYERS = 3
 # one MoE layer repeated at a prefill dispatch of the mix (4 rows of 384,
 # T = 1536 > DROPLESS_THRESHOLD, so capacity applies and entries drop)
@@ -587,8 +618,11 @@ TRAIN12_MIX = (("mamba2-130m", None, 8, 1152),
 # roundings (flash's P) and 3xTF32 products (the scan), which move a loss
 # of order 1-10, or a mean logprob ratio, by far less than 1%
 TRAIN12_LOSS_REL_TOL = 1e-2
-# phase 12: llava-next-34b served as configured (60 layers, 68.8 GB of
-# bf16 weights) on the phase-3 prompts as single requests
+# phase 12: llava-next-34b served at full width, LLAVA_SERVE_LAYERS of its
+# 60 layers (34.4 GB of bf16 weights; all 60, 68.8 GB, until the examples
+# phase needed the time: its serve took ~35 s), on the phase-3 prompts as
+# single requests
+LLAVA_SERVE_LAYERS = 30
 LLAVA_NEW_TOKENS = 32
 
 # phases 4-5: the pull plane's network, modeled on the event clock (rates
@@ -631,6 +665,15 @@ RL_REMOVE_AT = 20.0
 # the crashed run dies this long after the uninterrupted run's step 2
 # ended: after the boundary-2 checkpoint, inside step 3
 RL_CRASH_AFTER = 5.0
+# the fifth run: weight pulls int8 (cold) / delta-int8 (warm) through
+# fused_dequant and KV migration int8, on RL_RUNNER otherwise.  The
+# codecs cut a pull's modeled wire bytes (COMPRESSION_FACTOR 0.5 / 0.25),
+# so the spot instances take work earlier than in the codec-none runs:
+# ``rl_dry_run(..., runner=RL_COMPRESSED)`` on an H100 found the older
+# spot instance holding live requests from t = 5.5 to 29.5 (4 to t =
+# 21.5, then 3; both spot instances share step 1's 8 requests), so
+# RL_REMOVE_AT serves this run too
+RL_COMPRESSED = dict(RL_RUNNER, compression="delta-int8", kv_codec="int8")
 # phase 13: the (arch x shape) cells (``configs/shapes.py``), each run at
 # one data-parallel device's rows: global_batch / the data axis of
 # ``launch/mesh.make_production_mesh`` (16), at least 1
@@ -3827,19 +3870,41 @@ class RLRecorder:
     """Watches one harness run from outside the runner: each step's wall
     and event-clock seconds, response tokens and kernel launches, the
     engines built, the train forwards, the checkpoint saves, each KV
-    import (its source NIC and bytes) and each preemption (the victim's
-    live requests at the notice)."""
+    import (its source NIC, codec and bytes), each preemption (the
+    victim's live requests at the notice) and each weight pull a spot
+    engine installed (its version, codec, base version, bytes, modeled
+    seconds from its start, int8-coded leaves and host seconds of the
+    decode)."""
 
     def __init__(self, h, clock):
         self.h, self.clock = h, clock
         r, mgr = h.runner, h.runner.manager
         self.engines, self.saves, self.kv, self.preempts = [], [], [], []
-        self.steps, self.n_train = [], 0
+        self.steps, self.n_train, self.pulls = [], 0, []
         self._t0 = self._l0 = None
+        self.launches0 = launch_counts()
 
         factory, train = mgr.engine_factory, r.train_fn
         start, finish = r.start_step, r._finish_step
         note, preempt = mgr.note_kv_migration, mgr.preempt
+        start_pull, assemble = mgr._start_pull, r.store.chunkstore.assemble
+        pull_t0 = {}
+
+        def start_pull_(inst):
+            if inst.pull is None or not inst.pull.active:
+                pull_t0[id(inst.chunk_cache)] = r.loop.now
+            start_pull(inst)
+
+        def assemble_(manifest, chunks, **kw):
+            t0 = clock()
+            out = assemble(manifest, chunks, **kw)
+            self.pulls.append(dict(
+                t=r.loop.now, version=manifest.version, codec=manifest.codec,
+                base=manifest.base_version, bytes=manifest.total_bytes,
+                event_s=r.loop.now - pull_t0.get(id(chunks), r.loop.now),
+                coded_leaves=sum(s.codec != "none" for s in manifest.leaves),
+                decode_s=clock() - t0))
+            return out
 
         def engine_factory():
             self.engines.append(factory())
@@ -3870,6 +3935,7 @@ class RLRecorder:
 
         def note_kv_migration(reqs, export, pull):
             self.kv.append(dict(src=export.agent.id, n_reqs=len(reqs),
+                                codec=pull.manifest.codec,
                                 bytes=pull.bytes_fetched,
                                 t=pull.finished_at))
             note(reqs, export, pull)
@@ -3883,6 +3949,7 @@ class RLRecorder:
         mgr.engine_factory, r.train_fn = engine_factory, train_fn
         r.start_step, r._finish_step = start_step, finish_step
         mgr.note_kv_migration, mgr.preempt = note_kv_migration, preempt_
+        mgr._start_pull, r.store.chunkstore.assemble = start_pull_, assemble_
         if r.recovery is not None:
             save = r.recovery.save
 
@@ -3913,9 +3980,10 @@ def graph_delta(now, before=None):
 
 def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
                resume=False, device="cuda", collection="batch",
-               ckpt_writes=True):
-    """One TorchRLHarness on RL_RUNNER / RL_HARNESS (a seeded FaultPlan
-    carrying the trainer crash, if any) with the capacity ``trace`` loaded;
+               ckpt_writes=True, runner=None):
+    """One TorchRLHarness on ``runner`` (default RL_RUNNER) and RL_HARNESS
+    (a seeded FaultPlan carrying the trainer crash, if any) with the
+    capacity ``trace`` loaded;
     returns (harness, recorder, construction seconds: the resume's load
     and restore when ``resume``).  ``ckpt_writes=False``: a run whose
     checkpoints nothing reads keeps its checkpoint boundaries, and the
@@ -3925,7 +3993,8 @@ def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
     from repro_torch.core.faults import FaultPlan
     from repro_torch.core.hybrid_runtime import RunnerConfig
     from repro_torch.rl.harness import TorchRLHarness
-    rc = RunnerConfig(**RL_RUNNER, ckpt_dir=ckpt_dir, collection=collection,
+    rc = RunnerConfig(**(runner or RL_RUNNER), ckpt_dir=ckpt_dir,
+                      collection=collection,
                       fault_plan=FaultPlan(seed=0,
                                            trainer_crash_at=tuple(crash_at)))
     t0 = clock()
@@ -3941,13 +4010,16 @@ def rl_harness(clock, cfg, trace, *, ckpt_dir=None, crash_at=(),
     return h, rec, t_build
 
 
-def rl_dry_run(clock, cfg, device="cuda", until: float = 60.0):
-    """The phase's harness with no reclaim (two spot instances throughout)
-    and a probe every 0.5 s of the event clock: [(t, {spot instance id:
-    live requests})].  The probe of the instance the reclaim would pick
-    (the oldest) says when RL_REMOVE_AT finds it holding live requests."""
+def rl_dry_run(clock, cfg, device="cuda", until: float = 60.0,
+               runner=None):
+    """The phase's harness (on ``runner``, default RL_RUNNER) with no
+    reclaim (two spot instances throughout) and a probe every 0.5 s of the
+    event clock: [(t, {spot instance id: live requests})].  The probe of
+    the instance the reclaim would pick (the oldest) says when
+    RL_REMOVE_AT finds it holding live requests."""
     from repro_torch.core.spot_trace import TraceEvent
-    h, rec, _ = rl_harness(clock, cfg, [TraceEvent(0.0, +2)], device=device)
+    h, rec, _ = rl_harness(clock, cfg, [TraceEvent(0.0, +2)], device=device,
+                           runner=runner)
     r, probes = h.runner, []
 
     def probe():
@@ -4054,6 +4126,11 @@ def rl_phase(torch, clock):
                    else "not written (no later run reads it; the event "
                    "clock's charge kept), ")
                 + f"{sv['seconds']:.3f} s")
+        for p in rec.pulls:
+            log(f"[rl] {tag} pull v{p['version']} ({p['codec']}, base "
+                f"{p['base']}): {p['bytes']} B, {p['event_s']:.4f} s on the "
+                f"event clock, {p['coded_leaves']} int8-coded leaves decoded "
+                f"in {p['decode_s']:.3f} s (host clock) at t = {p['t']:.4f}")
         m = metrics[-1] if metrics else {}
         log(f"[rl] {tag}: {len(rec.engines)} engines built, "
             f"{rec.n_train} train forwards, preemptions {rec.preempts}, "
@@ -4084,8 +4161,13 @@ def rl_phase(torch, clock):
         want["paged_prefill_attention"] = L * sum(
             e.n_prefill_dispatches for e in rec.engines)
         want["flash_attention"] = L * rec.n_train
+        # the dequant kernel: one launch a leaf an int8 / delta-int8
+        # install decodes, wherever on the clock the install lands
+        want["fused_dequant"] = sum(p["coded_leaves"] for p in rec.pulls)
         got = {k: sum(st["launches"][k] for st in rec.steps)
                for k in want}
+        got["fused_dequant"] = (launch_counts()["fused_dequant"]
+                                - rec.launches0["fused_dequant"])
         log(f"[rl] {tag}: launches in its steps {got}, expected {want} "
             f"(layers x dispatches of {len(rec.engines)} engines, "
             f"{rec.n_train} train forwards)")
@@ -4186,6 +4268,12 @@ def rl_phase(torch, clock):
     summary("streamed", h3, rec3, m3)
     check_run("streamed", h3, rec3, m3, RL_STEPS)
     streamed = streamed_gates(torch, h0, rw0, h3, m3, rw3, n_rows)
+    del h3
+    torch.cuda.empty_cache()
+
+    # 5. compressed pulls through fused_dequant, int8 KV migration
+    compressed = compressed_run(clock, cfg, ckpt_dir, trace, rec0, rw0,
+                                summary, check_run)
     launches = launch_counts()
     torch.use_deterministic_algorithms(False)
     t_phase = clock() - t_phase
@@ -4198,16 +4286,69 @@ def rl_phase(torch, clock):
     out = dict(n_params=n_params, phase_s=t_phase, peak_gb=peak0,
                crash_t=crash_t, resume_s=t_resume, ckpt_bytes=ckpt_bytes,
                rewards=rw0, launches=launches, streamed=streamed,
+               compressed=compressed,
                runs={tag: dict(steps=rec.steps, saves=rec.saves, kv=rec.kv,
-                               preempts=rec.preempts,
+                               preempts=rec.preempts, pulls=rec.pulls,
                                engines=len(rec.engines))
                      for tag, rec in (("uninterrupted", rec0),
                                       ("resumed", rec2),
                                       ("streamed", rec3))})
-    del h0, h2, h3
+    del h0, h2
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches, out
+
+
+def compressed_run(clock, cfg, ckpt_dir, trace, rec0, rw0, summary,
+                   check_run):
+    """Phase 9's fifth run: RL_COMPRESSED for RL_STEPS steps, uninterrupted,
+    on the phase's capacity ``trace`` (the older spot instance reclaimed at
+    RL_REMOVE_AT).  Gates
+    (beside ``check_run``'s: every step's responses, no restart, chaos
+    invariants, the accounting identity, launches, one dequant launch a
+    coded leaf, at most one swap invalidation an engine): the reclaim
+    found live requests, whose KV another engine pulled as an int8
+    manifest; some install was a delta-int8 pull (decoded onto the
+    engine's own leaves, its resident version).  Rewards and every pull
+    are logged beside the codec-none run's, not gated.  Returns its
+    summary."""
+    t0 = clock()
+    h, rec, _ = rl_harness(clock, cfg, trace, ckpt_dir=str(ckpt_dir),
+                           ckpt_writes=False, runner=RL_COMPRESSED)
+    m, rw = h.run(RL_STEPS)
+    wall = clock() - t0
+    summary("compressed", h, rec, m)
+    check_run("compressed", h, rec, m, RL_STEPS)
+    removed = [p for p in rec.preempts if p["live"] > 0]
+    int8_kv = [k for k in rec.kv if k["codec"] == "int8"
+               and removed and k["src"] == removed[0]["nic"]]
+    if len(rec.preempts) != 1 or not removed:
+        fail(f"rl compressed: the reclaim at {RL_REMOVE_AT} "
+             f"found no live requests on its victim ({rec.preempts})")
+    if m[-1]["migration.n_kv_migrations"] < 1 or not int8_kv:
+        fail(f"rl compressed: no int8 KV migration from the reclaimed "
+             f"instance ({rec.kv})")
+    codecs = [p["codec"] for p in rec.pulls]
+    if "delta-int8" not in codecs:
+        fail(f"rl compressed: no delta-int8 install among the pulls "
+             f"{codecs}")
+    n_dequant = sum(p["coded_leaves"] for p in rec.pulls)
+
+    def pulls(r):
+        return [(p["codec"], p["bytes"], round(p["event_s"], 4))
+                for p in r.pulls]
+    log(f"[rl] compressed run ({RL_COMPRESSED['compression']} pulls, "
+        f"{RL_COMPRESSED['kv_codec']} KV, reclaim at "
+        f"{RL_REMOVE_AT}): {wall:.1f} s; step rewards {rw} "
+        f"against the codec-none run's {rw0}; pulls (codec, bytes, event "
+        f"s) {pulls(rec)} against {pulls(rec0)}; {n_dequant} fused_dequant "
+        f"launches; KV imports {rec.kv}")
+    out = dict(wall_s=wall, rewards=rw, rewards_none=rw0, pulls=rec.pulls,
+               pulls_none=rec0.pulls, kv=rec.kv, preempts=rec.preempts,
+               steps=rec.steps, dequant_launches=n_dequant,
+               engines=len(rec.engines))
+    del h
+    return out
 
 
 def streamed_gates(torch, hb, rwb, hs, ms, rws, n_rows: int):
@@ -5001,8 +5142,8 @@ def make_llava_engine(InferenceEngine, cfg, params, *, horizon=8,
 
 
 def llava_serve(torch, InferenceEngine, clock, ops, ref):
-    """llava-next-34b as configured (60 layers, G = 7, random weights from
-    seed 0) serving the phase-3 prompts as 4 single requests through the
+    """llava-next-34b at full width, LLAVA_SERVE_LAYERS deep (G = 7,
+    random weights from seed 0) serving the phase-3 prompts as 4 single requests through the
     engine (token prompts, H=8 greedy with graphs, LLAVA_NEW_TOKENS new
     tokens): launches = layers x dispatches; one steady horizon profiled
     with graphs and eagerly (each decode kernel's profiler count equal to
@@ -5014,7 +5155,8 @@ def llava_serve(torch, InferenceEngine, clock, ops, ref):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("llava-next-34b")
+    cfg = dataclasses.replace(get_config("llava-next-34b"),
+                              n_layers=LLAVA_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
@@ -5917,6 +6059,140 @@ def mesh_phase(torch):
     return launches, dict(probe=recs[0]["probe"], configs=rows, wall_s=wall)
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the port's examples at the card's width
+# --------------------------------------------------------------------------- #
+# the device examples' model: qwen3-8b at full width, RL_LAYERS deep, its
+# vocabulary cut to the math tokenizer's ids (phase 9's ``rl_config``)
+EXAMPLE_ARGS = ("--arch", "qwen3-8b", "--layers", str(RL_LAYERS))
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, clock):
+    """``examples/torch_quickstart.py``, ``torch_serve_rollout.py`` and
+    ``torch_hybrid_rl_training.py`` through their ``main`` at EXAMPLE_ARGS.
+    Gates: quickstart's greedy generation, a GRPO step with a finite loss
+    and a grad norm > 0, its two sim steps; serve_rollout's requests all
+    finished, every token stamped v1 or v2 (as many stamps as tokens, in
+    order), engine 1's tokens after the publish stamped v2, the installed
+    leaves within the delta-int8 bound of v2, one ``fused_dequant``
+    launch a coded leaf; hybrid_rl_training's 2 steps with a checkpoint
+    each, then a second call resumed at step 2 from the checkpoint, its
+    restored params and optimizer state bit-equal to the first call's
+    last, running step 3.  Returns (launch counts, summary)."""
+    import shutil
+
+    reset_launches()
+    out = {}
+    ckpt_dir = ROOT / "build" / "chip_runs" / "example_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # quickstart
+    t0 = clock()
+    l0 = launch_counts()
+    q = load_example("quickstart").main(list(EXAMPLE_ARGS))
+    lq = {k: v - l0[k] for k, v in launch_counts().items()}
+    mq = q["metrics"]
+    if not q["tokens"] or not math.isfinite(mq["loss"]) or not \
+            mq["grad_norm"] > 0 or len(q["hybrid"]) != 2:
+        fail(f"examples quickstart: tokens {q['tokens']}, metrics {mq}, "
+             f"{len(q['hybrid'])} hybrid steps")
+    if not all(lq[k] for k in ("paged_decode_attention",
+                               "paged_prefill_attention",
+                               "flash_attention")):
+        fail(f"examples quickstart: a kernel did not launch ({lq})")
+    out["quickstart"] = dict(wall_s=clock() - t0, tokens=q["tokens"],
+                             metrics=mq, launches=lq)
+    log(f"[examples] quickstart ({q['config'].name}, {q['config'].n_layers} "
+        f"layers, vocab {q['config'].vocab_size}): {len(q['tokens'])} greedy "
+        f"tokens, train step {mq}, launches {lq}, "
+        f"{out['quickstart']['wall_s']:.1f} s")
+    del q
+    torch.cuda.empty_cache()
+
+    # serve_rollout
+    t0 = clock()
+    l0 = launch_counts()
+    r = load_example("serve_rollout").main(list(EXAMPLE_ARGS))
+    lr = {k: v - l0[k] for k, v in launch_counts().items()}
+    reqs = r["requests"]
+    bad = [i for i, x in reqs.items()
+           if not x["done"] or len(x["versions"]) != len(x["tokens"])
+           or not set(x["versions"]) <= {1, 2}
+           or x["versions"] != sorted(x["versions"])]
+    late = [e for e in r["events"] if e[1] == 1 and e[0] >= 5 and e[4] != 2]
+    if bad or late or not any(e[4] == 2 for e in r["events"]):
+        fail(f"examples serve_rollout: requests {bad} unfinished or "
+             f"mis-stamped, engine 1's events after the publish {late}")
+    worst = check_install(torch, r["installed"], r["params_v2"],
+                          r["params"])
+    coded = sum(s.codec != "none" for s in r["manifest"].leaves)
+    if lr["fused_dequant"] != coded or not coded:
+        fail(f"examples serve_rollout: {lr['fused_dequant']} fused_dequant "
+             f"launches for {coded} coded leaves")
+    out["serve_rollout"] = dict(
+        wall_s=clock() - t0, launches=lr, worst_bound_share=worst,
+        manifest=dict(n_chunks=r["manifest"].n_chunks,
+                      bytes=r["manifest"].total_bytes, coded_leaves=coded),
+        spans={i: x["versions"].count(2) for i, x in reqs.items()})
+    log(f"[examples] serve_rollout: {len(reqs)} requests finished, v2 "
+        f"installed mid-generation ({r['manifest'].n_chunks} chunks, "
+        f"{r['manifest'].total_bytes} B, {coded} leaves decoded by "
+        f"fused_dequant), worst |installed - v2| {worst:.3f} of the "
+        f"delta-int8 bound, launches {lr}, "
+        f"{out['serve_rollout']['wall_s']:.1f} s")
+    del r
+    torch.cuda.empty_cache()
+
+    # hybrid_rl_training: 2 steps, then a restart resuming at step 2
+    t0 = clock()
+    mod = load_example("hybrid_rl_training")
+    argv = list(EXAMPLE_ARGS) + ["--ckpt-every", "1",
+                                 "--ckpt-dir", str(ckpt_dir)]
+    first = mod.main(argv + ["--steps", "2"])
+    t1 = clock()
+    saved = _items(first["harness"].params) + _items(first["harness"].opt)
+    checked = []
+
+    def on_restore(state):
+        got = _items(state["params"]) + _items(state["opt"])
+        diff = [k for (k, a), (_, b) in zip(got, saved)
+                if not (a.dtype == b.dtype and torch.equal(a, b))]
+        if len(got) != len(saved) or diff:
+            fail(f"examples hybrid_rl_training: restored state differs "
+                 f"from the saved one ({len(diff)} leaves, first "
+                 f"{diff[:1]})")
+        checked.append(len(got))
+    second = mod.main(argv + ["--steps", "3"], on_restore=on_restore)
+    if (first["start"], first["done"], second["start"], second["done"]) \
+            != (0, 2, 2, 3) or not checked:
+        fail(f"examples hybrid_rl_training: runs {first['start']}->"
+             f"{first['done']}, {second['start']}->{second['done']}, "
+             f"restore checked {checked}")
+    out["hybrid_rl_training"] = dict(
+        wall_s=clock() - t0, first_s=t1 - t0, rewards=[first["rewards"],
+                                                      second["rewards"]],
+        leaves_restored=checked[0])
+    log(f"[examples] hybrid_rl_training: 2 steps ({t1 - t0:.1f} s, rewards "
+        f"{first['rewards']}), then resumed at step 2 with {checked[0]} "
+        f"leaves of params and optimizer state bit-equal to the saved "
+        f"ones and ran step 3 (rewards {second['rewards']}); "
+        f"{out['hybrid_rl_training']['wall_s']:.1f} s")
+    del first, second, saved
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launch_counts(), out
+
+
 def _items(tree):
     from repro_torch.transfer.chunkstore import tree_items
     return list(tree_items(tree))
@@ -6159,7 +6435,13 @@ def main():
     torch.cuda.empty_cache()
     mesh_launches, mesh = mesh_phase(torch)
 
-    # ---- 15. summary ----
+    # ---- 15. the port's examples at the card's width ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    with graph_phase("15 examples"):
+        example_launches, examples = examples_phase(torch, clock)
+
+    # ---- 16. summary ----
     rows = []
     for name, src, replaces, r, n in (
             ("paged_decode_attention",
@@ -6179,9 +6461,10 @@ def main():
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
-        # phases 9-14 run the paged kernels and flash too (phase 11
+        # phases 9-15 run the paged kernels and flash too (phase 11
         # decode_attention, phases 12-13 ssd_scan; phase 14 flash, in its
-        # ranks' processes): their launches add
+        # ranks' processes; phases 9 and 15 fused_dequant): their
+        # launches add
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces,
                          launches=(n[name] + rl_launches[name]
@@ -6189,7 +6472,8 @@ def main():
                                    + gemma_launches[name]
                                    + train12_launches[name]
                                    + cells_launches[name]
-                                   + mesh_launches[name]), **r))
+                                   + mesh_launches[name]
+                                   + example_launches[name]), **r))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -6204,7 +6488,7 @@ def main():
          "ssd": ssd_served_rows, "train": train, "hybrid": hybrid,
          "serve14b": serve14b, "rl": rl, "moe": moe_summary,
          "gemma": gemma_summary, "train12": train12, "cells": cells,
-         "mesh": mesh,
+         "mesh": mesh, "examples": examples,
          "decode_32k_slab": slab_long_row,
          "graphs": GRAPHS,
          "serve_graph_engine": eng_graphs, "decode_profile": decode_profile,

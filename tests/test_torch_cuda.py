@@ -1344,6 +1344,90 @@ def test_graphs_outlive_weight_swaps_at_qwen3_8b_width_on_card(cuda):
         assert all(torch.equal(t, h[k]) for k, t in _cache_items(v))
 
 
+def _scaled_tree(tree, f):
+    return {k: _scaled_tree(v, f) if isinstance(v, dict) else v * f
+            for k, v in tree.items()}
+
+
+def _delta_rounds(cfg, v0, v1, graphs, manifest=None, store=None,
+                  tree=None):
+    """Six rounds as ``_swap_rounds``'s: v1 swapped in after round 1 (the
+    engine's own leaves from then on), then after round 3 a delta-int8
+    version installed: decoded from ``manifest`` onto the engine's leaves
+    (``tree`` None) or ``tree`` given.  Returns (events, engine, the
+    installed tree, {"before"/"after": graph counts and captures at the
+    install})."""
+    eng = InferenceEngine(cfg, v0, max_batch=4, slab_len=128, page_size=16,
+                          temperature=1.0, horizon=8, device="cuda",
+                          cuda_graphs=graphs)
+    prompts = _graph_prompts(5)[:2]
+    out, at = [], {}
+    for r in range(6):
+        for i, p in enumerate(prompts):
+            rid = 10 * r + i
+            eng.add_request(rid, p, request_key(9, rid), len(p) + 16, len(p))
+        for _ in range(3):
+            out += [(e.req_id, e.token, e.logprob, e.weight_version)
+                    for e in eng.step()]
+        if r == 1:
+            eng.swap_weights(v1, 1)
+        if r == 3:
+            assert eng._owns_params
+            if tree is None:
+                chunks = {c.digest: store.fetch(c.digest)
+                          for c in manifest.chunks}
+                tree = store.assemble(manifest, chunks, like=eng.params,
+                                      base_params=eng.params)
+            at["before"] = (dict(eng.graph_counts), len(eng.graph_capture_s))
+            eng.swap_weights(tree, 3)
+    at["after"] = (dict(eng.graph_counts), len(eng.graph_capture_s))
+    return out, eng, tree, at
+
+
+@pytest.mark.cuda
+def test_delta_int8_onto_owned_leaves_replays_at_qwen3_8b_width_on_card(
+        cuda):
+    """Qwen3-8B at full width (bf16), 2 layers: after a swap has given the
+    engine leaves of its own, a delta-int8 v3 (v1 x 1.01, base v1) is
+    decoded by ``fused_dequant`` (one launch a leaf, bf16 base) onto those
+    leaves and swapped in place: no capture and no invalidation after it,
+    the captured horizon replayed, every token and logprob bit-equal to an
+    eager engine given the same decoded tree, and each leaf within the
+    codec's bound of v3 (scale / 2 plus the bf16 cast's half ulp)."""
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2,
+                              name="qwen3-8b-delta-graphs")
+    v0, v1 = (_graph_params(cfg, s, cuda) for s in (0, 1))
+    v3 = _scaled_tree(v1, 1.01)
+    store = ChunkStore(chunk_bytes=1 << 20)
+    store.publish(1, v1)
+    store.publish(3, v3)
+    m = store.manifest(3, "delta-int8", base_version=1)
+    coded = sum(s.codec == "delta-int8" for s in m.leaves)
+    assert m.codec == "delta-int8" and coded == len(m.leaves)
+    n0 = fused_dequant.launches
+    got, eng, tree, at = _delta_rounds(cfg, v0, v1, True, m, store)
+    assert fused_dequant.launches - n0 == coded
+    (before, caps0), (after, caps1) = at["before"], at["after"]
+    assert before["swap_invalidations"] == after["swap_invalidations"] == 1
+    assert caps1 == caps0 > 0 and after["recaptures"] == 0
+    assert after["replays"] > before["replays"]
+    for (k, a), (_, b) in zip(_cache_items(eng.params), _cache_items(tree)):
+        assert torch.equal(a, b), k
+    want, _, _, _ = _delta_rounds(cfg, v0, v1, False, tree=tree)
+    assert got == want
+    assert {v for *_, v in got} == {0, 1, 3}
+    base, target = dict(_cache_items(v1)), dict(_cache_items(v3))
+    for k, a in _cache_items(tree):
+        rows = (lambda t: t.float().reshape(-1, t.shape[-1]) if t.dim() > 1
+                else t.float().reshape(-1, 1))
+        d = rows(target[k]) - rows(base[k])
+        scale = d.abs().amax(dim=0) / 127.0 + 1e-12
+        err = (rows(a) - rows(target[k])).abs()
+        bound = scale / 2 + (2.0 ** -8 + 2.0 ** -22) * torch.maximum(
+            rows(a).abs(), rows(target[k]).abs())
+        assert bool((err <= bound).all()), k
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises_on_card(cuda, monkeypatch):
     """A body that syncs with the host cannot be captured: the capture

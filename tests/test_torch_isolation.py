@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, no ``ml_dtypes`` (absent beside the card)
-and nothing of the reference package in ``src/repro_torch``,
-``chip_smoke.py`` or the card's test file ``tests/test_torch_cuda.py``; it imports without ``triton`` or ``nvcc``; its entry
-points run on CUDA unless asked for the CPU."""
+and nothing of the reference package or of ``benchmarks/`` in
+``src/repro_torch``, ``chip_smoke.py``, the card's test file
+``tests/test_torch_cuda.py`` or the port's examples
+``examples/torch_*.py``; it imports without ``triton`` or ``nvcc``; its
+entry points run on CUDA unless asked for the CPU."""
 
 import ast
 import subprocess
@@ -13,8 +15,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
-BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
+BANNED = ("jax", "jaxlib", "repro", "ml_dtypes", "benchmarks")
 
 
 def _imported_roots(path: Path):
