@@ -52,8 +52,8 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 geometry in f32 and bf16 and at its served prefill (the
                 same 8 ragged rows, H=24, N=128, f32) and at phase 12's
                 Hymba and Mamba2 train shapes and phase 13's train_4k
-                (every row full; the scan's recomputed plain backward
-                timed too), each launched twice (bit-identical); at phase
+                (every row full), each launched twice (bit-identical); at
+                phase
                 13's cells' shapes: flash at S=32,768 (G=7) and at
                 S=524,288 with a window of 1024 (the first and last 128
                 query rows against the plain attention of those rows;
@@ -65,7 +65,17 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 state); max error against the stated
                 tolerance, kernel / plain / library times (CUDA events, L2
                 flushed before each launch) and the bound (the scan's at
-                the 3xTF32 rate, beside its f32 CUDA-core figure);
+                the 3xTF32 rate, beside its f32 CUDA-core figure); the two
+                backward kernels against autograd of the plain versions,
+                each gradient within BWD_TOL of max |want| and a second
+                launch bit-identical: ``flash_attention_backward`` at every
+                FLASH_CASES entry (bf16; f32 too outside FLASH_BF16_ONLY),
+                timed against its bound, the plain backward recomputed
+                under autograd and SDPA's backward where SDPA takes the
+                shape; ``ssd_scan_backward`` at Mamba2-130m's geometry in
+                f32 and bf16 and at the SSD_TRAIN shapes (timed against its
+                bound and the plain chunked scan under autograd), with the
+                final state's gradient given and None;
   3. engine   — ``qwen3-8b`` at full width (random weights from a seeded
                 generator) served through ``InferenceEngine``: 2 GRPO groups
                 of 4 plus 2 single requests, ~300-token prompts,
@@ -147,8 +157,9 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 grad_norm, peak memory; step 1 on-policy, so ratio_mean
                 ~ 1); a fourth step, not timed among them, under
                 torch.profiler (device busy time, idle share, the flash
-                forward kernel and its recomputed plain backward apart,
-                device time by kernel); the trained weights
+                forward and backward kernels apart, device time by
+                kernel); flash_attention_backward launched once a layer a
+                step; the trained weights
                 swapped into the engine as version 1, which serves the mix
                 again to completion;
   7. hybrid   — ``hymba-1.5b`` at full width (random weights from a seeded
@@ -281,7 +292,7 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 ``make_train_step`` with remat, the batch of step i from
                 a generator seeded with i; TRAIN12_MIX): mamba2-130m and
                 hymba-1.5b at every layer (the scan under autograd: its
-                kernel forward, its plain chunked backward), gemma3-4b cut
+                forward and backward kernels), gemma3-4b cut
                 to one pattern group, gemma2-27b to one local and one
                 global layer, hubert-xlarge at every layer (embeddings
                 in, bidirectional flash at d = 80, ``supervised_loss``),
@@ -292,9 +303,10 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 scored against the plain pass's own logprobs; 3 timed
                 steps and one profiled for CUDA activity (seconds,
                 tokens/s, peak memory, device busy and idle share, the
-                plain backwards' device spans; ``[train12]`` lines),
+                backward kernels' device spans; ``[train12]`` lines),
                 launches = attention
-                (SSM) layers x forwards for flash (``ssd_scan``), every
+                (SSM) layers x forwards for flash (``ssd_scan``) and x
+                backward passes for their backward kernels, every
                 loss finite; then llava-next-34b served at full width,
                 LLAVA_SERVE_LAYERS (30) of its 60 layers (34.4 GB of bf16
                 weights; cut from 60 to make room for phase 15): the
@@ -321,7 +333,8 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 hymba-1.5b long_500k (1 x 524,288: the prefill against the
                 engine's, 4 serve steps as decode_32k's), mamba2-130m
                 train_4k (16 x 4,096: step 1's loss and grad norm with the
-                kernels against plain, then 2 train steps); launches
+                kernels against plain, then 2 train steps, each with the
+                scan's backward kernel's device span); launches
                 exact; ``[cells]`` lines (rows, length, seconds, tokens/s,
                 peak memory);
  14. mesh     — the sharded trainer (``launch/train.py``'s ranks on
@@ -339,7 +352,8 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 single-process step of the same configuration on the same
                 card, weights and batch (MESH_* tolerances), each rank's
                 flash launches exact (attention layers x 2 forwards, remat
-                counted, a step), step 1 under ``CommDebugMode`` for the
+                counted, and x 1 backward pass, a step), step 1 under
+                ``CommDebugMode`` for the
                 collectives a step issues (``[mesh]`` lines: seconds a
                 step, peak memory a rank); two ranks on one card through
                 gloo show no multi-card speed;
@@ -356,9 +370,10 @@ Phases (any failure exits non-zero; no phase is allowed to fail quietly):
                 each, then a second call resumed at step 2 with params and
                 optimizer state bit-equal to the saved ones, running step
                 3) (``[examples]`` lines);
- 16. summary  — one JSON line per the kernels (rows 1-6 count phases
-                9-15's launches too), the card's name and power limit,
-                and the final ``{"ok": true, ...}`` line.
+ 16. summary  — one JSON line of the eight kernels (the six ported
+                TPU kernels and the two backward kernels; launches count
+                phases 9-15's too), the card's name and power limit, and
+                the final ``{"ok": true, ...}`` line.
 
 The script imports nothing of JAX or of the reference package.
 """
@@ -475,6 +490,14 @@ FLASH_CASES = (("train", (10, 32, 8, TRAIN_SEQ, 128, True, 0, 0.0)),
                ("llava-train", (4, 56, 8, 1024, 128, True, 0, 0.0)))
 # flash cases launched twice, the second launch bit-identical to the first
 FLASH_REPEAT = ("train", "gemma3-local", "gemma2-local", "hubert")
+# the backward kernels against autograd of the plain versions, each
+# gradient's max |got - want| over its max |want|: bf16 gradients are
+# rounded once from f32 sums (one bf16 ulp, 2**-8 of a value, at most)
+# and the flash kernel rounds P and dS to bf16 for its products, so 2e-2;
+# f32 flash (CUDA cores, sums in another order) and the 3xTF32 scan (the
+# forward's ~2**-21 products summed over chunks and a group's heads)
+# within 1e-4, as the card tests hold the scan's gradients
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # flash cases held in bf16 only (the train shapes); the others in f32 too
 FLASH_BF16_ONLY = ("train", "long", "moe-train", "llava-train")
 # slab decode: the reference test's cases, tests/test_kernels.py:42-45,
@@ -595,9 +618,10 @@ SERVED_PAGED = (("gemma3-4b", 8, 4, 256, 0.0),
 # phase 12: every family trained at full width on the code path of the
 # port's launch/train.py (synthetic_batch, make_train_step with remat, the
 # batch of step i from a generator seeded with i), (arch, layers kept or
-# None for all, B, S).  AdamW holds 16 B a parameter, and the plain
-# backward of flash holds [B, H, S, S] f32 scores and probabilities of one
-# layer: gemma3-4b keeps one pattern group (5 local + 1 global, 1.24 G
+# None for all, B, S).  AdamW holds 16 B a parameter, and step 1's plain
+# pass (the yardstick of the kernels' gates) differentiates the plain
+# attention, which holds [B, H, S, S] f32 scores and probabilities of one
+# layer (the backward kernel holds none): gemma3-4b keeps one pattern group (5 local + 1 global, 1.24 G
 # params with its 0.67 G embed, ~20 GB of state), gemma2-27b one local and
 # one global layer (2.31 G, ~37 GB; its scores at H = 32, S = 4224 are 4.6
 # GB a tensor at B = 2, ~23 GB at the plain backward's peak), llava-next-34b
@@ -1289,16 +1313,18 @@ def flash_pairs(S: int, causal: bool, window: int) -> int:
     return n
 
 
-def check_flash(torch, F, ref, kern):
+def check_flash(torch, F, ref, kern, bwd):
     """``flash_attention`` in bf16 (its tensor-core path) against its plain
     version on every case of FLASH_CASES, inputs in the model's [B, S,
     heads, d] layout passed as head-major views; times and bounds.  The
     feature cases run in f32 too (its CUDA-core path), untimed; then the
-    cells' lengths (FLASH_LONG, ``flash_long``).  Returns the summary row
-    (the train shape, the worst bf16 error over the FLASH_CASES) and every
-    case's row."""
+    cells' lengths (FLASH_LONG, ``flash_long``).  ``bwd``
+    (``flash_attention_backward``) on every case too
+    (``flash_backward_case``).  Returns the summary rows (the train shape,
+    the worst bf16 error over the FLASH_CASES; forward and backward) and
+    every case's rows."""
     g = torch.Generator(device="cuda").manual_seed(4)
-    worst, rows = 0.0, {}
+    worst, rows, bwd_rows = 0.0, {}, {}
     for name, (B, H, K, S, d, causal, window, cap) in FLASH_CASES:
         q, k, v = (torch.randn(B, S, n, d, generator=g, device="cuda")
                    .bfloat16().transpose(1, 2) for n in (H, K, K))
@@ -1325,6 +1351,8 @@ def check_flash(torch, F, ref, kern):
             err32 = within(torch, out, want, F32_KERNEL_TOL,
                            f"flash_attention {name} f32")
             del q32, k32, v32, out, want
+        bwd_rows[name] = flash_backward_case(torch, F, ref, bwd, name, q, k,
+                                             v, opts)
         ms = time_ms(lambda: kern(q, k, v, **opts), torch)
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **opts),
                            torch)
@@ -1359,7 +1387,113 @@ def check_flash(torch, F, ref, kern):
         torch.cuda.empty_cache()
     for name, case in FLASH_LONG:
         rows[name] = flash_long(torch, F, kern, name, *case)
-    return dict(rows["train"], max_abs_err=worst), rows
+    bwd_worst = max(r["max_abs_err"] for r in bwd_rows.values())
+    bwd_row = {k: v for k, v in bwd_rows["train"].items()
+               if k != "max_abs_err_f32"}
+    return (dict(rows["train"], max_abs_err=worst),
+            dict(bwd_row, max_abs_err=bwd_worst),
+            dict(rows, backward=bwd_rows))
+
+
+def plain_flash_backward(torch, ref, q, k, v, do, opts):
+    """Gradients of the plain version (its forward recomputed in f32
+    under autograd, as the port's trainer ran it before the backward
+    kernel); a yardstick for this script only."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = ref.flash_attention_ref(*leaves, **opts)
+        return torch.autograd.grad(out, leaves, do)
+
+
+def grads_within(torch, got, want, tol: float, what: str, names) -> float:
+    """Fail unless each gradient in ``got`` is finite and within ``tol`` x
+    max |want| of ``want``; returns the largest max |got - want|."""
+    worst = 0.0
+    for g_, w_, n in zip(got, want, names):
+        err = float((g_.float() - w_.float()).abs().max())
+        scale = float(w_.float().abs().max())
+        if not torch.isfinite(g_.float()).all() or err > tol * scale:
+            fail(f"{what} {n}: max err {err} over {tol} x max |want| {scale}")
+        worst = max(worst, err)
+    return worst
+
+
+def flash_bwd_bound(B, H, K, S, d, causal, window, elem: int, rate: float):
+    """Least time of one backward: q, k, v, out and dO read and dq, dk, dv
+    written once, against 10 d flops (the five products) per kept (query,
+    key) pair and query head.  Returns (ms, by, bytes, flops)."""
+    nbytes = elem * B * S * d * (4 * H + 4 * K)
+    flops = 10 * d * flash_pairs(S, causal, window) * B * H
+    ms, by = bound(nbytes, [(flops, rate)])
+    return ms, by, nbytes, flops
+
+
+def flash_backward_case(torch, F, ref, bwd, name, q, k, v, opts):
+    """``flash_attention_backward`` at one FLASH_CASES entry (bf16 views of
+    [B, S, heads, d]; ``out`` the plain forward's, dO seeded noise in the
+    same layout): each gradient within BWD_TOL of autograd through the
+    plain version, a second launch bit-identical; the f32 path too where
+    the forward's f32 case runs (FLASH_BF16_ONLY); timed (L2 flushed)
+    against its bound, the plain backward (``plain_flash_backward``) and
+    SDPA's backward alone (its forward run once, retained) where SDPA
+    takes the shape (no window, no softcap).  Returns the case's row."""
+    B, H, S, d = q.shape
+    K = k.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(40)
+    do = torch.randn(B, S, H, d, generator=g, device="cuda").bfloat16() \
+        .transpose(1, 2)
+    out = ref.flash_attention_ref(q, k, v, **opts)
+    got = bwd(q, k, v, out, do, **opts)
+    again = bwd(q, k, v, out, do, **opts)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_attention_backward {name}: a second launch on the same "
+             f"inputs is not bit-identical")
+    del again
+    want = plain_flash_backward(torch, ref, q, k, v, do, opts)
+    err = grads_within(torch, got, want, BWD_TOL["bfloat16"],
+                       f"flash_attention_backward {name}", ("dq", "dk", "dv"))
+    del got, want
+    err32 = None
+    if name not in FLASH_BF16_ONLY:
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        out32 = ref.flash_attention_ref(q32, k32, v32, **opts)
+        got = bwd(q32, k32, v32, out32, do32, **opts)
+        want = plain_flash_backward(torch, ref, q32, k32, v32, do32, opts)
+        err32 = grads_within(torch, got, want, BWD_TOL["float32"],
+                             f"flash_attention_backward {name} f32",
+                             ("dq", "dk", "dv"))
+        del q32, k32, v32, do32, out32, got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: bwd(q, k, v, out, do, **opts), torch)
+    plain_ms = time_ms(lambda: plain_flash_backward(torch, ref, q, k, v, do,
+                                                    opts), torch, iters=5,
+                       warmup=1)
+    lib_ms = None
+    if not opts["window"] and not opts["cap"]:
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(
+            *leaves, is_causal=opts["causal"], scale=d ** -0.5,
+            enable_gqa=True)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o, leaves, do, retain_graph=True), torch, iters=5, warmup=1)
+        del leaves, o
+    b_ms, b_by, nbytes, flops = flash_bwd_bound(
+        B, H, K, S, d, opts["causal"], opts["window"], 2, BF16_FLOP_PER_S)
+    lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    f32_s = "" if err32 is None else f", f32 max_abs_err={err32:.3e}"
+    log(f"[kernels] flash_attention_backward {name} B={B} H={H} K={K} S={S} "
+        f"d={d} causal={opts['causal']} window={opts['window']} "
+        f"cap={opts['cap']}: max_abs_err={err:.3e} (tol {BWD_TOL['bfloat16']}"
+        f" x max |want| per gradient){f32_s}, second launch bit-identical; "
+        f"kernel {ms:.4f} ms, plain (recomputed under autograd) "
+        f"{plain_ms:.4f} ms, sdpa backward {lib_s}, bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes} B, {flops} flop)")
+    del out, do
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, max_abs_err_f32=err32, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def flash_rows_plain(torch, q, k, v, i0: int, i1: int, causal: bool,
@@ -1774,16 +1908,121 @@ def ssd_served(torch, g, ref, kern, shape, what: str,
     return args, rel, err, ms, bd
 
 
-def check_ssd(torch, ref, ops, kern):
+def plain_ssd_backward(torch, x, dt, A, B, C, grad_y, grad_state,
+                       chunk: int):
+    """Gradients of the plain chunked scan (``models.ssm.ssd_chunked``,
+    the path the reference's trainer differentiates) recomputed in f32
+    under autograd, as the port's trainer ran it before the backward
+    kernel; a yardstick for this script only."""
+    from repro_torch.models.ssm import ssd_chunked
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+        outs = zip(ssd_chunked(*leaves, chunk=chunk), (grad_y, grad_state))
+        outs = [(o, g_) for o, g_ in outs if g_ is not None]
+        return torch.autograd.grad([o for o, _ in outs], leaves,
+                                   [g_ for _, g_ in outs])
+
+
+def ssd_bwd_bound(b, L, H, G, P, N, chunk, elem: int):
+    """Least time of one scan backward: x, dt, B, C and dy read (dy f32),
+    dx, ddt, dB, dC and dA written (in the inputs' ``elem`` bytes; the
+    final state's gradient and A not counted), against the chunked form's
+    products per (row, chunk): C B^T once a group, and per head dy (dt
+    x)^T, M^T dy, Y B and Y^T C on and below the diagonal and five full
+    [c, P] x [P, N] products (the states entering the chunks recomputed,
+    the state gradients' contributions, B dS_out^T, dy S_in, (dt x)
+    dS_out), each as three TF32 products at the TF32 peak.  Returns (ms,
+    by, bytes, flops)."""
+    nbytes = (elem * 2 * (b * L * H * P + b * L * H + 2 * b * L * G * N)
+              + 4 * b * L * H * P + 4 * H)
+    c, nc = chunk, -(-L // chunk)
+    tri = c * (c + 1) // 2
+    flops = b * nc * (G * 2 * tri * N
+                      + H * (2 * tri * (2 * P + 2 * N) + 10 * c * P * N))
+    ms, by = bound(nbytes, [(3 * flops, TF32_FLOP_PER_S)])
+    return ms, by, nbytes, flops
+
+
+SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def ssd_backward_case(torch, g, bwd, shape, dtype, what: str,
+                      timed: bool = True):
+    """``ssd_scan_backward`` at ``shape`` (strided slices of one conv
+    output, every row full) in ``dtype``, with the final state's gradient
+    given and with y's alone: each gradient within BWD_TOL of autograd
+    through the plain chunked scan (``plain_ssd_backward``), a second
+    launch bit-identical; with ``timed``, timed (L2 flushed, y's gradient
+    alone: a train step's) against its bound and the plain backward.
+    Returns the row."""
+    b, L, H, G, P, N, chunk = shape
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    args = ssd_inputs(torch, g, b, L, H, G, P, N, dtype)
+    gy = torch.randn(b, L, H, P, generator=g, device="cuda")
+    gs = torch.randn(b, H, P, N, generator=g, device="cuda")
+    err = 0.0
+    for grad_state in (gs, None):
+        got = bwd(*args, gy, grad_state, chunk=chunk)
+        again = bwd(*args, gy, grad_state, chunk=chunk)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            fail(f"ssd_scan_backward {what} {name}: a second launch is not "
+                 f"bit-identical")
+        del again
+        want = plain_ssd_backward(torch, *args, gy, grad_state, chunk)
+        err = max(err, grads_within(
+            torch, got, want, BWD_TOL[name],
+            f"ssd_scan_backward {what} {name} (state gradient "
+            f"{'given' if grad_state is not None else 'None'})",
+            SSD_GRAD_NAMES))
+        del got, want
+    row = dict(max_abs_err=err)
+    if timed:
+        ms = time_ms(lambda: bwd(*args, gy, None, chunk=chunk), torch)
+        plain_ms = time_ms(lambda: plain_ssd_backward(
+            torch, *args, gy, None, chunk), torch, iters=3, warmup=1)
+        passes = kernel_passes(torch, lambda: bwd(*args, gy, None,
+                                                  chunk=chunk),
+                               r"ssd_\w+_kernel")
+        b_ms, b_by, nbytes, flops = ssd_bwd_bound(
+            b, L, H, G, P, N, chunk, 4 if name == "float32" else 2)
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, passes=passes)
+        log(f"[kernels] ssd_scan_backward {what} {name} b={b} L={L} H={H} "
+            f"G={G} P={P} N={N} chunk={chunk}: max_abs_err={err:.3e} (tol "
+            f"{BWD_TOL[name]} x max |want| per gradient, state gradient "
+            f"given and None), second launch bit-identical; kernel "
+            f"{ms:.4f} ms, plain (ssd_chunked under autograd) "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; 3xTF32 at "
+            f"the TF32 peak; {nbytes} B, {flops} flop); library: none: no "
+            f"one PyTorch call computes the scan's backward")
+        log(f"[kernels] ssd_scan_backward {what} passes (torch.profiler, "
+            f"mean of 5 calls, L2 flushed): " + (", ".join(
+                f"{k_} {v_:.4f} ms" for k_, v_ in passes.items())
+                or "not measured (the profiler reported no CUDA kernels)"))
+    else:
+        log(f"[kernels] ssd_scan_backward {what} {name} b={b} L={L} H={H} "
+            f"G={G} P={P} N={N} chunk={chunk}: max_abs_err={err:.3e} (tol "
+            f"{BWD_TOL[name]} x max |want| per gradient, state gradient "
+            f"given and None), second launch bit-identical")
+    del args, gy, gs
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_ssd(torch, ref, kern, bwd):
     """``ssd_scan`` against the sequential recurrence at Mamba2-130m's
     geometry (f32 and bf16, each launched twice: bit-identical), at its
     served prefill (f32, timed), at Hymba's prefill (f32, timed against
     the plain version too), at phase 12's two train shapes and phase 13's
-    train_4k (timed against the plain version, and the recomputed
-    backward timed) and at long_500k (SSD_LONG, ``ssd_long``).  Returns
-    the summary row (Hymba's prefill) and every geometry's numbers."""
+    train_4k (timed against the plain version) and at long_500k
+    (SSD_LONG, ``ssd_long``).  ``bwd`` (``ssd_scan_backward``) at
+    Mamba2-130m's geometry in f32 and bf16 and at the three train shapes
+    (``ssd_backward_case``).  Returns the summary rows (Hymba's prefill;
+    the backward at train_4k) and every geometry's numbers."""
     g = torch.Generator(device="cuda").manual_seed(6)
     b, L, H, G, P, N, chunk = SSD_MAMBA2
+    bwd_rows = {}
     for name, dt in (("float32", torch.float32),
                      ("bfloat16", torch.bfloat16)):
         args = ssd_inputs(torch, g, b, L, H, G, P, N, dt)
@@ -1797,6 +2036,8 @@ def check_ssd(torch, ref, ops, kern):
         for got, want, what in ((y, yr, "y"), (st, sr, "state")):
             ssd_rel(torch, got, want, SSD_TOL[name],
                     f"ssd_scan mamba2-130m {name} {what}")
+        bwd_rows[f"mamba2-130m {name}"] = ssd_backward_case(
+            torch, g, bwd, SSD_MAMBA2, dt, "mamba2-130m", timed=False)
     args, rel_m, _, ms_m, bd_m = ssd_served(
         torch, g, ref, kern, SSD_MAMBA2_SERVE, "mamba2-130m served")
     del args
@@ -1816,20 +2057,19 @@ def check_ssd(torch, ref, ops, kern):
                                                     shape, what, None)
         plain_t = time_ms(lambda: ref.ssd_scan_ref(*args), torch, iters=3,
                           warmup=1)
-        # the recomputed backward of a train step, y's gradient only
-        gy = torch.randn(args[0].shape, generator=g, device="cuda")
-        bwd_ms = time_ms(lambda: ops._ssd_backward(*args, gy, None,
-                                                   shape[-1]), torch,
-                         iters=3, warmup=1)
-        log(f"[kernels] ssd_scan {what}: plain {plain_t:.4f} ms; the "
-            f"recomputed plain backward (ssd_chunked under autograd, "
-            f"ops._ssd_backward) {bwd_ms:.4f} ms")
+        log(f"[kernels] ssd_scan {what}: plain {plain_t:.4f} ms")
         rows[what] = dict(ms=ms_t, rel_err=rel_t, max_abs_err=err_t,
-                          plain_ms=plain_t, backward_ms=bwd_ms, bound=bd_t)
-        del args, gy
+                          plain_ms=plain_t, bound=bd_t)
+        del args
+        bwd_rows[what] = ssd_backward_case(torch, g, bwd, shape,
+                                           torch.float32, what)
     for what, shape in SSD_LONG:
         rows[what] = ssd_long(torch, g, kern, shape, what)
-    return row, rows
+    rows["backward"] = bwd_rows
+    bwd_row = {k_: v_ for k_, v_ in bwd_rows["mamba2-130m train_4k"].items()
+               if k_ != "passes"}
+    bwd_row["max_abs_err"] = max(r["max_abs_err"] for r in bwd_rows.values())
+    return row, bwd_row, rows
 
 
 def ssd_chunked_segments(torch, x, dt, A, B, C, chunk: int, seg: int):
@@ -1907,10 +2147,12 @@ def reset_launches():
 
 
 def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
-                   n_dequant: int = 0, n_train_fwd: int = 0):
+                   n_dequant: int = 0, n_train_fwd: int = 0,
+                   n_train_bwd: int = 0):
     """Each kernel's launches since the last reset against layers x the
     engine's dispatches in that span (and the int8-coded leaves installed,
-    and layers x the train-mode forwards run); fail unless equal and
+    and layers x the train-mode forwards and backward passes run); fail
+    unless equal and
     non-zero where the span ran the kernel.  The dense family decodes and
     prefills through the paged kernels; the hybrid one through
     ``decode_attention`` (every decode step) and ``flash_attention`` plus
@@ -1918,7 +2160,9 @@ def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
     ``ssd_scan`` only; the gemma family's global layers through the paged
     kernels and its local layers through ``decode_attention`` and
     ``flash_attention``.  A train-mode forward runs ``flash_attention`` in
-    every attention layer and ``ssd_scan`` in every SSM layer."""
+    every attention layer and ``ssd_scan`` in every SSM layer, and a
+    backward pass ``flash_attention_backward`` and ``ssd_scan_backward``
+    there."""
     mixers = cfg.layer_mixers()
     n_global = mixers.count("global")
     n_ring = sum(m in ("local", "hybrid") for m in mixers)
@@ -1931,12 +2175,15 @@ def check_launches(cfg, eng, what: str, n_decode: int, n_prefill: int,
             "fused_dequant": n_dequant,
             "flash_attention": n_attn * n_train_fwd + n_ring * n_prefill,
             "decode_attention": n_ring * steps,
-            "ssd_scan": n_ssm * (n_prefill + n_train_fwd)}
+            "ssd_scan": n_ssm * (n_prefill + n_train_fwd),
+            "flash_attention_backward": n_attn * n_train_bwd,
+            "ssd_scan_backward": n_ssm * n_train_bwd}
     log(f"[engine] {what}: launches {got}, expected {want} (layers x "
         f"dispatches: {n_decode} decode horizons of "
         f"{eng.horizon if eng else 0}, "
         f"{n_prefill} prefill chunks; {n_dequant} int8-coded leaves; "
-        f"{n_train_fwd} train-mode forwards)")
+        f"{n_train_fwd} train-mode forwards, {n_train_bwd} backward "
+        f"passes)")
     if got != want or any(want[k] and not got[k] for k in want):
         fail(f"{what}: kernel launches {got} != expected {want}")
     return got
@@ -2334,8 +2581,8 @@ def range_device_ms(prof, name: str):
 
 @contextlib.contextmanager
 def train_ranges(ops):
-    """Name the flash kernel's forward launches and the recomputed plain
-    backwards of flash and of the scan in a profile (``flash.forward``,
+    """Name the flash kernel's forward launches and the backward kernels'
+    launches of flash and of the scan in a profile (``flash.forward``,
     ``flash.backward``, ``ssd.backward``); a yardstick for this script
     only."""
     from torch.profiler import record_function
@@ -3148,8 +3395,9 @@ def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
         f"ratio_mean {steps[-1]['ratio_mean']:.6f}, grad_norm "
         f"{steps[-1]['grad_norm']:.6f}, {live} response tokens with an "
         f"advantage unclipped")
+    # a backward pass each step: TRAIN_STEPS timed and the profiled one
     launches = check_launches(cfg, eng, "train", 0, 0,
-                              n_train_fwd=n_fwd)
+                              n_train_fwd=n_fwd, n_train_bwd=TRAIN_STEPS + 1)
     s1 = steps[0]
     log(f"[train] step 1 on-policy: |ratio_mean - 1| = "
         f"{abs(s1['ratio_mean'] - 1):.3e} (tol {RATIO_TOL}); grad_norm "
@@ -3210,26 +3458,29 @@ def train_phase(torch, InferenceEngine, cfg_full, prompts, clock, ops, ref,
 def profile_train(prof, wall_ms: float):
     """The ``[profile] train`` lines of one profiled GRPO step: wall time
     (profiler on), device busy time and idle share, the flash kernel's
-    forward launches and the recomputed plain backward apart, and the
-    device time by kernel name."""
+    forward launches and its backward kernel's apart, and the device time
+    by kernel name."""
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         log(f"[profile] train step: wall {wall_ms:.2f} ms; device time not "
             f"measured (the profiler reported no CUDA kernels)")
         return None
-    # the forward launches through ctypes, which the profiler does not tie
-    # to the host range: take its kernels by name
+    # the kernels launch through ctypes, which the profiler does not tie
+    # to the host ranges: take them by name (the backward's are flash_bwd_*)
     fwd = [(ms, n) for ms, n, name in rows if "flash_attention" in name]
     fwd_ms, fwd_n = sum(r[0] for r in fwd), sum(r[1] for r in fwd)
     _, n_ranges = range_device_ms(prof, "flash.forward")
-    bwd_ms, bwd_n = range_device_ms(prof, "flash.backward")
+    bwd = [(ms, n) for ms, n, name in rows if "flash_bwd_" in name]
+    bwd_ms, bwd_kn = sum(r[0] for r in bwd), sum(r[1] for r in bwd)
+    _, bwd_n = range_device_ms(prof, "flash.backward")
     log(f"[profile] train one GRPO step (step {TRAIN_STEPS + 1}, profiler "
         f"on, not among the timed steps): wall "
         f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}; flash forward kernel {fwd_ms:.3f} ms "
-        f"in {fwd_n} kernels ({n_ranges} launches); its recomputed plain "
-        f"backward {bwd_ms:.3f} ms in {bwd_n} calls")
+        f"in {fwd_n} kernels ({n_ranges} launches); flash backward kernel "
+        f"(flash.backward) {bwd_ms:.3f} ms in {bwd_kn} kernels ({bwd_n} "
+        f"launches)")
     for ms, count, name in sorted(rows, reverse=True)[:12]:
         log(f"[profile] train   {ms:9.3f} ms {count:6d}x  {name[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
@@ -4161,6 +4412,8 @@ def rl_phase(torch, clock):
         want["paged_prefill_attention"] = L * sum(
             e.n_prefill_dispatches for e in rec.engines)
         want["flash_attention"] = L * rec.n_train
+        # a train forward is followed by its backward pass
+        want["flash_attention_backward"] = L * rec.n_train
         # the dequant kernel: one launch a leaf an int8 / delta-int8
         # install decodes, wherever on the clock the install lands
         want["fused_dequant"] = sum(p["coded_leaves"] for p in rec.pulls)
@@ -4173,7 +4426,7 @@ def rl_phase(torch, clock):
             f"{rec.n_train} train forwards)")
         if got != want or not all(got[k] for k in (
                 "paged_decode_attention", "paged_prefill_attention",
-                "flash_attention")):
+                "flash_attention", "flash_attention_backward")):
             fail(f"rl {tag}: kernel launches {got} != expected {want}")
         # every engine swaps each step; its graphs outlive each swap but
         # its first (off the tensors it was built on)
@@ -4643,9 +4896,10 @@ def moe_train(torch, InferenceEngine, cfg_full, prompts, clock):
             f"{cfg.router_aux_coef} / {cfg.n_layers} in the loss), "
             f"ratio_mean {m['ratio_mean']:.6f}, grad_norm "
             f"{m['grad_norm']:.6f}, peak memory {m['peak_gb']:.2f} GB")
-    # each step runs the forward and its recompute (remat)
+    # each step runs the forward, its recompute (remat) and one backward
     launches = check_launches(cfg, eng, f"{cfg.name} train", 0, 0,
-                              n_train_fwd=2 * TRAIN_STEPS)
+                              n_train_fwd=2 * TRAIN_STEPS,
+                              n_train_bwd=TRAIN_STEPS)
     for i, m in enumerate(steps):
         if not (math.isfinite(m["loss"]) and math.isfinite(m["moe_aux"])
                 and m["moe_aux"] > 0):
@@ -4909,11 +5163,11 @@ def leaf_norm(torch, grads, part: str = ""):
 
 @contextlib.contextmanager
 def backward_spans(torch, ops):
-    """Device spans of the recomputed plain backwards of flash and of the
+    """Device spans of the backward kernels' calls of flash and of the
     scan (``flash.backward``, ``ssd.backward``): a CUDA event on the
     stream before and after each call, so a profile of CUDA activity
-    alone can split them out.  Yields {label: [(start, end) events]}; a
-    yardstick for this script only."""
+    alone (or none) can split them out.  Yields {label: [(start, end)
+    events]}; a yardstick for this script only."""
     names = {"_flash_backward": "flash.backward",
              "_ssd_backward": "ssd.backward"}
     saved = {n: getattr(ops, n) for n in names}
@@ -4939,12 +5193,20 @@ def backward_spans(torch, ops):
             setattr(ops, n, fn)
 
 
+# the backward kernels' names (flash_attention_bwd.cu, ssd_scan_bwd.cu);
+# the scan's backward also reruns the forward's passes (a) and (b), which
+# keep their names: the ``ssd.backward`` span holds them
+FLASH_BWD_KERNELS = "flash_bwd_"
+SSD_BWD_KERNELS = ("ssd_dstate_", "ssd_chunk_grads", "ssd_group_sum",
+                   "ssd_da_sum")
+
+
 def profile_train12(torch, prof, spans, wall_ms: float, name: str):
     """Device busy time and idle share of one step profiled for CUDA
     activity alone (the host-side op rows of a deep model's step cost
-    tens of seconds to read), the flash and scan kernels apart and the
-    device spans of their recomputed plain backwards (``backward_spans``),
-    the top rows."""
+    tens of seconds to read), the flash and scan kernels apart, forward
+    and backward, and the device spans of the backward kernels' calls
+    (``backward_spans``), the top rows."""
     torch.cuda.synchronize()
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
@@ -4954,21 +5216,29 @@ def profile_train12(torch, prof, spans, wall_ms: float, name: str):
         return None
     span_ms = {label: sum(a.elapsed_time(b) for a, b in pairs)
                for label, pairs in spans.items()}
+    ssd_all = sum(ms for ms, _, n in rows if "ssd_" in n and "_kernel" in n)
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms,
                idle_share=1 - busy_ms / wall_ms,
                flash_forward_ms=sum(ms for ms, _, n in rows
                                     if "flash_attention" in n),
-               ssd_forward_ms=sum(ms for ms, _, n in rows
-                                  if "ssd_" in n and "_kernel" in n),
+               flash_backward_kernels_ms=sum(ms for ms, _, n in rows
+                                             if FLASH_BWD_KERNELS in n),
+               ssd_kernels_ms=ssd_all,
+               ssd_backward_kernels_ms=sum(
+                   ms for ms, _, n in rows
+                   if any(k in n for k in SSD_BWD_KERNELS)),
                flash_backward_ms=span_ms["flash.backward"],
                ssd_backward_ms=span_ms["ssd.backward"])
     log(f"[train12] {name} profiled step (not among the timed steps): wall "
         f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
         f"{out['idle_share']:.3f}; flash forward kernel "
-        f"{out['flash_forward_ms']:.3f} ms, its recomputed plain backward "
-        f"{out['flash_backward_ms']:.3f} ms (device span); ssd_scan kernels "
-        f"{out['ssd_forward_ms']:.3f} ms, its recomputed plain backward "
-        f"{out['ssd_backward_ms']:.3f} ms (device span)")
+        f"{out['flash_forward_ms']:.3f} ms, its backward kernel "
+        f"{out['flash_backward_kernels_ms']:.3f} ms (flash.backward device "
+        f"span {out['flash_backward_ms']:.3f} ms); ssd_scan kernels "
+        f"{out['ssd_kernels_ms']:.3f} ms in all, of them the backward's own "
+        f"{out['ssd_backward_kernels_ms']:.3f} ms (ssd.backward device span, "
+        f"with its rerun of the forward's passes (a) and (b), "
+        f"{out['ssd_backward_ms']:.3f} ms)")
     out["top"] = []
     for ms, count, kname in sorted(rows, reverse=True)[:6]:
         log(f"[train12]   {ms:9.3f} ms {count:6d}x  {kname[:90]}")
@@ -5102,8 +5372,11 @@ def train12_arch(torch, clock, ops, ref, arch, layers, B, S):
             f"{B * S / dt:.1f} tokens/s, loss {m['loss']:.6e}, grad_norm "
             f"{m['grad_norm']:.6e}, peak memory {m['peak_gb']:.2f} GB")
         del b
+    # step 1 with the kernels, TRAIN_STEPS timed steps and the profiled
+    # one: a forward, its recompute (remat) and a backward pass each
     launches = check_launches(cfg, None, f"{cfg.name} train", 0, 0,
-                              n_train_fwd=2 * (TRAIN_STEPS + 2))
+                              n_train_fwd=2 * (TRAIN_STEPS + 2),
+                              n_train_bwd=TRAIN_STEPS + 2)
     for i, m in enumerate(steps):
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                 and m["grad_norm"] > 0):
@@ -5339,13 +5612,14 @@ def cell_gate(torch, what: str, tok, logits, want_tok, want_logits):
 
 
 def cell_launches(cfg, what: str, n_prefill: int, n_decode: int,
-                  n_train_fwd: int = 0):
+                  n_train_fwd: int = 0, n_train_bwd: int = 0):
     """Launches since the last reset against layers x the step functions
     run: on the slab cache every attention layer (global slab, local or
-    hybrid ring) prefills and trains through ``flash_attention`` and
-    decodes through ``decode_attention``; every SSM layer prefills and
-    trains through ``ssd_scan``; the paged kernels and the dequant not at
-    all.  Fail unless equal."""
+    hybrid ring) prefills and trains through ``flash_attention`` (its
+    backward passes through ``flash_attention_backward``) and decodes
+    through ``decode_attention``; every SSM layer prefills and trains
+    through ``ssd_scan`` (``ssd_scan_backward``); the paged kernels and
+    the dequant not at all.  Fail unless equal."""
     mixers = cfg.layer_mixers()
     n_attn = sum(m in ("global", "local", "hybrid") for m in mixers)
     n_ssm = sum(m in ("mamba", "hybrid") for m in mixers)
@@ -5354,10 +5628,13 @@ def cell_launches(cfg, what: str, n_prefill: int, n_decode: int,
             "fused_dequant": 0,
             "flash_attention": n_attn * (n_prefill + n_train_fwd),
             "decode_attention": n_attn * n_decode,
-            "ssd_scan": n_ssm * (n_prefill + n_train_fwd)}
+            "ssd_scan": n_ssm * (n_prefill + n_train_fwd),
+            "flash_attention_backward": n_attn * n_train_bwd,
+            "ssd_scan_backward": n_ssm * n_train_bwd}
     log(f"[cells] {what}: launches {got}, expected {want} (layers x "
         f"{n_prefill} prefill steps, {n_decode} serve steps, "
-        f"{n_train_fwd} train-mode forwards)")
+        f"{n_train_fwd} train-mode forwards, {n_train_bwd} backward "
+        f"passes)")
     if got != want:
         fail(f"{what}: kernel launches {got} != expected {want}")
     return got
@@ -5713,20 +5990,27 @@ def cell_train(torch, clock, ops, ref):
     for i in range(CELL_TRAIN_STEPS):
         b = batch(i + 1)
         torch.cuda.synchronize()
-        t0 = clock()
-        state, m = step(state, b)
-        secs = clock() - t0
+        with backward_spans(torch, ops) as spans:
+            t0 = clock()
+            state, m = step(state, b)
+            secs = clock() - t0
         m = {k: float(v) for k, v in m.items()}
         if not (math.isfinite(m["loss"]) and m["grad_norm"] > 0):
             fail(f"mamba2-130m train_4k: step {i + 1} loss {m['loss']} "
                  f"grad_norm {m['grad_norm']}")
-        steps.append(dict(m, seconds=secs, tokens_per_s=B * S / secs))
+        bwd_ms = sum(a.elapsed_time(e) for a, e in spans["ssd.backward"])
+        steps.append(dict(m, seconds=secs, tokens_per_s=B * S / secs,
+                          ssd_backward_ms=bwd_ms,
+                          ssd_backward_calls=len(spans["ssd.backward"])))
         cell_line(torch, f"mamba2-130m train_4k step {i + 1}", B, S, secs,
                   B * S, f"; loss {m['loss']:.6e}, grad_norm "
-                  f"{m['grad_norm']:.6e}")
+                  f"{m['grad_norm']:.6e}; ssd.backward (the scan's backward "
+                  f"kernel) {bwd_ms:.3f} ms of device span in "
+                  f"{len(spans['ssd.backward'])} calls")
         del b
     launches = cell_launches(cfg, "mamba2-130m train_4k", 0, 0,
-                             n_train_fwd=2 * (1 + CELL_TRAIN_STEPS))
+                             n_train_fwd=2 * (1 + CELL_TRAIN_STEPS),
+                             n_train_bwd=1 + CELL_TRAIN_STEPS)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -5855,7 +6139,8 @@ def mesh_rank(rank, address, out_path):
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.distributed import sharding as shd
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.train import (init_rank, shard_train_state,
                                           synthetic_batch)
@@ -5897,7 +6182,7 @@ def mesh_rank(rank, address, out_path):
                 MESH_SEED + i), MESH_BATCH, MESH_SEQ, device)
             return b, shd.distribute_state(
                 b, shd.train_batch_specs(mesh, "fsdp_tp", b), mesh)
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_backward.launches = 0
         metrics, secs = [], []
         for i in range(2):
             b = batch(i)[1]
@@ -5913,6 +6198,7 @@ def mesh_rank(rank, address, out_path):
                 counts = {str(k).split(".")[-1]: v for k, v in
                           comm.get_comm_counts().items()}
         launches = flash_attention.launches
+        bwd_launches = flash_attention_backward.launches
         # the f32 masters after 2 steps, whole (a gather on every rank),
         # kept on rank 0's host
         masters = {}
@@ -5931,7 +6217,8 @@ def mesh_rank(rank, address, out_path):
         row = dict(arch=arch, data=data, model=model, ep=rt.ep_size,
                    layers=cfg.n_layers, params=n_params, init_s=init_s,
                    step_s=secs, metrics=metrics, flash_launches=launches,
-                   collectives=counts, peak_gb=peak)
+                   flash_bwd_launches=bwd_launches, collectives=counts,
+                   peak_gb=peak)
         dist.barrier()
         if rank == 0:
             row.update(mesh_single(torch, cfg, device, batch, masters))
@@ -5945,7 +6232,8 @@ def mesh_single(torch, cfg, device, batch, masters):
     """Rank 0 alone: the single-process steps at the same weights and
     batches, and the sharded run's step-1 metrics and masters against
     them."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
     from repro_torch.models.transformer import init_params
     from repro_torch.rl import grpo
     torch.cuda.reset_peak_memory_stats()
@@ -5953,7 +6241,7 @@ def mesh_single(torch, cfg, device, batch, masters):
         cfg, torch.Generator(device=device).manual_seed(MESH_SEED), device),
         device)
     step = grpo.make_train_step(cfg, lr=TRAIN_LR, remat=True)
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_backward.launches = 0
     metrics, secs = [], []
     for i in range(2):
         b = batch(i)[0]
@@ -5964,6 +6252,7 @@ def mesh_single(torch, cfg, device, batch, masters):
         secs.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
     launches = flash_attention.launches
+    bwd_launches = flash_attention_backward.launches
     n = far = 0
     worst = 0.0
     for k, w in _items(state["opt"]["master"]):
@@ -5976,7 +6265,8 @@ def mesh_single(torch, cfg, device, batch, masters):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(single_metrics=metrics, single_step_s=secs,
-                single_flash_launches=launches, single_peak_gb=peak,
+                single_flash_launches=launches,
+                single_flash_bwd_launches=bwd_launches, single_peak_gb=peak,
                 master_max_abs=worst, master_far_share=far / n)
 
 
@@ -6008,17 +6298,23 @@ def mesh_phase(torch):
         n_attn = sum(m in ("global", "local", "hybrid")
                      for m in cfg.layer_mixers())
         want = 2 * n_attn * 2              # 2 forwards (remat) x 2 steps
+        want_bwd = n_attn * 2              # a backward pass a step
         what = f"{arch} {data} x {model}"
         one, got = r0["single_metrics"][0], r0["metrics"][0]
         for r in rr:
             if r["metrics"] != r0["metrics"]:
                 fail(f"mesh {what}: the ranks' metrics differ")
-            if r["flash_launches"] != want:
+            if r["flash_launches"] != want or \
+                    r["flash_bwd_launches"] != want_bwd:
                 fail(f"mesh {what}: rank flash launches "
-                     f"{r['flash_launches']}, want {want}")
-        if r0["single_flash_launches"] != want:
+                     f"{r['flash_launches']} / backward "
+                     f"{r['flash_bwd_launches']}, want {want} / {want_bwd}")
+        if r0["single_flash_launches"] != want or \
+                r0["single_flash_bwd_launches"] != want_bwd:
             fail(f"mesh {what}: single-process flash launches "
-                 f"{r0['single_flash_launches']}, want {want}")
+                 f"{r0['single_flash_launches']} / backward "
+                 f"{r0['single_flash_bwd_launches']}, want {want} / "
+                 f"{want_bwd}")
         log(f"[mesh] {what} fsdp_tp (ep {r0['ep']}; {cfg.n_layers} layers, "
             f"{r0['params']} params): step 1 loss {got['loss']:.6e} vs one "
             f"process {one['loss']:.6e}, grad_norm {got['grad_norm']:.6e} vs "
@@ -6035,7 +6331,8 @@ def mesh_phase(torch):
             f"{[round(r['peak_gb'], 2) for r in rr]} GB (one process "
             f"{r0['single_peak_gb']:.2f} GB), gloo collectives a step "
             f"{json.dumps(r0['collectives'])}, flash launches a rank "
-            f"{[r['flash_launches'] for r in rr]}")
+            f"{[r['flash_launches'] for r in rr]}, flash backward launches "
+            f"a rank {[r['flash_bwd_launches'] for r in rr]}")
         for key in ("loss", "moe_aux"):
             if key in one and not (math.isfinite(got[key]) and abs(
                     got[key] - one[key]) <= MESH_LOSS_REL_TOL
@@ -6052,6 +6349,9 @@ def mesh_phase(torch):
                  f"{r0['master_far_share']})")
         launches["flash_attention"] += sum(r["flash_launches"] for r in rr) \
             + r0["single_flash_launches"]
+        launches["flash_attention_backward"] += sum(
+            r["flash_bwd_launches"] for r in rr) \
+            + r0["single_flash_bwd_launches"]
         rows.append({k: v for k, v in r0.items()} | {
             "peak_gb_ranks": [r["peak_gb"] for r in rr]})
     log(f"[mesh] phase wall {wall:.1f} s (spawn, probe and "
@@ -6108,7 +6408,8 @@ def examples_phase(torch, clock):
              f"{len(q['hybrid'])} hybrid steps")
     if not all(lq[k] for k in ("paged_decode_attention",
                                "paged_prefill_attention",
-                               "flash_attention")):
+                               "flash_attention",
+                               "flash_attention_backward")):
         fail(f"examples quickstart: a kernel did not launch ({lq})")
     out["quickstart"] = dict(wall_s=clock() - t0, tokens=q["tokens"],
                              metrics=mq, launches=lq)
@@ -6215,16 +6516,18 @@ def main():
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dequant import fused_dequant
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
     from repro_torch.models.transformer import init_params
     from repro_torch.obs.tracer import Tracer
     from repro_torch.serving.engine import InferenceEngine
 
     KERNELS[:] = [paged_decode_attention, paged_prefill_attention,
-                  fused_dequant, flash_attention, decode_attention, ssd_scan]
+                  fused_dequant, flash_attention, decode_attention, ssd_scan,
+                  flash_attention_backward, ssd_scan_backward]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -6255,12 +6558,14 @@ def main():
     check_decode_long(torch, ref, paged_decode_attention)
     pre, pre_cases = check_prefill(torch, F, ref, paged_prefill_attention)
     deq = check_dequant(torch, ref, fused_dequant)
-    fla, fla_cases = check_flash(torch, F, ref, flash_attention)
+    fla, fla_bwd, fla_cases = check_flash(torch, F, ref, flash_attention,
+                                          flash_attention_backward)
     slab, slab_long_row = check_slab_decode(torch, F, ref, decode_attention)
     gemma_rings = check_gemma_rings(torch, F, ref, decode_attention)
     served_paged = check_served_paged(torch, F, ref, paged_decode_attention,
                                       paged_prefill_attention)
-    ssd, ssd_served_rows = check_ssd(torch, ref, ops, ssd_scan)
+    ssd, ssd_bwd, ssd_served_rows = check_ssd(torch, ref, ssd_scan,
+                                              ssd_scan_backward)
 
     # ---- 3. the engine at full width ----
     cfg = get_config("qwen3-8b")
@@ -6460,11 +6765,19 @@ def main():
              "src/repro_torch/kernels/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:91", slab, hyb_launches),
             ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches)):
+             "src/repro/kernels/ssd_scan.py:86", ssd, hyb_launches),
+            # no TPU kernel: the reference's trainer differentiates its jnp
+            # attention and chunked scan, the functions named here
+            ("flash_attention_backward",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/models/attention.py:82", fla_bwd, train_launches),
+            ("ssd_scan_backward",
+             "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+             "src/repro/models/ssm.py:36", ssd_bwd, hyb_launches)):
         # phases 9-15 run the paged kernels and flash too (phase 11
-        # decode_attention, phases 12-13 ssd_scan; phase 14 flash, in its
-        # ranks' processes; phases 9 and 15 fused_dequant): their
-        # launches add
+        # decode_attention, phases 12-13 ssd_scan and its backward; phase 14
+        # flash and its backward, in its ranks' processes; phases 9 and 15
+        # fused_dequant and the flash backward): their launches add
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces,
                          launches=(n[name] + rl_launches[name]

@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "paged_prefill", "dequant", "flash_attention",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "flash_attention_bwd",
+           "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -118,4 +118,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
       : "memory");
 }
 
+// Lets `kernel` launch with `bytes` of dynamic shared memory (an opt-in
+// above 48 KB).  Returns the cudaError_t as an int, 0 when none is needed.
+template <typename K>
+inline int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
 }  // namespace sm90

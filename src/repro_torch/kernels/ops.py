@@ -22,15 +22,20 @@ from repro_torch.kernels.decode_attention import decode_attention as \
 from repro_torch.kernels.dequant import fused_dequant as _dequant_kernel
 from repro_torch.kernels.flash_attention import flash_attention as \
     _flash_kernel
+from repro_torch.kernels.flash_attention import flash_attention_backward \
+    as _flash_bwd_kernel
+from repro_torch.kernels.flash_attention import tma_layout_ok
 from repro_torch.kernels.paged_attention import paged_decode_attention as \
     _decode_kernel
 from repro_torch.kernels.paged_prefill import paged_prefill_attention as \
     _prefill_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan_backward as _ssd_bwd_kernel
 
 # every kernel wrapper; each counts its launches in ``.launches``
 KERNEL_WRAPPERS = (_decode_kernel, _prefill_kernel, _dequant_kernel,
-                   _flash_kernel, _slab_decode_kernel, _ssd_kernel)
+                   _flash_kernel, _slab_decode_kernel, _ssd_kernel,
+                   _flash_bwd_kernel, _ssd_bwd_kernel)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -63,32 +68,40 @@ def fused_dequant(q, scale, base=None):
 
 
 def _flash_backward(q, k, v, grad_out, causal: bool, window: int,
-                    cap: float):
-    """Gradients of the plain version at (q, k, v): the forward is
-    recomputed in f32 under autograd, the way the reference's trainer
-    differentiates its jnp path (its Pallas kernel has no backward)."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        out = ref.flash_attention_ref(*leaves, causal=causal, window=window,
-                                      cap=cap)
-        return torch.autograd.grad(out, leaves, grad_out)
+                    cap: float, *, out):
+    """(dq, dk, dv) at (q, k, v) for the output gradient ``grad_out``,
+    ``out`` the forward's output: the backward kernel on CUDA tensors, its
+    plain version on CPU tensors.  The reference's Pallas kernel has no
+    backward (its trainer differentiates its jnp path); these are the
+    same gradients."""
+    opts = dict(causal=causal, window=window, cap=cap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_backward_ref(q, k, v, out, grad_out,
+                                                **opts)
+    # autograd may hand over any layout; the kernel reads rows in place
+    if not tma_layout_ok(grad_out.data_ptr(), grad_out.stride(),
+                         grad_out.element_size()):
+        grad_out = grad_out.contiguous()
+    return _flash_bwd_kernel(q, k, v, out, grad_out, **opts)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward through the kernel; backward through ``_flash_backward``.
-    Tensors are [B, H, S, d] / [B, K, S, d] views."""
+    """Forward through the kernel; backward through ``_flash_backward``
+    (the backward kernel on the card).  Tensors are [B, H, S, d] /
+    [B, K, S, d] views."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap):
-        ctx.save_for_backward(q, k, v)
+        out = _flash_kernel(q, k, v, causal=causal, window=window, cap=cap)
+        ctx.save_for_backward(q, k, v, out)
         ctx.opts = (causal, window, cap)
-        return _flash_kernel(q, k, v, causal=causal, window=window, cap=cap)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        return (*_flash_backward(q, k, v, grad_out, *ctx.opts), None, None,
-                None)
+        q, k, v, out = ctx.saved_tensors
+        return (*_flash_backward(q, k, v, grad_out, *ctx.opts, out=out),
+                None, None, None)
 
 
 def _rank_local(fn, args, roles, out_roles, out_shapes, heads_ok):
@@ -144,7 +157,7 @@ def attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
     """The model's full-sequence attention: q [B, S, H, d] unscaled,
     k/v [B, S, K, d] -> [B, S, H, d] in q's dtype.  Differentiable on both
     devices: on the CPU through the plain version, on CUDA through the
-    kernel's forward and the plain version's recomputed backward.  On
+    forward and backward kernels.  On
     DTensors it runs rank-local (see the module note): heads stay
     sharded over a mesh dim that divides both H and K."""
     if _is_dtensor(q):
@@ -181,25 +194,25 @@ def decode_bshd(q, k_cache, v_cache, lengths, *, window: int = 0,
 
 
 def _ssd_backward(x, dt, A, B, C, grad_y, grad_state, chunk: int):
-    """Gradients of the scan at (x, dt, A, B, C) for the gradients of its
-    y and of its final state (either ``None`` when that output is
-    unused): the plain chunked scan (``models.ssm.ssd_chunked``, the path
-    the reference's trainer differentiates; its Pallas kernel has no
-    backward) recomputed in f32 under autograd."""
-    from repro_torch.models.ssm import ssd_chunked
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
-        outs = zip(ssd_chunked(*leaves, chunk=chunk), (grad_y, grad_state))
-        outs = [(o, g) for o, g in outs if g is not None]
-        return torch.autograd.grad([o for o, _ in outs], leaves,
-                                   [g for _, g in outs])
+    """(dx, ddt, dA, dB, dC) of the scan at (x, dt, A, B, C) for the
+    gradients of its y and of its final state (either ``None`` when that
+    output is unused): the backward kernel on CUDA tensors, its plain
+    version on CPU tensors.  The reference's Pallas kernel has no backward
+    (its trainer differentiates its chunked jnp scan); these are the same
+    gradients."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_backward_ref(x, dt, A, B, C, grad_y, grad_state,
+                                         chunk=chunk)
+    if grad_y is not None and grad_y.stride(-1) != 1:
+        grad_y = grad_y.contiguous()
+    return _ssd_bwd_kernel(x, dt, A, B, C, grad_y, grad_state, chunk=chunk)
 
 
 class _SSDScan(torch.autograd.Function):
     """Forward through the scan kernel; backward through
-    ``_ssd_backward``.  Both outputs carry a gradient: the final state's
-    is ``None`` when the caller does not use the state (the train
-    forward uses y only) and is then left out of the recompute."""
+    ``_ssd_backward`` (the backward kernel on the card).  Both outputs
+    carry a gradient: the final state's is ``None`` when the caller does
+    not use the state (the train forward uses y only)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -217,8 +230,8 @@ class _SSDScan(torch.autograd.Function):
 def ssd(x, dt, A, B, C, *, chunk: int = 64):
     """The Mamba-2 SSD scan from a zero state: (y [b, L, H, P], final
     state [b, H, P, N]), both f32.  Differentiable on both devices: on the
-    CPU through the plain sequential version, on CUDA through the
-    kernel's forward and the plain chunked scan's recomputed backward.  On
+    CPU through the plain sequential version, on CUDA through the forward
+    and backward kernels.  On
     DTensors it runs rank-local (see the module note): heads stay sharded
     over a mesh dim that divides H, with B / C's groups sharded alike
     where it divides G too, or whole where there is one group."""

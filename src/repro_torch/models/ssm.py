@@ -12,8 +12,9 @@ the conv and the one-token decode step are plain PyTorch, as the reference
 left them to XLA.  The scan always starts from a zero state (the
 reference's ``initial_state`` is unused on the serving and train paths).
 ``ssd_chunked`` is the reference's plain chunked scan, the function its
-trainer differentiates: the CUDA scan's backward recomputes through it
-(``kernels.ops._ssd_backward``).
+trainer differentiates; on the card the scan's gradient comes from its
+backward kernel (``kernels.ops._ssd_backward``), and ``ssd_chunked``
+under autograd is the yardstick it is held against.
 """
 
 from __future__ import annotations

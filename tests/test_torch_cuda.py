@@ -30,9 +30,13 @@ decode also at G = 1 (the MoE
 configs' 16 / 16 heads); the four attention kernels at gemma3's head dim
 of 256 and at gemma2's G = 2 with a softcap of 50, and a tiny gemma3's
 decode horizon as a graph; the flash attention at hubert's d = 80
-(bidirectional), and the gradients of ``ops.ssd`` (the kernel's forward,
-the recomputed plain backward) against autograd through the plain
-scan; and at the (arch x shape) cells' lengths, the flash attention at S
+(bidirectional), and the gradients of ``ops.ssd`` (the forward and
+backward kernels) against autograd through the plain scan; the two
+backward kernels (``flash_attention_backward``, ``ssd_scan_backward``)
+against autograd through the plain versions (bf16 within 2e-2, f32 and
+the 3xTF32 scan within 1e-4 of each gradient's max |want|), bit-identical
+on a second launch, on the model's strided views, and raising on inputs
+they do not take; and at the (arch x shape) cells' lengths, the flash attention at S
 = 32,768 (G = 7) and at S = 524,288 with a window (first and last 128
 query rows against the plain attention of those rows), the slab decode
 over decode_32k's slab of 32,896 slots, and the scan over 524,288
@@ -64,10 +68,11 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (SPLIT_CAP, decode_attention,
                                                   plan_splits)
 from repro_torch.kernels.dequant import fused_dequant
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_backward)
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
 from repro_torch.models import moe
 from repro_torch.models.transformer import init_params
 from repro_torch.rl.sampler import request_key
@@ -1426,6 +1431,193 @@ def test_delta_int8_onto_owned_leaves_replays_at_qwen3_8b_width_on_card(
         bound = scale / 2 + (2.0 ** -8 + 2.0 ** -22) * torch.maximum(
             rows(a).abs(), rows(target[k]).abs())
         assert bool((err <= bound).all()), k
+
+
+# ---------------------------- the backward kernels ------------------------ #
+# each gradient's max |got - want| over its max |want|: bf16 gradients are
+# rounded once from f32 sums and the flash kernel rounds P and dS to bf16
+# for its products; f32 flash (CUDA cores) and the 3xTF32 scan sum in
+# another order (as test_ssd_function_grads_match_plain_autograd_on_card
+# holds the scan's gradients)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (B, H, K, S, d, causal, window, cap): a few shapes per feature (GQA,
+# window, MQA with a softcap, bidirectional, bidirectional with a window,
+# ragged S, G = 5 and 7, every head dim, one position)
+FLASH_BWD_CASES = [(2, 4, 2, 256, 64, True, 0, 0.0),
+                   (1, 4, 4, 256, 64, True, 64, 0.0),
+                   (2, 2, 1, 128, 32, True, 0, 50.0),
+                   (1, 8, 2, 256, 128, False, 0, 0.0),
+                   (1, 6, 3, 301, 64, False, 100, 25.0),
+                   (2, 4, 2, 200, 64, True, 48, 20.0),
+                   (2, 10, 2, 259, 64, True, 130, 0.0),
+                   (1, 7, 1, 190, 128, True, 0, 0.0),
+                   (2, 4, 4, 77, 80, False, 0, 0.0),
+                   (1, 4, 2, 150, 256, True, 64, 30.0),
+                   (1, 4, 4, 1, 128, True, 0, 0.0)]
+
+
+def _grad_err(got, want):
+    """max |got - want| over max |want|, floored at 1e-2: at S = 1 the
+    softmax of one key is constant, so dq and dk are exactly zero, and the
+    kernel's dP - D there is f32 rounding of two sums taken in other
+    orders (their magnitude ~1e-5)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-2)
+
+
+def _flash_plain_grads(args, do, opts):
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    out = ref.flash_attention_ref(*leaves, **opts)
+    return torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,d,causal,window,cap", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain_on_card(cuda, B, H, K, S, d,
+                                                     causal, window, cap,
+                                                     dtype):
+    """``flash_attention_backward`` against autograd through the plain
+    version on the same inputs, head-major and as views of the model's
+    [B, S, heads, d] layout (each gradient in its input's memory order),
+    within BWD_TOL of each gradient's max |want|; a second launch
+    bit-identical."""
+    opts = dict(causal=causal, window=window, cap=cap)
+    args = [_th(a, dtype, cuda) for a in _flash_inputs(B, H, K, S, d, seed=3)]
+    do = _th(np.random.RandomState(4).randn(B, H, S, d).astype(np.float32),
+             dtype, cuda)
+    out = ref.flash_attention_ref(*args, **opts)
+    want = _flash_plain_grads(args, do, opts)
+    got = flash_attention_backward(*args, out, do, **opts)
+    again = flash_attention_backward(*args, out, do, **opts)
+    bshd = [a.transpose(1, 2).contiguous().transpose(1, 2)
+            for a in args + [out, do]]
+    got2 = flash_attention_backward(*bshd, **opts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for g, g2, w, a in zip(got, got2, want, args):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        assert g2.transpose(1, 2).is_contiguous()
+        assert _grad_err(g, w) <= BWD_TOL[dtype]
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_function_backward_runs_the_kernel_on_card(cuda, dtype):
+    """``ops.attention_bshd`` under autograd on the card: one forward and
+    one backward launch, no plain backward, gradients within BWD_TOL of
+    autograd through the plain attention."""
+    B, H, K, S, d = 2, 8, 2, 300, 128
+    opts = dict(causal=True, window=0, cap=0.0)
+    args = [_th(a, dtype, cuda).transpose(1, 2).contiguous()
+            for a in _flash_inputs(B, H, K, S, d, seed=5)]
+    w = _th(np.random.RandomState(6).randn(B, S, H, d).astype(np.float32),
+            dtype, cuda)
+    leaves = [a.requires_grad_(True) for a in args]
+    f0, b0 = flash_attention.launches, flash_attention_backward.launches
+    got = torch.autograd.grad(ops.attention_bshd(*leaves, **opts), leaves, w)
+    assert flash_attention.launches == f0 + 1
+    assert flash_attention_backward.launches == b0 + 1
+    plain = [a.detach().requires_grad_(True) for a in args]
+    out = ref.flash_attention_ref(*(a.transpose(1, 2) for a in plain),
+                                  **opts).transpose(1, 2)
+    want = torch.autograd.grad(out, plain, w)
+    for g, wt in zip(got, want):
+        assert _rel(g, wt) <= BWD_TOL[dtype]
+
+
+# (b, L, H, G, P, N, chunk): both families' geometries cut short, G > 1, a
+# ragged L, L below one chunk, a shorter chunk, Hymba's 50 heads of one
+# group (head blocks of 8: the last one partial)
+SSD_BWD_CASES = [(2, 150, 6, 2, 32, 16, 64), (1, 64, 4, 1, 64, 128, 64),
+                 (1, 75, 4, 2, 16, 16, 32), (1, 20, 4, 1, 8, 8, 32),
+                 (1, 256, 50, 1, 64, 16, 64), (2, 130, 24, 1, 64, 128, 64)]
+
+
+def _ssd_plain_grads(args, gy, gs, chunk):
+    from repro_torch.models.ssm import ssd_chunked
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    outs = [(o, g) for o, g in zip(ssd_chunked(*leaves, chunk=chunk),
+                                   (gy, gs)) if g is not None]
+    return torch.autograd.grad([o for o, _ in outs], leaves,
+                               [g for _, g in outs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_state", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,L,H,G,P,N,chunk", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain_on_card(cuda, b, L, H, G, P, N,
+                                                   chunk, dtype, use_state):
+    """``ssd_scan_backward`` against autograd through the plain chunked
+    scan on the same inputs, with the final state's gradient and with y's
+    alone: each gradient in its input's dtype, within BWD_TOL of its max
+    |want|; a second launch bit-identical."""
+    x, dt, A, B, C = _ssd_inputs(b, L, H, G, P, N, seed=9)
+    args = [_th(a, dtype, cuda) for a in (x, dt)] + [_th(A, "float32", cuda)] \
+        + [_th(a, dtype, cuda) for a in (B, C)]
+    rs = np.random.RandomState(10)
+    gy = torch.from_numpy(rs.randn(b, L, H, P).astype(np.float32)).to(cuda)
+    gs = torch.from_numpy(rs.randn(b, H, P, N).astype(np.float32)).to(cuda) \
+        if use_state else None
+    want = _ssd_plain_grads(args, gy, gs, chunk)
+    got = ssd_scan_backward(*args, gy, gs, chunk=chunk)
+    again = ssd_scan_backward(*args, gy, gs, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, a2, w, a in zip(got, again, want, args):
+        assert torch.equal(g, a2)
+        assert g.dtype == a.dtype and g.shape == a.shape
+        assert _rel(g, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_ssd_backward_kernel_on_strided_conv_slices_on_card(cuda):
+    """x, B and C as the model passes them, strided slices of one conv
+    output, and dy a transposed view: the same gradients as on dense
+    copies, bit for bit."""
+    b, L, H, G, P, N, chunk = 2, 200, 6, 2, 32, 16, 64
+    rs = np.random.RandomState(12)
+    xbc = torch.from_numpy(rs.randn(b, L, H * P + 2 * G * N)
+                           .astype(np.float32)).to(cuda)
+    x = xbc[..., :H * P].reshape(b, L, H, P)
+    B = xbc[..., H * P:H * P + G * N].reshape(b, L, G, N)
+    C = xbc[..., H * P + G * N:].reshape(b, L, G, N)
+    dt = torch.from_numpy(np.log1p(np.exp(rs.randn(b, L, H)))
+                          .astype(np.float32)).to(cuda)
+    A = torch.from_numpy(-np.exp(rs.randn(H) * 0.3).astype(np.float32)) \
+        .to(cuda)
+    gy = torch.from_numpy(rs.randn(b, H, L, P).astype(np.float32)).to(cuda) \
+        .transpose(1, 2)
+    got = ssd_scan_backward(x, dt, A, B, C, gy, None, chunk=chunk)
+    dense = ssd_scan_backward(x.contiguous(), dt, A, B.contiguous(),
+                              C.contiguous(), gy.contiguous(), None,
+                              chunk=chunk)
+    for g, w in zip(got, dense):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_raise_on_unsupported_inputs_on_card(cuda):
+    """On CUDA tensors the backward kernels run or raise: a head dim the
+    flash kernel has no tile for, a bf16 gradient it cannot read by
+    cp.async, and a state width past the scan backward's N raise instead
+    of falling back to a plain version."""
+    q = torch.randn(1, 2, 16, 48, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_backward(q, q, q, q, q)
+    qb = torch.randn(1, 2, 16, 64, device=cuda).bfloat16()
+    odd = torch.randn(1, 2, 16, 65, device=cuda).bfloat16()[..., 1:]
+    with pytest.raises(ValueError):
+        flash_attention_backward(qb, qb, qb, qb, odd)
+    x = torch.randn(1, 64, 2, 16, device=cuda)
+    dt = torch.rand(1, 64, 2, device=cuda)
+    A = -torch.ones(2, device=cuda)
+    Bm = torch.randn(1, 64, 1, 256, device=cuda)
+    with pytest.raises(ValueError):
+        ssd_scan_backward(x, dt, A, Bm, Bm, torch.randn_like(x), None)
 
 
 @pytest.mark.cuda

@@ -88,15 +88,8 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.dequant import fused_dequant
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.kernels.paged_prefill import paged_prefill_attention
-from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.serving.engine import InferenceEngine
-cs.KERNELS[:] = [paged_decode_attention, paged_prefill_attention,
-                 fused_dequant, flash_attention, decode_attention, ssd_scan]
+cs.KERNELS[:] = list(ops.KERNEL_WRAPPERS)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 build.build()
@@ -482,15 +475,8 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("decode_ab needs a CUDA device")
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.dequant import fused_dequant
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.paged_prefill import paged_prefill_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    cs.KERNELS[:] = [paged_decode_attention, paged_prefill_attention,
-                     fused_dequant, flash_attention, decode_attention,
-                     ssd_scan]
+    from repro_torch.kernels import ops
+    cs.KERNELS[:] = list(ops.KERNEL_WRAPPERS)
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = device_line()
     out = dict(device=smi, torch=torch.__version__,

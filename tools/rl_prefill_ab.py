@@ -59,17 +59,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("rl_prefill_ab: torch.cuda.is_available() is false")
     from repro_torch.core.spot_trace import TraceEvent
-    from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.dequant import fused_dequant
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.paged_prefill import paged_prefill_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels import build, ops
     from repro_torch.serving import engine as engine_mod
-    cs.KERNELS[:] = [paged_decode_attention, paged_prefill_attention,
-                     fused_dequant, flash_attention, decode_attention,
-                     ssd_scan]
+    cs.KERNELS[:] = list(ops.KERNEL_WRAPPERS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build()
